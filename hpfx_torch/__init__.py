@@ -1,0 +1,40 @@
+"""hpfx_torch — harmonic power flow in PyTorch, for NVIDIA Hopper.
+
+The PyTorch/CUDA port of the JAX package ``hpfx``, which stays the
+reference.  Module names follow ``hpfx``; this package never imports JAX
+or ``hpfx``, and reads the shared data files under ``hpfx/data/`` by
+path.  Devices come from the input tensors (or ``device=`` on the
+loaders); nothing moves data to a GPU behind the caller's back.
+
+Importing the package pins float32 matmuls to full precision (TF32 off):
+a TF32 contraction keeps ~3 decimal digits and stalls Newton-Raphson at a
+residual floor above the harmonic threshold.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from . import cx  # noqa: E402
+from .config import Settings, default_harmonics, settings_for_hmax  # noqa: E402
+from .convert import from_hpfx_arrays  # noqa: E402
+from .cx import Cx  # noqa: E402
+from .devices import DATA_DIR, DeviceSet, load_device_set  # noqa: E402
+from .harmonic import HPFResult, cleanup_voltages  # noqa: E402
+from .lanes import PhaseLog, hpf_sweep_adaptive_lanes  # noqa: E402
+from .network import Network, load_network, validate_network  # noqa: E402
+from .ops.batched_solve import (LAUNCHES, batched_solve_lanes,  # noqa: E402
+                                gauss_solve_lanes, gj_solve_lanes_ref)
+from .results import get_thd  # noqa: E402
+from .solve import Scenarios, hpf_sweep, hpf_sweep_device  # noqa: E402
+from .ybus import build_ybus  # noqa: E402
+
+__all__ = [
+    "Cx", "DATA_DIR", "DeviceSet", "HPFResult", "LAUNCHES", "Network",
+    "PhaseLog", "Scenarios", "Settings", "batched_solve_lanes", "build_ybus",
+    "cleanup_voltages", "cx", "default_harmonics", "from_hpfx_arrays",
+    "gauss_solve_lanes", "get_thd", "gj_solve_lanes_ref", "hpf_sweep",
+    "hpf_sweep_adaptive_lanes", "hpf_sweep_device", "load_device_set",
+    "load_network", "settings_for_hmax", "validate_network",
+]

@@ -1,0 +1,41 @@
+"""State carried across from the JAX package.
+
+The port never imports ``hpfx`` (its ``__init__`` imports JAX), so the
+hand-over is plain data: the caller flattens ``hpfx.network.Network`` and
+``hpfx.devices.DeviceSet`` into numpy arrays and Python values, and
+:func:`from_hpfx_arrays` rebuilds the port's objects from them, so both
+packages compute from bit-identical inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cx import Cx
+from .devices import DeviceSet
+from .network import ARRAY_FIELDS, Network
+
+
+def from_hpfx_arrays(net_leaves: dict, dev_leaves: dict, device=None):
+    """Rebuild ``(Network, DeviceSet)`` on ``device``.
+
+    ``net_leaves`` maps every field of ``hpfx.network.Network`` to its
+    value: numpy arrays for the array fields, the Python values of
+    ``n``/``m``/``c``/``bus_types``/``components``.  ``dev_leaves`` holds
+    ``I_N`` and ``Y_N`` as ``(re, im)`` numpy pairs and ``coupled``.
+    Floating arrays keep their dtype; bus indices become int64.
+    """
+    def t(a):
+        a = np.asarray(a)
+        dt = None if a.dtype.kind == "f" else torch.int64
+        return torch.tensor(a, dtype=dt, device=device)      # a copy
+
+    net = Network(**{k: t(net_leaves[k]) for k in ARRAY_FIELDS},
+                  n=int(net_leaves["n"]), m=int(net_leaves["m"]),
+                  c=int(net_leaves["c"]),
+                  bus_types=tuple(net_leaves["bus_types"]),
+                  components=tuple(net_leaves["components"]))
+    dev = DeviceSet(I_N=Cx(*map(t, dev_leaves["I_N"])),
+                    Y_N=Cx(*map(t, dev_leaves["Y_N"])),
+                    coupled=bool(dev_leaves["coupled"]))
+    return net, dev

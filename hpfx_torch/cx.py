@@ -1,0 +1,177 @@
+"""Split-complex arithmetic: complex tensors as (re, im) real pairs.
+
+The PyTorch counterpart of :mod:`hpfx.cx`.  The (re, im) layout is kept
+for three reasons: every kernel operand stays real, the polar-coordinate
+Jacobian of the solver is real anyway, and the port's intermediates
+compare one to one with the JAX package's.
+
+``Cx`` is a NamedTuple of two equal-shaped real tensors.  JAX's immutable
+``.at[idx].set/add`` updates become :meth:`Cx.at_set` / :meth:`Cx.at_add`,
+which work on a clone and return it, so callers keep the functional style
+of the reference.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class Cx(NamedTuple):
+    """A complex tensor stored as two equal-shaped real tensors."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+
+    # -- structure ----------------------------------------------------------
+    @property
+    def shape(self):
+        return self.re.shape
+
+    @property
+    def ndim(self):
+        return self.re.ndim
+
+    @property
+    def dtype(self):
+        return self.re.dtype
+
+    @property
+    def device(self):
+        return self.re.device
+
+    def __getitem__(self, idx) -> "Cx":
+        return Cx(self.re[idx], self.im[idx])
+
+    def reshape(self, *shape) -> "Cx":
+        return Cx(self.re.reshape(*shape), self.im.reshape(*shape))
+
+    def transpose(self, *axes) -> "Cx":
+        """Axis permutation with numpy/JAX semantics (not torch's swap)."""
+        return Cx(self.re.permute(*axes), self.im.permute(*axes))
+
+    @property
+    def T(self) -> "Cx":
+        axes = tuple(reversed(range(self.ndim)))
+        return Cx(self.re.permute(*axes), self.im.permute(*axes))
+
+    def to(self, *args, **kwargs) -> "Cx":
+        return Cx(self.re.to(*args, **kwargs), self.im.to(*args, **kwargs))
+
+    # -- arithmetic ---------------------------------------------------------
+    def __add__(self, o):
+        if isinstance(o, Cx):
+            return Cx(self.re + o.re, self.im + o.im)
+        return Cx(self.re + o, self.im)          # real scalar/tensor
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        if isinstance(o, Cx):
+            return Cx(self.re - o.re, self.im - o.im)
+        return Cx(self.re - o, self.im)
+
+    def __neg__(self):
+        return Cx(-self.re, -self.im)
+
+    def __mul__(self, o):
+        if isinstance(o, Cx):
+            return Cx(self.re * o.re - self.im * o.im,
+                      self.re * o.im + self.im * o.re)
+        return Cx(self.re * o, self.im * o)      # real scalar/tensor
+
+    __rmul__ = __mul__
+
+    def conj(self) -> "Cx":
+        return Cx(self.re, -self.im)
+
+    def jmul(self) -> "Cx":
+        """Multiply by the imaginary unit."""
+        return Cx(-self.im, self.re)
+
+    def abs2(self) -> torch.Tensor:
+        return self.re * self.re + self.im * self.im
+
+    def abs(self) -> torch.Tensor:
+        return torch.sqrt(self.abs2())
+
+    def angle(self) -> torch.Tensor:
+        return torch.atan2(self.im, self.re)
+
+    # -- functional updates (apply to both components) -----------------------
+    def at_set(self, idx, val: "Cx") -> "Cx":
+        """Copy with ``out[idx] = val`` (JAX ``.at[idx].set``)."""
+        return Cx(_set(self.re, idx, val.re), _set(self.im, idx, val.im))
+
+    def at_add(self, idx, val: "Cx") -> "Cx":
+        """Copy with ``out[idx] += val``, accumulating over repeated
+        indices like JAX ``.at[idx].add`` (``index_put`` semantics)."""
+        return Cx(_add(self.re, idx, val.re), _add(self.im, idx, val.im))
+
+
+def _set(x: torch.Tensor, idx, val) -> torch.Tensor:
+    out = x.clone()
+    out[idx] = val
+    return out
+
+
+def _add(x: torch.Tensor, idx, val) -> torch.Tensor:
+    out = x.clone()
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if not any(isinstance(i, torch.Tensor) for i in idx):
+        out[idx] += val                          # basic slicing: a view
+        return out
+    # advanced indices may repeat (two lines into one bus): scatter-add on
+    # the flat linear positions the index selects, so repeats accumulate
+    lin = torch.arange(out.numel(), device=out.device).view(out.shape)[idx]
+    val = torch.as_tensor(val, dtype=out.dtype, device=out.device)
+    out.view(-1).index_add_(0, lin.reshape(-1),
+                            val.expand(lin.shape).reshape(-1))
+    return out
+
+
+# -- constructors -----------------------------------------------------------
+
+def from_numpy(arr, dtype, device=None) -> Cx:
+    """Host-side complex (or real) numpy array -> Cx on ``device``."""
+    arr = np.asarray(arr)
+    mk = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+    return Cx(mk(np.real(arr)), mk(np.imag(arr)))
+
+
+def polar(mag, ang) -> Cx:
+    """mag·e^{j·ang}.  ``mag`` may be signed (harmonic magnitudes go
+    negative mid-iteration by design)."""
+    return Cx(mag * torch.cos(ang), mag * torch.sin(ang))
+
+
+def expj(ang) -> Cx:
+    return Cx(torch.cos(ang), torch.sin(ang))
+
+
+def zeros(shape, dtype, device=None) -> Cx:
+    return Cx(torch.zeros(shape, dtype=dtype, device=device),
+              torch.zeros(shape, dtype=dtype, device=device))
+
+
+# -- contractions (each = 4 real contractions) -------------------------------
+#
+# float32 matmuls must run in full float32: the package pins TF32 off at
+# import (hpfx_torch/__init__.py) — a TF32 contraction keeps ~3 decimal
+# digits and stalls Newton at a residual floor far above thresh_h.
+
+def einsum(pattern: str, a: Cx, b: Cx) -> Cx:
+    es = lambda x, y: torch.einsum(pattern, x, y)
+    return Cx(es(a.re, b.re) - es(a.im, b.im),
+              es(a.re, b.im) + es(a.im, b.re))
+
+
+def where(mask, a: Cx, b: Cx) -> Cx:
+    return Cx(torch.where(mask, a.re, b.re), torch.where(mask, a.im, b.im))
+
+
+def concatenate(parts, axis=0) -> Cx:
+    return Cx(torch.cat([p.re for p in parts], axis),
+              torch.cat([p.im for p in parts], axis))

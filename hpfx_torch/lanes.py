@@ -1,0 +1,778 @@
+"""Lane-major batched harmonic power flow: the port of :mod:`hpfx.lanes`.
+
+Every tensor of the batched Newton trip carries the scenario batch on its
+LAST axis: voltages (H, n, B), Jacobian blocks (H, 2n, 2n, B), residuals
+(dim, B).  The solves of the trip take those lane-major operands as they
+are (``hpfx_torch.ops.batched_solve``).  The math is that of the JAX
+module, function for function, with the same names, so intermediates
+compare one to one.
+
+Scope of the port: the structured arrow Newton step (``Settings.solver =
+"arrow"``) with stacked Norton-equivalent devices (:class:`DeviceSet`,
+coupled or uncoupled), plain or stable mismatch, PV buses and per-device
+injection scales.  ``lax.while_loop`` becomes a Python ``while`` on
+``bool(active.any())``: one device-to-host synchronisation per Newton
+trip.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import cx
+from .arrow import ArrowIndex, make_arrow_index
+from .config import Settings
+from .cx import Cx
+from .devices import DeviceSet
+from .fundamental import FundResult
+from .harmonic import HPFResult, cleanup_voltages
+from .network import Network
+from .ops.batched_solve import batched_solve_lanes
+from .warmstart import _floor_seed_mag
+from .ybus import LineYbus, resolve_ybus
+
+#: memory budget for the warm-seed embedded matrix (2N, 2N, chunk): the
+#: seed assembly and solve chunk the lane axis to stay under it
+SEED_CHUNK_BYTES = 1 << 31
+
+_all = slice(None)
+
+
+# ---------------------------------------------------------------------------
+# measurement: wall time and Newton trips per phase
+# ---------------------------------------------------------------------------
+
+class PhaseLog:
+    """Wall time and Newton trips of each phase of a sweep.
+
+    Pass one as ``log=`` to :func:`hpf_sweep_adaptive_lanes` or
+    ``hpfx_torch.solve.hpf_sweep_device``.  A phase synchronises the
+    device at its start and end, so its time includes all the work it
+    queued; that is one synchronisation per phase boundary, on top of the
+    one per trip the loops already make.  ``trips`` counts Newton loop
+    trips (fundamental and harmonic) run inside the phase."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.trips = {}
+        self._current = None
+
+    @contextlib.contextmanager
+    def phase(self, name: str, device):
+        _sync(device)
+        t0 = time.perf_counter()
+        prev, self._current = self._current, name
+        self.trips.setdefault(name, 0)
+        try:
+            yield
+        finally:
+            _sync(device)
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            self._current = prev
+
+    def trip(self):
+        if self._current is not None:
+            self.trips[self._current] += 1
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _phase(log: Optional[PhaseLog], name: str, device):
+    return contextlib.nullcontext() if log is None else log.phase(name, device)
+
+
+def _trip(log: Optional[PhaseLog]):
+    if log is not None:
+        log.trip()
+
+
+def _as_inj_db(inj, n_nl: int, B: int):
+    """Injection scale as device-major (n_nl, B): a (B,) per-scenario
+    scale broadcasts over devices; 2-D input is already (n_nl, B)."""
+    if inj.ndim == 1:
+        return inj[None, :].expand(n_nl, B)
+    return inj
+
+
+# ---------------------------------------------------------------------------
+# mismatch (lane-major)
+# ---------------------------------------------------------------------------
+
+def _polar_diff_lanes(mu_a, th_a, mu_b, th_b) -> Cx:
+    """mu_a·e^{j th_a} − mu_b·e^{j th_b} without cancellation
+    (``hpfx.ybus._polar_diff``), elementwise."""
+    dmu = mu_a - mu_b
+    delta = th_b - th_a
+    s_half = torch.sin(0.5 * delta)
+    re_local = dmu + 2.0 * mu_b * s_half * s_half
+    im_local = -mu_b * torch.sin(delta)
+    return cx.expj(th_a) * Cx(re_local, im_local)
+
+
+def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
+    """Cancellation-free Y·V on (H, n, B) polar voltages
+    (``hpfx.lanes.stable_matvec_lanes``): per-line flows, each difference
+    taken in polar form, summed into buses by a one-hot incidence
+    contraction."""
+    f, t = lineY.f_idx, lineY.t_idx
+    a_ff = lineY.a_ff[:, None]                  # (L, 1)
+    inv_tau = lineY.inv_tau[:, None]
+    shift = lineY.shift[:, None]
+    flow_f = lineY.Ys[..., None] * _polar_diff_lanes(
+        V_m[:, f] * a_ff, V_a[:, f], V_m[:, t] * inv_tau, V_a[:, t] + shift)
+    flow_t = lineY.Ys[..., None] * _polar_diff_lanes(
+        V_m[:, t], V_a[:, t], V_m[:, f] * inv_tau, V_a[:, f] - shift)
+    out = lineY.d[..., None] * cx.polar(V_m, V_a)
+    n = V_m.shape[1]
+    arange_n = torch.arange(n, device=V_m.device)[:, None]
+    Minc = torch.cat([f[None, :] == arange_n, t[None, :] == arange_n],
+                     dim=1).to(V_m.dtype)              # (n, 2L)
+    flows = cx.concatenate([flow_f, flow_t], axis=1)   # (H, 2L, B)
+    acc = lambda x: torch.einsum("nl,hlb->hnb", Minc, x)
+    return out + Cx(acc(flows.re), acc(flows.im))
+
+
+def _injections_lanes(V_c: Cx, dev: DeviceSet, inj_db, m: int) -> Cx:
+    """Norton current injections I_N − Y_N·V on (H, n, B) voltages ->
+    (n_nl, H, B), scaled per device by ``inj_db`` (n_nl, B)."""
+    V_nl = V_c[:, m:]                                    # (H, n_nl, B)
+    if dev.coupled:
+        raw = dev.I_N[..., None] - cx.einsum("dhp,pdb->dhb", dev.Y_N, V_nl)
+    else:
+        raw = dev.I_N[..., None] - dev.Y_N[..., None] * V_nl.transpose(1, 0, 2)
+    return raw * inj_db[:, None, :]
+
+
+def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, dev: DeviceSet, inj,
+                   m: int, n: int, c: int, lineY: Optional[LineYbus]):
+    """Harmonic mismatch on (H, n, B) voltages; S is the scaled (n, B)
+    load, ``inj`` a (B,) or (n_nl, B) injection scale.
+    Returns (f (rows, B), err (B,))."""
+    inj_db = _as_inj_db(inj, n - m, V_m.shape[-1])
+    V_c = cx.polar(V_m, V_a)
+    if lineY is None:
+        YV = cx.einsum("hij,hjb->hib", Y, V_c)
+    else:
+        YV = stable_matvec_lanes(lineY, V_m, V_a)
+    I1 = YV[0, 1:m]
+    dS = S[1:m] + V_c[0, 1:m] * I1.conj()               # (m-1, B)
+    I_inj = _injections_lanes(V_c, dev, inj_db, m)       # (n_nl, H, B)
+    dI_f = YV[0, m:] + I_inj[:, 0]
+    dI_h = YV[1:].at_add((_all, slice(m, None)),
+                         I_inj[:, 1:].transpose(1, 0, 2))  # (K, n, B)
+    K_, B = dI_h.shape[0], dI_h.shape[2]
+    dI = cx.concatenate([dI_f, dI_h.reshape(K_ * n, B)])
+    f_c = cx.concatenate([dS, dI])
+    f = torch.cat([f_c.re, f_c[c - 1:].im], dim=0)
+    return f, f.abs().amax(dim=0)
+
+
+def mismatch_floor_lanes(V_m, Y: Cx, dev: DeviceSet, inj, m: int,
+                         settings: Settings):
+    """Per-scenario mismatch evaluation floor eps·scale -> (B,)
+    (``hpfx.harmonic.mismatch_floor``)."""
+    inj_db = _as_inj_db(inj, V_m.shape[1] - m, V_m.shape[-1])
+    eps = torch.finfo(settings.real_dtype).eps
+    vmax = V_m.abs()                                      # (H, n, B)
+    scale = torch.einsum("hij,hjb->hib", Y.abs(), vmax).amax(dim=(0, 1))
+    if dev.I_N.shape[0] > 0:
+        v_nl = vmax[:, m:]                                # (H, n_nl, B)
+        if dev.coupled:
+            d_inj = torch.einsum("dhp,pdb->dhb", dev.Y_N.abs(), v_nl)
+        else:
+            d_inj = dev.Y_N.abs()[..., None] * v_nl.permute(1, 0, 2)
+        scale = torch.maximum(
+            scale, (d_inj * inj_db.abs()[:, None, :]).amax(dim=(0, 1)))
+    return eps * scale
+
+
+def _thresh_lanes(V_m, Y, dev, inj_db, m, settings):
+    """Floor-aware convergence threshold max(thresh_h, kappa·floor)."""
+    floor = mismatch_floor_lanes(V_m, Y, dev, inj_db, m, settings)
+    return torch.clamp_min(settings.floor_kappa * floor, settings.thresh_h)
+
+
+# ---------------------------------------------------------------------------
+# arrow Newton step (lane-major)
+# ---------------------------------------------------------------------------
+
+def _power_jacobian_blocks_lanes(V: Cx, Vn: Cx, Y: Cx, n: int):
+    """dS/dA and dS/dV (n, n, B) of the power rows on (n, B) voltages
+    (``hpfx.fundamental._power_jacobian_blocks``)."""
+    I = cx.einsum("ij,jb->ib", Y, V)
+    eye = torch.eye(n, dtype=V.dtype, device=V.device)[:, :, None]
+    diag_I = Cx(eye * I.re[:, None, :], eye * I.im[:, None, :])
+    dSdA = (V[:, None] * (diag_I - Y[..., None] * V[None, :]).conj()).jmul()
+    w = Vn * I.conj()
+    diag_w = Cx(eye * w.re[:, None, :], eye * w.im[:, None, :])
+    dSdV = diag_w + V[:, None] * (Y[..., None] * Vn[None, :]).conj()
+    return dSdA, dSdV
+
+
+def _coupling_lanes(V_m, V_a, dev: DeviceSet, inj_db, m: int):
+    """K_V/K_A (H, H, n_nl, B): the Norton coupling of harmonic p into
+    harmonic h at every nonlinear bus, scaled per device."""
+    Vn_nl = cx.expj(V_a)[:, m:]                           # (H, n_nl, B)
+    V_nl = cx.polar(V_m, V_a)[:, m:]
+    if dev.coupled:
+        K_V = -cx.einsum("dhp,pdb->hpdb", dev.Y_N, Vn_nl)
+        K_A = -cx.einsum("dhp,pdb->hpdb", dev.Y_N, V_nl).jmul()
+    else:
+        H, n_nl, B = Vn_nl.shape
+        Yt = dev.Y_N.T[..., None]                         # (H, n_nl, 1)
+        hh = torch.arange(H, device=V_m.device)
+        z = cx.zeros((H, H, n_nl, B), V_m.dtype, V_m.device)
+        K_V = z.at_set((hh, hh), -(Yt * Vn_nl))
+        K_A = z.at_set((hh, hh), -(Yt * V_nl).jmul())
+    s = inj_db[None, None, :, :]
+    return K_V * s, K_A * s
+
+
+class _ArrowConsts(NamedTuple):
+    """Constants of the lane-major arrow solve, on the solve's device."""
+    idx: ArrowIndex
+    E0: torch.Tensor          # (d0, r_blk) unit columns of U, block 0
+    Eh: torch.Tensor          # (2n, r_blk) unit columns of U, blocks h>=1
+    inv_f_perm: torch.Tensor  # (dim,) grouped row -> original position
+    x_perm: torch.Tensor      # (dim,) original col -> grouped position
+    cpl0: torch.Tensor
+    cplh: torch.Tensor
+
+
+def _make_arrow_consts(H: int, n: int, m: int, c: int, dtype,
+                       device=None) -> _ArrowConsts:
+    idx = make_arrow_index(H, n, m, c)
+    n_nl = n - m
+    r_blk = 2 * n_nl
+    rows0 = np.concatenate([(m - 1) + np.arange(n_nl),
+                            (m - 1) + n_nl + (m - c) + np.arange(n_nl)])
+    rowsh = np.concatenate([np.arange(m, n), n + np.arange(m, n)])
+    E0 = np.zeros((idx.d0, r_blk))
+    E0[rows0, np.arange(r_blk)] = 1.0
+    Eh = np.zeros((2 * n, r_blk))
+    Eh[rowsh, np.arange(r_blk)] = 1.0
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return _ArrowConsts(idx=idx, E0=f(E0), Eh=f(Eh),
+                        inv_f_perm=i(np.argsort(idx.f_perm)),
+                        x_perm=i(idx.x_perm), cpl0=i(idx.cpl0),
+                        cplh=i(idx.cplh))
+
+
+def arrow_step_lanes(V_m, V_a, f, Y: Cx, dev: DeviceSet, inj,
+                     consts: _ArrowConsts, big_solve: str = "auto"):
+    """One arrow Newton-step solve J dx = f on (H, n, B) state and
+    (dim, B) mismatch -> dx (dim, B): per-harmonic block solves plus the
+    Woodbury capacitance solve (``hpfx.lanes.arrow_step_lanes``)."""
+    idx = consts.idx
+    H, n, m, c, d0 = idx.H, idx.n, idx.m, idx.c, idx.d0
+    n_nl = n - m
+    K = H - 1
+    r = 2 * H * n_nl
+    r_blk = 2 * n_nl
+    rd, dv = V_m.dtype, V_m.device
+    B = V_m.shape[-1]
+    inj_db = _as_inj_db(inj, n_nl, B)
+
+    V_c = cx.polar(V_m, V_a)
+    Vn = cx.expj(V_a)
+    blocks_V = Y[..., None] * Vn[:, None, :, :]           # (H, n, n, B)
+    blocks_A = (Y[..., None] * V_c[:, None, :, :]).jmul()
+    K_V, K_A = _coupling_lanes(V_m, V_a, dev, inj_db, m)  # (H, H, n_nl, B)
+
+    # fold the h == p coupling into the diagonal blocks
+    hh = torch.arange(H, device=dv)
+    eye_n = torch.eye(n, dtype=rd, device=dv)[None, :, :, None]
+
+    def _diag_fold(blocks: Cx, diag: Cx) -> Cx:
+        pad = torch.zeros((H, m, B), dtype=rd, device=dv)
+        full_re = torch.cat([pad, diag.re], dim=1)        # (H, n, B)
+        full_im = torch.cat([pad, diag.im], dim=1)
+        return Cx(blocks.re + eye_n * full_re[:, None, :, :],
+                  blocks.im + eye_n * full_im[:, None, :, :])
+
+    M_V = _diag_fold(blocks_V, K_V[hh, hh])
+    M_A = _diag_fold(blocks_A, K_A[hh, hh])
+    dS1dA1, dS1dV1 = _power_jacobian_blocks_lanes(V_c[0], Vn[0], Y[0], n)
+
+    hcat = lambda a, b: torch.cat([a, b], dim=1)
+    D0 = torch.cat([
+        hcat(dS1dA1.re[1:m, 1:], dS1dV1.re[1:m, c:]),
+        hcat(M_A.re[0, m:, 1:], M_V.re[0, m:, c:]),
+        hcat(dS1dA1.im[c:m, 1:], dS1dV1.im[c:m, c:]),
+        hcat(M_A.im[0, m:, 1:], M_V.im[0, m:, c:]),
+    ], dim=0)                                             # (d0, d0, B)
+    Dh = torch.cat([
+        torch.cat([M_A.re[1:], M_V.re[1:]], dim=2),
+        torch.cat([M_A.im[1:], M_V.im[1:]], dim=2),
+    ], dim=1)                                             # (K, 2n, 2n, B)
+
+    # dense coupling matrix C (r, r, B): h != p, d == d' entries only
+    off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
+    zero = torch.zeros_like(K_V.re)
+    KVr = torch.where(off, K_V.re, zero)
+    KVi = torch.where(off, K_V.im, zero)
+    KAr = torch.where(off, K_A.re, zero)
+    KAi = torch.where(off, K_A.im, zero)
+    eye_d = torch.eye(n_nl, dtype=rd, device=dv)
+    # (H, H, n_nl, B, rc, c): rows use (Re, Im), cols use (angle, magnitude)
+    Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
+                         torch.stack([KAi, KVi], dim=-1)], dim=-2)
+    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(r, r, B)
+
+    # identity-pad the fundamental block to 2n: one uniform batched solve
+    k2 = 2 * n
+    D0p = torch.eye(k2, dtype=rd, device=dv)[:, :, None].repeat(1, 1, B)
+    D0p[:d0, :d0] = D0
+    D_all = torch.cat([D0p[None], Dh], dim=0)             # (H, 2n, 2n, B)
+
+    # grouped RHS + Woodbury U columns through one multi-RHS solve
+    fp = f[consts.inv_f_perm]                             # (dim, B)
+    f0 = fp[:d0]
+    fh = fp[d0:].reshape(K, k2, B)
+    rhs0 = torch.cat([f0[:, None, :],
+                      consts.E0[:, :, None].expand(d0, r_blk, B)], dim=1)
+    rhs0p = torch.zeros((k2, 1 + r_blk, B), dtype=rd, device=dv)
+    rhs0p[:d0] = rhs0
+    rhsh = torch.cat([fh[:, :, None, :],
+                      consts.Eh[None, :, :, None].expand(K, k2, r_blk, B)],
+                     dim=2)                               # (K, 2n, R, B)
+    rhs_all = torch.cat([rhs0p[None], rhsh], dim=0)
+
+    # (H, 2n, 2n, B) -> (2n, 2n, H·B): the harmonic-block axis joins the
+    # lane batch, so all blocks go through one solve
+    R = 1 + r_blk
+    D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, H * B)
+    rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, H * B)
+    sol = batched_solve_lanes(D_flat, rhs_flat)
+    sol_all = sol.reshape(k2, R, H, B).permute(2, 0, 1, 3)  # (H, 2n, R, B)
+
+    z0, X0 = sol_all[0, :d0, 0], sol_all[0, :d0, 1:]      # (d0,B),(d0,rb,B)
+    zh, Xh = sol_all[1:, :, 0], sol_all[1:, :, 1:]
+    Vz = torch.cat([z0[consts.cpl0][None], zh[:, consts.cplh]],
+                   dim=0).reshape(r, B)
+    Gblocks = torch.cat([X0[consts.cpl0][None], Xh[:, consts.cplh, :]],
+                        dim=0)                            # (H, rb, rb, B)
+
+    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, B), Gblocks)
+    S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(r, r, B)
+    rhs_w = torch.einsum("rub,ub->rb", C, Vz)
+    y = batched_solve_lanes(S_w, rhs_w[:, None, :], impl=big_solve)[:, 0]
+
+    yb = y.reshape(H, r_blk, B)
+    x0 = z0 - torch.einsum("dsb,sb->db", X0, yb[0])
+    xh = zh - torch.einsum("kdsb,ksb->kdb", Xh, yb[1:])
+    xp = torch.cat([x0, xh.reshape(K * k2, B)], dim=0)
+    return xp[consts.x_perm]
+
+
+# ---------------------------------------------------------------------------
+# fundamental NR (lane-major)
+# ---------------------------------------------------------------------------
+
+class FundLanes(NamedTuple):
+    V_m: torch.Tensor       # (n, B)
+    V_a: torch.Tensor       # (n, B)
+    err: torch.Tensor       # (B,)
+    n_iter: torch.Tensor    # (B,)
+    err_hist: torch.Tensor  # (max_iter_f, B)
+    converged: torch.Tensor
+
+
+def _fund_mismatch_lanes(V_m, V_a, Y1: Cx, S: Cx, c: int,
+                         lineY: Optional[LineYbus]):
+    V = cx.polar(V_m, V_a)
+    if lineY is None:
+        I = cx.einsum("ij,jb->ib", Y1, V)
+    else:
+        I = stable_matvec_lanes(lineY, V_m[None], V_a[None])[0]
+    mis = V * I.conj() + S
+    f = torch.cat([mis.re[1:], mis.im[c:]], dim=0)
+    return f, f.abs().amax(dim=0)
+
+
+def _fund_jacobian_lanes(V_m, V_a, Y1: Cx, n: int, c: int):
+    V = cx.polar(V_m, V_a)
+    Vn = V * (1.0 / V.abs())
+    dSdA, dSdV = _power_jacobian_blocks_lanes(V, Vn, Y1, n)
+    top = torch.cat([dSdA.re[1:, 1:], dSdV.re[1:, c:]], dim=1)
+    bot = torch.cat([dSdA.im[c:, 1:], dSdV.im[c:, c:]], dim=1)
+    return torch.cat([top, bot], dim=0)
+
+
+def solve_fundamental_lanes(Y1: Cx, S: Cx, net: Network, settings: Settings,
+                            B: int, lineY: Optional[LineYbus],
+                            log: Optional[PhaseLog] = None) -> FundLanes:
+    """Fundamental NR with the batch lane-minor; S is the per-scenario
+    scaled (n, B) load.  Each lane stops when its own test fires."""
+    n, c = net.n, net.c
+    rd, dv = settings.real_dtype, S.re.device
+    V_m = torch.full((n, B), settings.v_init_f, dtype=rd, device=dv)
+    V_a = torch.full((n, B), settings.a_init_f, dtype=rd, device=dv)
+    x = torch.cat([V_a[1:], V_m[c:]], dim=0)
+    f, err = _fund_mismatch_lanes(V_m, V_a, Y1, S, c, lineY)
+    hist = torch.full((settings.max_iter_f, B), float("nan"), dtype=rd,
+                      device=dv)
+
+    eps = torch.finfo(rd).eps
+    rows = V_m.abs() * torch.einsum("ij,jb->ib", Y1.abs(), V_m.abs())
+    thresh_eff = torch.clamp_min(
+        settings.floor_kappa * eps * (rows + S.abs()).amax(dim=0),
+        settings.thresh_f)
+
+    it = torch.zeros((B,), dtype=torch.int32, device=dv)
+    t = 0
+    act = (err > thresh_eff) & (it < settings.max_iter_f)
+    while bool(act.any()):
+        _trip(log)
+        J = _fund_jacobian_lanes(V_m, V_a, Y1, n, c)
+        x_new = x - batched_solve_lanes(J, f[:, None, :])[:, 0]
+        Va_new = torch.cat([V_a[:1], x_new[: n - 1]], dim=0)
+        Vm_new = torch.cat([V_m[:c], x_new[n - 1:]], dim=0)
+        f_new, err_new = _fund_mismatch_lanes(Vm_new, Va_new, Y1, S, c, lineY)
+        V_m = torch.where(act, Vm_new, V_m)
+        V_a = torch.where(act, Va_new, V_a)
+        x = torch.where(act, x_new, x)
+        f = torch.where(act, f_new, f)
+        err = torch.where(act, err_new, err)
+        hist[t] = torch.where(act, err_new, hist[t])
+        it = it + act.to(torch.int32)
+        t += 1
+        act = (err > thresh_eff) & (it < settings.max_iter_f)
+    return FundLanes(V_m, V_a, err, it, hist, err <= thresh_eff)
+
+
+# ---------------------------------------------------------------------------
+# the harmonic sweep
+# ---------------------------------------------------------------------------
+
+def supports_lanes(devices, settings: Settings, net: Network) -> bool:
+    """Whether the port implements this configuration."""
+    return (settings.solver == "arrow" and net.n > net.m
+            and isinstance(devices, DeviceSet) and devices.n_devices > 0)
+
+
+def _scale_cols(base, scale):
+    """Per-scenario load scaling -> (n, B): scale is (B,) or (B, n)."""
+    s = scale.to(base.dtype)
+    if s.ndim == 1:
+        return base[:, None] * s[None, :]
+    return base[:, None] * s.T
+
+
+def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev: DeviceSet, inj_db, V_m, V_a,
+                  settings: Settings, consts: _ArrowConsts, thresh_eff,
+                  f0=None, log: Optional[PhaseLog] = None):
+    """The lane-major harmonic NR loop from state (V_m, V_a) (H, n, B) to
+    convergence or ``max_iter_h``.  ``f0``: optional precomputed (f, err)
+    at the initial state.  Returns raw (V_m, V_a, err, n_iter, err_hist);
+    callers apply ``cleanup_voltages``."""
+    idx = consts.idx
+    H, n, m, c = idx.H, idx.n, idx.m, idx.c
+    B = V_m.shape[-1]
+    rd, dv = V_m.dtype, V_m.device
+    if f0 is None:
+        f, err = mismatch_lanes(V_m, V_a, Y, S, dev, inj_db, m, n, c, lineY)
+    else:
+        f, err = f0
+    hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
+                      device=dv)
+    D = H * n
+    x = torch.cat([V_a.reshape(D, B)[1:], V_m.reshape(D, B)[c:]], dim=0)
+
+    it = torch.zeros((B,), dtype=torch.int32, device=dv)
+    t = 0
+    act = (err > thresh_eff) & (it < settings.max_iter_h)
+    while bool(act.any()):
+        _trip(log)
+        impl = settings.big_solve
+        if impl == "warmup":
+            # blocked-Schur steps far from the root, direct steps after
+            impl = "schur" if t < settings.big_solve_warmup else "direct"
+        dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
+                              big_solve=impl)
+        x_new = x - dx
+        Va_new = torch.cat([V_a.reshape(D, B)[:1], x_new[: D - 1]],
+                           dim=0).reshape(H, n, B)
+        Vm_new = torch.cat([V_m.reshape(D, B)[:c], x_new[D - 1:]],
+                           dim=0).reshape(H, n, B)
+        f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev, inj_db,
+                                        m, n, c, lineY)
+        V_m = torch.where(act, Vm_new, V_m)
+        V_a = torch.where(act, Va_new, V_a)
+        x = torch.where(act, x_new, x)
+        f = torch.where(act, f_new, f)
+        err = torch.where(act, err_new, err)
+        hist[t] = torch.where(act, err_new, hist[t])
+        it = it + act.to(torch.int32)
+        t += 1
+        act = (err > thresh_eff) & (it < settings.max_iter_h)
+    return V_m, V_a, err, it, hist
+
+
+class _SweepSetup(NamedTuple):
+    """Shared pre-trip state of the lane-major sweep entry points."""
+    Y: Cx
+    lineY: object
+    S: Cx
+    dev: DeviceSet
+    inj_db: torch.Tensor
+    fund: FundLanes
+    cold_V_m: torch.Tensor
+    cold_V_a: torch.Tensor
+    consts: _ArrowConsts
+    thresh: torch.Tensor         # floor-aware, evaluated at the COLD state
+
+
+def _sweep_setup(net: Network, devices: DeviceSet, settings: Settings,
+                 scenarios, log: Optional[PhaseLog] = None) -> _SweepSetup:
+    """Admittances, scenario-scaled powers and injections, the batched
+    fundamental solve, the cold start and the floor-aware threshold
+    (evaluated at the cold state even for warm starts)."""
+    H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
+    rd, dv = settings.real_dtype, net.device
+    B = scenarios.p_scale.shape[0]
+    Y, lineY, lineY_f = resolve_ybus(net, settings)
+
+    q_scale = scenarios.q_scale if scenarios.q_scale is not None \
+        else scenarios.p_scale
+    inj = scenarios.injection_scale if scenarios.injection_scale is not None \
+        else torch.ones((B,), dtype=rd, device=dv)
+    inj = inj.to(rd)
+    # per-device scales arrive batch-major (B, n_nl); lanes carry (n_nl, B)
+    inj_db = _as_inj_db(inj.T if inj.ndim == 2 else inj, n - m, B)
+    S = Cx(_scale_cols(net.bus_P, scenarios.p_scale),
+           _scale_cols(net.bus_Q, q_scale))
+
+    fund = solve_fundamental_lanes(Y[0], S, net, settings, B, lineY_f,
+                                   log=log)
+    cold_V_m = torch.full((H, n, B), settings.v_init_h, dtype=rd, device=dv)
+    cold_V_m[0] = fund.V_m
+    cold_V_a = torch.full((H, n, B), settings.a_init_h, dtype=rd, device=dv)
+    cold_V_a[0] = fund.V_a
+    consts = _make_arrow_consts(H, n, m, c, rd, dv)
+    thresh = _thresh_lanes(cold_V_m, Y, devices, inj_db, m, settings)
+    return _SweepSetup(Y, lineY, S, devices, inj_db, fund, cold_V_m,
+                       cold_V_a, consts, thresh)
+
+
+def hpf_sweep_lanes(net: Network, devices: DeviceSet, settings: Settings,
+                    scenarios, V0=None,
+                    log: Optional[PhaseLog] = None) -> HPFResult:
+    """Batched HPF sweep with the scenario batch lane-minor throughout;
+    returns the batch-major ``HPFResult``.  ``V0``: optional batch-major
+    (B, H, n) (V_m, V_a) start, used as given."""
+    su = _sweep_setup(net, devices, settings, scenarios, log=log)
+    if V0 is None:
+        V_m, V_a = su.cold_V_m, su.cold_V_a
+    else:
+        rd = settings.real_dtype
+        V_m = torch.movedim(V0[0].to(rd), 0, -1)
+        V_a = torch.movedim(V0[1].to(rd), 0, -1)
+    V_m, V_a, err, n_iter, hist = nr_trip_lanes(
+        su.Y, su.lineY, su.S, su.dev, su.inj_db, V_m, V_a, settings,
+        su.consts, su.thresh, log=log)
+    V_m, V_a = cleanup_voltages(V_m, V_a)
+    return _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
+
+
+def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
+    """Exact-linear Norton seed in the lane layout: the harmonic
+    current-balance rows are linear in rectangular coordinates, so one
+    real-embedded (2·(H−1)·n)² solve per lane lands phase 1 on the exact
+    harmonic solution at the just-solved fundamental
+    (``hpfx.lanes._linear_seed_lanes``).  Returns the (H, n, B) start."""
+    H, n, m = settings.n_harmonics, net.n, net.m
+    K, rd = H - 1, settings.real_dtype
+    dev, inj = su.dev, su.inj_db                      # inj: (n_nl, B)
+    B, dv = inj.shape[-1], inj.device
+    eyeN = torch.eye(n, dtype=rd, device=dv)
+    eyeK = torch.eye(K, dtype=rd, device=dv)
+
+    # per-lane device coupling, scaled like _injections_lanes:
+    # D[h, p, i, b] on the nonlinear buses
+    YN, IN = dev.Y_N, dev.I_N
+    D_re = torch.zeros((K, K, n, B), dtype=rd, device=dv)
+    D_im = torch.zeros((K, K, n, B), dtype=rd, device=dv)
+    if dev.coupled:
+        s_ = inj[:, None, None, :]
+        D_re[:, :, m:, :] = torch.movedim(YN.re[:, 1:, 1:, None] * s_, 0, 2)
+        D_im[:, :, m:, :] = torch.movedim(YN.im[:, 1:, 1:, None] * s_, 0, 2)
+    else:
+        s_ = inj[:, None, :]
+        i = torch.arange(K, device=dv)
+        D_re[i, i, m:, :] = torch.movedim(YN.re[:, 1:, None] * s_, 0, 1)
+        D_im[i, i, m:, :] = torch.movedim(YN.im[:, 1:, None] * s_, 0, 1)
+
+    # A = blockdiag(Y) − δ_ij·D, lane-major (K·n, K·n, lanes)
+    def assemble(Ypart, D):
+        Dt = D.transpose(1, 2)                        # (h, i, p, b)
+        t = Dt[:, :, :, None, :] * eyeN[None, :, None, :, None]
+        blockdiag = eyeK[:, None, :, None] * Ypart[:, :, None, :]
+        return (blockdiag[..., None] - t).reshape(K * n, K * n, -1)
+
+    V1 = cx.polar(su.fund.V_m, su.fund.V_a)           # (n, B)
+    si = inj[:, None, :]
+    rhs_nl = -(Cx(IN.re[:, 1:, None], IN.im[:, 1:, None]) * si)
+    if dev.coupled:
+        col0 = Cx(YN.re[:, 1:, 0, None], YN.im[:, 1:, 0, None])
+        rhs_nl = rhs_nl + (col0 * si) * V1[m:][:, None, :]
+    rhs = cx.zeros((K, n, B), rd, dv).at_set(
+        (_all, slice(m, None), _all),
+        Cx(torch.movedim(rhs_nl.re, 0, 1), torch.movedim(rhs_nl.im, 0, 1)))
+
+    N = K * n
+
+    def solve_lanes(lo, hi):
+        Ar = assemble(su.Y.re[1:], D_re[..., lo:hi])
+        Ai = assemble(su.Y.im[1:], D_im[..., lo:hi])
+        A_real = torch.cat([torch.cat([Ar, -Ai], dim=1),
+                            torch.cat([Ai, Ar], dim=1)], dim=0)
+        b_real = torch.cat([rhs.re[..., lo:hi].reshape(N, -1),
+                            rhs.im[..., lo:hi].reshape(N, -1)],
+                           dim=0)[:, None, :]
+        return batched_solve_lanes(A_real, b_real)[:, 0, :]
+
+    # the (2N, 2N, lanes) system is chunked over lanes to a memory budget
+    # (a no-op at net2 B=16384: ~0.6 GB)
+    bytes_per_lane = (2 * N) ** 2 * torch.finfo(rd).bits // 8
+    chunk = int(max(1, min(B, SEED_CHUNK_BYTES // bytes_per_lane)))
+    x = torch.cat([solve_lanes(lo, min(lo + chunk, B))
+                   for lo in range(0, B, chunk)], dim=-1)   # (2N, B)
+
+    Vh = Cx(x[:N].reshape(K, n, B), x[N:].reshape(K, n, B))
+    V_m = torch.cat([su.fund.V_m[None], _floor_seed_mag(Vh.abs(), settings)])
+    V_a = torch.cat([su.fund.V_a[None], Vh.angle()])
+    return V_m, V_a
+
+
+def hpf_sweep_adaptive_lanes(net: Network, devices: DeviceSet,
+                             settings: Settings, scenarios,
+                             phase_iters: int = 24, rescue_width=None,
+                             warm: str = "cold",
+                             log: Optional[PhaseLog] = None) -> HPFResult:
+    """Two-phase adaptive sweep with a gathered straggler rescue
+    (``hpfx.lanes.hpf_sweep_adaptive_lanes``):
+
+      1. phase 1: full-width trip capped at ``phase_iters``, from the cold
+         flat start or (``warm="linear"``) the exact-linear Norton seed;
+      2. phase 2: the ``rescue_width`` worst lanes (default
+         ``max(128, B // 16)``) are gathered into a narrow batch and
+         continue warm from their own phase-1 state with the remaining
+         budget (converged gather-padding lanes keep a lifted threshold);
+      3. cold restart: lanes still unconverged restart from the flat
+         start with a fresh full budget;
+      4. scatter back, splicing full-width ``err_hist``.
+
+    Stragglers beyond ``rescue_width`` keep their phase-1 state and are
+    reported unconverged.  ``rescue_width`` is an int (bucketed widths
+    are not ported).  ``log``: optional :class:`PhaseLog`."""
+    if rescue_width is not None and not isinstance(rescue_width, int):
+        raise NotImplementedError("only an int rescue_width is supported")
+    dv = net.device
+    with _phase(log, "setup", dv):
+        su = _sweep_setup(net, devices, settings, scenarios, log=log)
+    rd = settings.real_dtype
+    B = scenarios.p_scale.shape[0]
+    p1 = min(phase_iters, settings.max_iter_h)
+
+    if warm == "linear":
+        with _phase(log, "seed", dv):
+            Vm1, Va1 = _linear_seed_lanes(su, net, settings)
+    else:
+        Vm1, Va1 = su.cold_V_m, su.cold_V_a
+
+    with _phase(log, "phase1", dv):
+        V_m, V_a, err, n_iter, hist1 = nr_trip_lanes(
+            su.Y, su.lineY, su.S, su.dev, su.inj_db, Vm1, Va1,
+            settings.with_(max_iter_h=p1), su.consts, su.thresh, log=log)
+    conv = err <= su.thresh
+    hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
+                      device=dv)
+    hist[:p1] = hist1
+
+    K = min(B, rescue_width if rescue_width is not None
+            else max(128, B // 16))
+    # unconverged lanes first (stable: deterministic padding choice)
+    bad = torch.argsort(conv.to(rd), stable=True)[:K]
+    was_bad = ~conv[bad]
+    g = lambda x: x.index_select(-1, bad)
+    S_k = Cx(g(su.S.re), g(su.S.im))
+    inj_k = g(su.inj_db)
+    thresh_k = g(su.thresh)
+    coldVm_k, coldVa_k = g(su.cold_V_m), g(su.cold_V_a)
+
+    def rescue_pass(s_pass, Vm0, Va0, state):
+        Vmk, Vak, errk, nitk, convk = state
+        # converged gather-padding stays inactive: its threshold is lifted
+        # to its achieved error
+        thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
+                               thresh_k)
+        Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
+            su.Y, su.lineY, S_k, su.dev, inj_k, Vm0, Va0, s_pass,
+            su.consts, thresh_r, log=log)
+        redo = ~convk
+        Vmk = torch.where(redo[None, None, :], Vm2, Vmk)
+        Vak = torch.where(redo[None, None, :], Va2, Vak)
+        errk = torch.where(redo, err2, errk)
+        nitk = nitk + torch.where(redo, nit2, 0)
+        convk = convk | (redo & (err2 <= thresh_r))
+        return (Vmk, Vak, errk, nitk, convk), redo, hist2
+
+    state = (g(V_m), g(V_a), g(err), g(n_iter), conv[bad])
+    if p1 < settings.max_iter_h:
+        # phase 2: continue warm from the cleaned phase-1 state (cold where
+        # it went non-finite — a NaN state no-ops the trip at iteration 0)
+        with _phase(log, "rescue_phase2", dv):
+            Vmk, Vak = state[0], state[1]
+            finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
+                      & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
+            use_self = (finite | state[4])[None, None, :]
+            Vmc, Vac = cleanup_voltages(Vmk, Vak)
+            s2 = settings.with_(max_iter_h=settings.max_iter_h - p1)
+            state, redo, hist2 = rescue_pass(
+                s2, torch.where(use_self, Vmc, coldVm_k),
+                torch.where(use_self, Vac, coldVa_k), state)
+            hist[p1:, bad] = torch.where(redo[None, :], hist2,
+                                         hist[p1:, bad])
+
+    # cold restart with a fresh full budget for anything STILL stuck; its
+    # history replaces the whole row (a restart, not a resume)
+    with _phase(log, "cold_restart", dv):
+        state, redo, hist3 = rescue_pass(settings, coldVm_k, coldVa_k, state)
+        hist[:, bad] = torch.where(redo[None, :], hist3, hist[:, bad])
+    Vmk, Vak, errk, nitk, convk = state
+
+    def sc(full, kk, mask):
+        out = full.clone()
+        out[..., bad] = torch.where(mask, kk, g(full))
+        return out
+
+    V_m = sc(V_m, Vmk, was_bad[None, None, :])
+    V_a = sc(V_a, Vak, was_bad[None, None, :])
+    err = sc(err, errk, was_bad)
+    n_iter = sc(n_iter, nitk, was_bad)
+    conv = sc(conv, convk, was_bad)
+
+    V_m, V_a = cleanup_voltages(V_m, V_a)
+    res = _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
+    return res._replace(converged=conv)
+
+
+def _lanes_result(V_m, V_a, err, n_iter, hist, thresh_eff,
+                  fund: FundLanes) -> HPFResult:
+    fund_bm = FundResult(V_m=fund.V_m.T, V_a=fund.V_a.T, err=fund.err,
+                         n_iter=fund.n_iter, err_hist=fund.err_hist.T,
+                         converged=fund.converged)
+    return HPFResult(V_m=torch.movedim(V_m, -1, 0),
+                     V_a=torch.movedim(V_a, -1, 0), err=err, n_iter=n_iter,
+                     err_hist=hist.T, converged=err <= thresh_eff,
+                     fund=fund_bm)

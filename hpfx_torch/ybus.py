@@ -1,0 +1,137 @@
+"""Per-harmonic admittance (Ybus) assembly, split-complex.
+
+The PyTorch counterpart of :mod:`hpfx.ybus`: the dense ``(H, n, n)``
+tensor of every harmonic order, and the line-structured form
+(:class:`LineYbus`) behind the cancellation-free mismatch
+(``hpfx_torch.lanes.stable_matvec_lanes``).  Same physics: series
+admittance 1/(R + j·X·h) per line, pi-line shunts (G + j·h·B)/2 at each
+end, bus shunt reactances on the harmonic orders only, and the pi-model
+transformer (tap on the from side) where a line carries tau/shift.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import cx
+from .config import Settings
+from .cx import Cx
+from .network import Network
+
+_all = slice(None)
+
+
+def _series(net: Network, settings: Settings):
+    """(h (H, 1), Ys (H, L), pi-shunt per end Ysh (H, L))."""
+    rd = settings.real_dtype
+    h = torch.tensor(settings.harmonics, dtype=rd,
+                     device=net.device)[:, None]
+    Xh = net.line_X * h
+    R = net.line_R
+    d = R * R + Xh * Xh
+    Ys = Cx(R / d, -Xh / d)                                   # 1/(R+jXh)
+    Ysh = Cx((net.line_G / 2.0).expand(Xh.shape), h * net.line_B / 2.0)
+    return h, Ys, Ysh
+
+
+def _shunt_ends(net: Network, settings: Settings):
+    """Bus indices of each line's from/to shunt and the kept-line mask.
+    ``compat_shunt_bug`` reproduces the reference's off-by-one (shunts on
+    the bus whose index equals the endpoint's 1-based ID; endpoints past
+    the last bus drop out)."""
+    f, t = net.line_from, net.line_to
+    if not settings.compat_shunt_bug:
+        keep = torch.ones_like(f, dtype=torch.bool)
+        return f, t, keep, keep
+    return f + 1, t + 1, f + 1 < net.n, t + 1 < net.n
+
+
+def _bus_shunt_im(net: Network, h):
+    """Imaginary part of 1/(j·X_sh·h) on the harmonic orders (H, n)."""
+    xsh = net.bus_Xsh[None, :]
+    apply = (h != 1.0) & (xsh != 0.0)
+    safe = torch.where(xsh != 0.0, xsh, torch.ones_like(xsh))
+    return torch.where(apply, -1.0 / (safe * h), torch.zeros_like(safe * h))
+
+
+def build_ybus(net: Network, settings: Settings) -> Cx:
+    """The dense (H, n, n) split-complex admittance tensor, one block per
+    harmonic order in ``settings.harmonics``."""
+    rd = settings.real_dtype
+    n = net.n
+    h, Ys, Ysh = _series(net, settings)
+    tau = net.line_tau
+    inv_t_ft = cx.expj(net.line_shift) * (1.0 / tau)
+    inv_t_tf = cx.expj(-net.line_shift) * (1.0 / tau)
+
+    f, t = net.line_from, net.line_to
+    Y = cx.zeros((len(settings.harmonics), n, n), rd, net.device)
+    Y = Y.at_add((_all, f, t), -(Ys * inv_t_ft))
+    Y = Y.at_add((_all, t, f), -(Ys * inv_t_tf))
+    Y = Y.at_add((_all, f, f), Ys * (1.0 / (tau * tau)))
+    Y = Y.at_add((_all, t, t), Ys)
+
+    f_sh, t_sh, kf, kt = _shunt_ends(net, settings)
+    a_f = 1.0 if settings.compat_shunt_bug else 1.0 / (tau * tau)
+    Y = Y.at_add((_all, f_sh[kf], f_sh[kf]), (Ysh * a_f)[:, kf])
+    Y = Y.at_add((_all, t_sh[kt], t_sh[kt]), Ysh[:, kt])
+
+    y_sh_im = _bus_shunt_im(net, h)
+    idx = torch.arange(n, device=net.device)
+    return Y.at_add((_all, idx, idx), Cx(torch.zeros_like(y_sh_im), y_sh_im))
+
+
+def resolve_ybus(net: Network, settings: Settings, Y=None):
+    """``(Y, lineY, lineY_f)`` for a solver entry: ``None`` builds both
+    forms from the network; a dense ``Cx`` comes with no line structure."""
+    if Y is None:
+        return build_ybus(net, settings), *line_ybus_pair(net, settings)
+    if isinstance(Y, Cx):
+        return Y, None, None
+    raise TypeError("Y must be None or a dense Cx")
+
+
+class LineYbus(NamedTuple):
+    """Line-structured admittance (``hpfx.ybus.LineYbus``): ``Ys`` (H, L)
+    series admittances, ``a_ff``/``inv_tau``/``shift`` (L,) tap/phase
+    couplings, ``d`` (H, n) every diagonal-only term, ``f_idx``/``t_idx``
+    (L,) endpoints."""
+
+    Ys: Cx
+    a_ff: torch.Tensor
+    inv_tau: torch.Tensor
+    shift: torch.Tensor
+    d: Cx
+    f_idx: torch.Tensor
+    t_idx: torch.Tensor
+
+
+def build_line_ybus(net: Network, settings: Settings) -> LineYbus:
+    """The line-structured form of the same physics as :func:`build_ybus`."""
+    rd = settings.real_dtype
+    H = len(settings.harmonics)
+    h, Ys, Ysh = _series(net, settings)
+    tau = net.line_tau
+    a_ff = 1.0 / (tau * tau)
+
+    d = cx.zeros((H, net.n), rd, net.device)
+    f_sh, t_sh, kf, kt = _shunt_ends(net, settings)
+    a_f = 1.0 if settings.compat_shunt_bug else a_ff
+    d = d.at_add((_all, f_sh[kf]), (Ysh * a_f)[:, kf])
+    d = d.at_add((_all, t_sh[kt]), Ysh[:, kt])
+    y_sh_im = _bus_shunt_im(net, h)
+    d = d + Cx(torch.zeros_like(y_sh_im), y_sh_im)
+    return LineYbus(Ys=Ys, a_ff=a_ff, inv_tau=1.0 / tau,
+                    shift=net.line_shift.to(rd), d=d,
+                    f_idx=net.line_from, t_idx=net.line_to)
+
+
+def line_ybus_pair(net: Network, settings: Settings):
+    """(full, fundamental-sliced) LineYbus pair for the stable mismatch,
+    or (None, None) when ``settings.stable_mismatch`` is off."""
+    if not settings.stable_mismatch:
+        return None, None
+    full = build_line_ybus(net, settings)
+    fund = full._replace(Ys=full.Ys[:1], d=full.d[:1])
+    return full, fund

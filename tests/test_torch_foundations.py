@@ -1,0 +1,177 @@
+"""hpfx_torch foundations against the JAX package, on the CPU in float64:
+network and device loading, admittance assembly, the stable matvec, the
+arrow index maps and the state hand-over (hpfx_torch.convert)."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hpfx
+import hpfx_torch as ht
+from hpfx import lanes as jl
+from hpfx.arrow import make_arrow_index as j_arrow_index
+from hpfx.harmonic import cleanup_voltages as j_cleanup
+from hpfx.results import get_thd as j_thd
+from hpfx.ybus import build_line_ybus as j_line_ybus
+from hpfx_torch import lanes as tl
+from hpfx_torch.arrow import make_arrow_index
+from hpfx_torch.ybus import build_line_ybus
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "hpfx", "data")
+NETS = ("net1", "net2", "net3")
+TOL = 1e-13
+
+
+def _paths(name):
+    return (os.path.join(DATA, f"{name}_buses.csv"),
+            os.path.join(DATA, f"{name}_lines.csv"))
+
+
+def _settings(coupled=True, **kw):
+    s = hpfx.settings_for_hmax(25, coupled=coupled, stable_mismatch=True,
+                               **kw)
+    return s, ht.Settings(**dataclasses.asdict(s)).with_(dtype="float64")
+
+
+def _close(a, b, tol=TOL):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(1.0, np.abs(a).max()))
+
+
+def _cx_close(j, t, tol=TOL):
+    _close(j.re, t.re.numpy(), tol)
+    _close(j.im, t.im.numpy(), tol)
+
+
+def net_leaves(net):
+    return {f.name: getattr(net, f.name) for f in dataclasses.fields(net)}
+
+
+def dev_leaves(dev):
+    return dict(I_N=(np.asarray(dev.I_N.re), np.asarray(dev.I_N.im)),
+                Y_N=(np.asarray(dev.Y_N.re), np.asarray(dev.Y_N.im)),
+                coupled=dev.coupled)
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_load_network_matches(name):
+    s, ts = _settings()
+    jn = hpfx.load_network(*_paths(name), s)
+    tn = ht.load_network(*_paths(name), ts)
+    for f in dataclasses.fields(jn):
+        jv, tv = getattr(jn, f.name), getattr(tn, f.name)
+        if isinstance(tv, torch.Tensor):
+            _close(jv, tv.numpy())
+        else:
+            assert jv == tv, f.name
+
+
+@pytest.mark.parametrize("coupled", [True, False], ids=["c", "uc"])
+@pytest.mark.parametrize("name", NETS)
+def test_load_device_set_matches(name, coupled):
+    s, ts = _settings(coupled)
+    jd = hpfx.load_device_set(hpfx.load_network(*_paths(name), s), s)
+    td = ht.load_device_set(ht.load_network(*_paths(name), ts), ts)
+    assert td.coupled == jd.coupled
+    _cx_close(jd.I_N, td.I_N)
+    _cx_close(jd.Y_N, td.Y_N)
+
+
+@pytest.mark.parametrize("compat", [False, True], ids=["plain", "compat"])
+@pytest.mark.parametrize("name", NETS)
+def test_build_ybus_matches(name, compat):
+    s, ts = _settings(compat_shunt_bug=compat)
+    Yj = hpfx.build_ybus(hpfx.load_network(*_paths(name), s), s)
+    Yt = ht.build_ybus(ht.load_network(*_paths(name), ts), ts)
+    _cx_close(Yj, Yt)
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_build_line_ybus_matches(name):
+    s, ts = _settings()
+    lj = j_line_ybus(hpfx.load_network(*_paths(name), s), s)
+    lt = build_line_ybus(ht.load_network(*_paths(name), ts), ts)
+    _cx_close(lj.Ys, lt.Ys)
+    _cx_close(lj.d, lt.d)
+    for k in ("a_ff", "inv_tau", "shift", "f_idx", "t_idx"):
+        _close(getattr(lj, k), getattr(lt, k).numpy())
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_stable_matvec_lanes_matches(name):
+    s, ts = _settings()
+    jn = hpfx.load_network(*_paths(name), s)
+    tn = ht.load_network(*_paths(name), ts)
+    rng = np.random.default_rng(11)
+    shape = (s.n_harmonics, jn.n, 5)
+    V_m = rng.uniform(-0.2, 1.1, shape)
+    V_a = rng.uniform(-np.pi, np.pi, shape)
+    out_j = jl.stable_matvec_lanes(j_line_ybus(jn, s), jnp.asarray(V_m),
+                                   jnp.asarray(V_a))
+    out_t = tl.stable_matvec_lanes(build_line_ybus(tn, ts),
+                                   torch.tensor(V_m), torch.tensor(V_a))
+    _cx_close(out_j, out_t)
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_arrow_index_matches(name):
+    s, _ = _settings()
+    jn = hpfx.load_network(*_paths(name), s)
+    args = (s.n_harmonics, jn.n, jn.m, jn.c)
+    ij, it = j_arrow_index(*args), make_arrow_index(*args)
+    for k in ij._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(ij, k)),
+                                      np.asarray(getattr(it, k)), err_msg=k)
+
+
+def test_thd_and_cleanup_match():
+    rng = np.random.default_rng(3)
+    V_m = rng.uniform(-1.0, 1.0, (13, 4, 6))
+    V_a = rng.uniform(-7.0, 7.0, (13, 4, 6))
+    jm, ja = j_cleanup(jnp.asarray(V_m), jnp.asarray(V_a))
+    tm, ta = ht.cleanup_voltages(torch.tensor(V_m), torch.tensor(V_a))
+    _close(jm, tm.numpy())
+    _close(ja, ta.numpy(), 1e-12)
+    thd_j, thd_t = j_thd(jm), ht.get_thd(tm)
+    _close(thd_j.THD_F, thd_t.THD_F.numpy(), 1e-12)
+    _close(thd_j.THD_R, thd_t.THD_R.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_from_hpfx_arrays_round_trip(name):
+    s, _ = _settings()
+    jn = hpfx.load_network(*_paths(name), s)
+    jd = hpfx.load_device_set(jn, s)
+    tn, td = ht.from_hpfx_arrays(net_leaves(jn), dev_leaves(jd))
+    for f in dataclasses.fields(jn):
+        jv, tv = getattr(jn, f.name), getattr(tn, f.name)
+        if isinstance(tv, torch.Tensor):
+            back = tv.numpy()
+            np.testing.assert_array_equal(back, np.asarray(jv))
+            assert back.dtype.kind == np.asarray(jv).dtype.kind
+        else:
+            assert tv == jv
+    for part in ("I_N", "Y_N"):
+        for k in ("re", "im"):
+            np.testing.assert_array_equal(
+                getattr(getattr(td, part), k).numpy(),
+                np.asarray(getattr(getattr(jd, part), k)))
+    assert td.coupled == jd.coupled
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys; sys.path.insert(0, %r); import hpfx_torch, "
+            "hpfx_torch.solve, hpfx_torch.ops._build; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'hpfx')); print(bad); "
+            "sys.exit(1 if bad else 0)" % REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

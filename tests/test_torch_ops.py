@@ -1,0 +1,170 @@
+"""hpfx_torch.ops.batched_solve on the CPU: the plain Gauss-Jordan twin of
+the CUDA kernels against the JAX package's Pallas kernels (run by Pallas
+on the CPU) and its unrolled-XLA elimination, equilibration, and the
+dispatch rules.  The CUDA kernels themselves are checked on the card by
+chip_smoke.py."""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hpfx_torch.ops import batched_solve as tbs
+
+# the module (hpfx.ops re-exports a function of the same name)
+jbs = importlib.import_module("hpfx.ops.batched_solve")
+
+#: f32 elimination error bound of tests/test_ops.py:27
+F32_TOL = 3e-5
+
+
+def _systems(n, R, B, seed, dtype=np.float32):
+    """Diagonally boosted random lane-major systems (tests/test_ops.py)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, n, B)) + 3.0 * np.sqrt(n) * np.eye(n)[:, :, None]
+    b = rng.normal(size=(n, R, B))
+    return A.astype(dtype), b.astype(dtype)
+
+
+def _np_solve(A, b):
+    return np.moveaxis(np.linalg.solve(np.moveaxis(A, -1, 0).astype(np.float64),
+                                       np.moveaxis(b, -1, 0).astype(np.float64)),
+                       0, -1)
+
+
+def _pivot_system(n, B):
+    """Zero-diagonal systems: elimination without pivoting divides by 0."""
+    A, b = _systems(n, 1, B, seed=5)
+    A = 0.1 * A + 3.0 * np.sqrt(n) * np.roll(np.eye(n), 1, axis=1)[:, :, None]
+    A[np.arange(n), np.arange(n), :] = 0.0
+    return A.astype(np.float32), b
+
+
+@pytest.mark.parametrize("n,B", [(26, 130), (96, 128)],
+                         ids=["gj_kernel_26x130", "gj_kernel_carried_96x128"])
+def test_ref_matches_pallas(n, B):
+    """The twin against the Pallas kernel it stands for: dim 26 takes
+    _gj_kernel, dim 96 _gj_kernel_carried (the main path's two dims)."""
+    A, b = _systems(n, 1, B, seed=n)
+    x_j = np.asarray(jbs.gauss_solve_pallas_lanes(
+        jnp.asarray(A), jnp.asarray(b), interpret=True))
+    x_t = tbs.gj_solve_lanes_ref(torch.tensor(A), torch.tensor(b)).numpy()
+    scale = np.abs(x_j).max()
+    np.testing.assert_allclose(x_t, x_j, rtol=0, atol=F32_TOL * scale)
+    np.testing.assert_allclose(x_t, _np_solve(A, b), rtol=0,
+                               atol=F32_TOL * scale)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_ref_matches_xla_lanes(dtype):
+    """The twin against gj_solve_xla_lanes at the arrow blocks' shape
+    (dim 8, 3 right-hand sides): same pivots, same update formula."""
+    A, b = _systems(8, 3, 256, seed=8, dtype=dtype)
+    x_j = np.asarray(jbs.gj_solve_xla_lanes(jnp.asarray(A), jnp.asarray(b)))
+    x_t = tbs.gj_solve_lanes_ref(torch.tensor(A), torch.tensor(b)).numpy()
+    tol = 1e-6 if dtype == np.float32 else 1e-13
+    np.testing.assert_allclose(x_t, x_j, rtol=0,
+                               atol=tol * np.abs(x_j).max())
+
+
+@pytest.mark.parametrize("n", [2, 26, 96])
+def test_ref_pivots_zero_diagonal(n):
+    A, b = _pivot_system(n, 3)
+    x_t = tbs.gj_solve_lanes_ref(torch.tensor(A), torch.tensor(b)).numpy()
+    ref = _np_solve(A, b)
+    np.testing.assert_allclose(x_t, ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
+
+
+def test_ref_pivot_case_matches_pallas():
+    A, b = _pivot_system(26, 5)
+    x_j = np.asarray(jbs.gauss_solve_pallas_lanes(
+        jnp.asarray(A), jnp.asarray(b), interpret=True))
+    x_t = tbs.gj_solve_lanes_ref(torch.tensor(A), torch.tensor(b)).numpy()
+    np.testing.assert_allclose(x_t, x_j, rtol=0,
+                               atol=F32_TOL * np.abs(x_j).max())
+
+
+def test_ref_ragged_batch():
+    """B = 5, far from any multiple of 128, through the kernel wrapper."""
+    A, b = _systems(26, 2, 5, seed=2)
+    x = tbs.gauss_solve_lanes(torch.tensor(A), torch.tensor(b))
+    assert x.shape == (26, 2, 5) and x.dtype == torch.float32
+    ref = _np_solve(A, b)
+    np.testing.assert_allclose(x.numpy(), ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
+
+
+def test_equilibrated_lanes_matches_jax():
+    """Row/column equilibration around the same LU solve agrees with the
+    JAX wrapper on badly scaled systems."""
+    A, b = _systems(12, 2, 7, seed=4, dtype=np.float64)
+    rng = np.random.default_rng(9)
+    A = A * 10.0 ** rng.uniform(-3, 3, (12, 1, 7)) \
+        * 10.0 ** rng.uniform(-2, 2, (1, 12, 7))
+    x_j = np.asarray(jbs.equilibrated_lanes(jbs._lu_solve_lanes)(
+        jnp.asarray(A), jnp.asarray(b)))
+    x_t = tbs.equilibrated_lanes(tbs._lu_solve_lanes)(
+        torch.tensor(A), torch.tensor(b)).numpy()
+    np.testing.assert_allclose(x_t, x_j, rtol=1e-12,
+                               atol=1e-12 * np.abs(x_j).max())
+
+
+@pytest.mark.parametrize("n", [8, 26, 96])
+def test_cpu_dispatch_takes_plain_path(n):
+    """On CPU tensors the f32 dispatcher solves with the plain twin
+    (equilibrated) and launches no kernel."""
+    for k in tbs.LAUNCHES:
+        tbs.LAUNCHES[k] = 0
+    A, b = _systems(n, 1, 9, seed=n + 1)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    x = tbs.batched_solve_lanes(At, bt)
+    want = tbs.equilibrated_lanes(tbs.gj_solve_lanes_ref)(At, bt)
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    assert tbs.LAUNCHES == {"gj_kernel": 0, "gj_kernel_carried": 0}
+
+
+def test_f64_goes_to_linalg_solve():
+    A, b = _systems(26, 2, 6, seed=6, dtype=np.float64)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    x = tbs.batched_solve_lanes(At, bt)
+    want = torch.linalg.solve(At.permute(2, 0, 1),
+                              bt.permute(2, 0, 1)).permute(1, 2, 0)
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+
+
+def test_kernel_wrapper_rejects_bad_operands():
+    A, b = _systems(26, 1, 4, seed=1)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    with pytest.raises(TypeError):
+        tbs.gauss_solve_lanes(At.double(), bt.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tbs.gauss_solve_lanes(At.transpose(0, 1), bt)
+    with pytest.raises(ValueError, match="expected"):
+        tbs.gauss_solve_lanes(At, bt[:, :, :3])
+    big = torch.zeros((200, 200, 2))
+    with pytest.raises(ValueError, match="exceeds"):
+        tbs.gauss_solve_lanes(big, torch.zeros((200, 1, 2)))
+
+
+@pytest.mark.parametrize("n,impl", [(130, "panel"), (130, "schur"),
+                                    (200, "auto")])
+def test_unported_panel_dims_raise(n, impl):
+    """Where the JAX dispatcher takes the panel kernel (or panel-Schur),
+    the port raises until _gj_panel_kernel is ported."""
+    A = torch.eye(n)[:, :, None].repeat(1, 1, 2)
+    with pytest.raises(NotImplementedError, match="_gj_panel_kernel"):
+        tbs.batched_solve_lanes(A, torch.ones((n, 1, 2)), impl=impl)
+
+
+def test_direct_dims_up_to_192():
+    """impl 'auto'/'direct' keeps dims 129..192 on the direct elimination,
+    as the JAX dispatcher does."""
+    A, b = _systems(136, 1, 2, seed=3)
+    x = tbs.batched_solve_lanes(torch.tensor(A), torch.tensor(b),
+                                impl="direct")
+    ref = _np_solve(A, b)
+    np.testing.assert_allclose(x.numpy(), ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
