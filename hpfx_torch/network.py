@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,6 +130,34 @@ def load_network(buses_csv: str, lines_csv: str, settings: Settings,
     if validate:
         validate_network(net)
     return net
+
+
+def network_from_arrays(*, bus_types: Sequence[int],
+                        components: Sequence[str], P, Q, S=None, X_sh=None,
+                        line_from, line_to, R, X, G=None, B=None, tau=None,
+                        phase_shift=None, settings: Settings,
+                        per_unit: bool = True, device=None) -> Network:
+    """Programmatic constructor (``hpfx.network.network_from_arrays``) onto
+    ``device``.  ``line_from``/``line_to`` are 0-based bus indices and
+    ``phase_shift`` is in degrees.  If ``per_unit`` is False, quantities are
+    converted with the settings' bases, as the CSV loader does."""
+    nb, nl = len(P), len(R)
+    f = lambda a, k: np.full(k, 0.0) if a is None else np.asarray(a, float)
+    P, Q, S, X_sh = f(P, nb), f(Q, nb), f(S, nb), f(X_sh, nb)
+    R, X, G, B = f(R, nl), f(X, nl), f(G, nl), f(B, nl)
+    tau = np.ones(nl) if tau is None else np.asarray(tau, float)
+    shift = f(phase_shift, nl) * np.pi / 180.0
+    if not per_unit:
+        P, Q, S = (v / settings.base_power for v in (P, Q, S))
+        X_sh = X_sh / settings.base_impedance
+        R, X = R / settings.base_impedance, X / settings.base_impedance
+        G, B = G / settings.base_admittance, B / settings.base_admittance
+    arrays = dict(bus_P=P, bus_Q=Q, bus_S=S, bus_Xsh=X_sh,
+                  line_from=np.asarray(line_from, int),
+                  line_to=np.asarray(line_to, int), line_R=R, line_X=X,
+                  line_G=G, line_B=B, line_tau=tau, line_shift=shift)
+    return _make_network(arrays, tuple(int(t) for t in bus_types),
+                         tuple(components), settings, device)
 
 
 def validate_network(net: Network) -> None:

@@ -1,11 +1,11 @@
 """Build and load the CUDA kernels of ``hpfx_torch.ops``.
 
-The sources in ``csrc/`` are compiled with ``nvcc`` into one shared
-library with a plain C interface, at first use, into
-``build/hpfx_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  The library's file name carries a hash of the sources and
-flags, so an edited source is rebuilt and a stale library never loads.
-Nothing here runs at import time.
+The sources in ``csrc/`` are compiled at first use, one ``nvcc`` per
+source, all started together, and linked into one shared library with a
+plain C interface in ``build/hpfx_torch_kernels/`` at the repository
+root, loaded with ``ctypes``.  The library's file name carries a hash of
+the sources, headers and flags, so an edited source is rebuilt and a
+stale library never loads.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -17,11 +17,13 @@ import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "csrc", "gj_solve.cu"),)
+SOURCES = tuple(os.path.join(_HERE, "csrc", f)
+                for f in ("gj_solve.cu", "gj_panel.cu"))
+HEADERS = (os.path.join(_HERE, "csrc", "gj_common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                          "build", "hpfx_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -45,8 +47,47 @@ def _declare(lib):
         # shared-memory bytes, stream
         fn.argtypes = [vp, vp, vp, i, i, ll] + [ll] * 9 + [i, vp]
         fn.restype = i
+    # panel, used, Ap, TE, E, used_out, N, Pw, B, panel strides (3),
+    # output strides (3), used strides (2), used_out strides (2),
+    # shared-memory bytes, stream
+    lib.hpfx_gj_panel_kernel.argtypes = [vp] * 6 + [i, i, ll] + [ll] * 10 \
+        + [i, vp]
+    lib.hpfx_gj_panel_kernel.restype = i
     lib.hpfx_error_string.argtypes = [i]
     lib.hpfx_error_string.restype = ctypes.c_char_p
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; returns their (returncode, output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _compile_and_link(so: str, tag: str) -> str:
+    """Compile every source to an object in parallel, link them into
+    ``so``; returns the compilers' output."""
+    pid = os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.{pid}.o")
+            for src in SOURCES]
+    nvcc = _nvcc()
+    runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+                     for src, o in zip(SOURCES, objs)])
+    log = "".join(out for _, out in runs)
+    if any(rc != 0 for rc, _ in runs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = f"{so}.{pid}.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                           *objs], capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, so)
+    for o in objs:
+        os.remove(o)
+    return log
 
 
 def load_library():
@@ -57,20 +98,14 @@ def load_library():
         if _lib is not None:
             return _lib
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
+        for src in SOURCES + HEADERS:
             with open(src, "rb") as fh:
                 h.update(fh.read())
         os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libhpfx_gj_{h.hexdigest()[:16]}.so")
+        tag = h.hexdigest()[:16]
+        so = os.path.join(BUILD_DIR, f"libhpfx_gj_{tag}.so")
         if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                                  capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, so)
+            build_log = _compile_and_link(so, tag)
         lib = ctypes.CDLL(so)
         _declare(lib)
         _lib = lib

@@ -17,8 +17,16 @@ pivoting, wrapped in row and column max-abs equilibration
 of the Pallas kernels and of ``gj_solve_xla_lanes``).
 :func:`gauss_solve_lanes` is the wrapper of the hand-written CUDA
 kernels (``csrc/gj_solve.cu``); it runs the plain twin only for tensors
-that lie on the CPU.  :func:`batched_solve_lanes` routes each solve as
-the JAX dispatcher does (``hpfx/ops/batched_solve.py:748-790``).
+that lie on the CPU.
+
+Large dims take the blocked form of the same elimination
+(:func:`panel_gj_solve_lanes`): one panel of columns at a time is
+eliminated with pivots chosen over all rows (:func:`gj_panel_lanes`, the
+wrapper of ``csrc/gj_panel.cu``; plain twin :func:`gj_panel_ref`), and
+matrix products apply each panel to the trailing columns and the RHS.
+
+:func:`batched_solve_lanes` routes each solve as the JAX dispatcher does
+(``hpfx/ops/batched_solve.py:748-790``).
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ KERNEL_SWITCH_DIM = 64
 MAX_KERNEL_DIM = 192
 #: dims above this use the blocked panel solve when ``impl="panel"``
 SCHUR_MIN_DIM = 128
+#: panel width of the blocked solve (``PANEL_GJ_WIDTH`` in the JAX package)
+PANEL_WIDTH = 32
+#: largest padded dim of the panel kernel: one thread per row of a block
+MAX_PANEL_DIM = 1024
 #: dynamic shared memory one block may use on Hopper (bytes): 227 KB less
 #: room for the kernels' static shared words
 _MAX_SMEM = 232448 - 1024
@@ -43,7 +55,7 @@ _MAX_SMEM = 232448 - 1024
 _WARPS_PER_BLOCK = 4
 
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
-LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0}
+LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_panel_kernel": 0}
 
 
 def gj_solve_lanes_ref(A, b):
@@ -168,6 +180,167 @@ def _kernel_solve(A, b):
     return gauss_solve_lanes(A.contiguous(), b.contiguous())
 
 
+def gj_panel_ref(panel, used):
+    """One panel of the blocked Gauss-Jordan solve in plain PyTorch
+    (``_gj_panel_kernel``, ``hpfx/ops/batched_solve.py:452-510``, step for
+    step): panel (N, Pw, B), the 0/1 ``used`` mask (N, B) ->
+    (Ap, TE, E, used_out).
+
+    For each column k of the panel the pivot is the unused row with the
+    largest |A[r, k]| over all N rows; column k of E and of TE becomes
+    e_p, and one fused rank-1 update eliminates column k of the panel and
+    carries TE along.  Ap is the converged panel, TE = T·E with T the
+    panel's composite row transform, E the one-hot pivot columns."""
+    N, Pw, B = panel.shape
+    rows = torch.arange(N, device=panel.device)[:, None]
+    A = panel
+    TE = torch.zeros_like(panel)
+    E = torch.zeros_like(panel)
+    take = lambda X, p: X.gather(0, p.view(1, 1, B).expand(1, X.shape[1],
+                                                           B))[0]
+    for k in range(Pw):
+        colk = A[:, k, :]                                      # (N, B)
+        p = torch.argmax(colk.abs() - 1e30 * used, dim=0)      # (B,)
+        on_p = rows == p[None, :]                              # (N, B)
+        E[:, k, :] = on_p
+        TE[:, k, :] = on_p
+        rowp, tep = take(A, p), take(TE, p)                    # (Pw, B)
+        inv_piv = 1.0 / colk.gather(0, p[None])[0]             # (B,)
+        w = torch.where(on_p, 1.0 - inv_piv[None, :], colk * inv_piv[None, :])
+        A = A - w[:, None, :] * rowp[None, :, :]
+        TE = TE - w[:, None, :] * tep[None, :, :]
+        used = torch.maximum(used, on_p.to(used.dtype))
+    return A, TE, E, used
+
+
+def _panel_smem(N: int, Pw: int) -> int:
+    """Dynamic shared memory of one panel-kernel block: the A and TE
+    slabs column-major at an odd leading dimension, the two staged pivot
+    rows and the pivot indices (bytes)."""
+    return (2 * Pw * (N | 1) + 3 * Pw) * 4
+
+
+def panel_width_for(n: int, panel: int = PANEL_WIDTH) -> int:
+    """Widest panel <= ``panel`` (stepping down by 8) whose slabs for dim
+    ``n``, padded to a multiple of the width, fit one block's shared
+    memory.  The pivot sequence does not depend on the width.  Raises
+    ``ValueError`` for a dim the panel kernel cannot take."""
+    w = panel
+    while w > 0:
+        Np = -(-n // w) * w
+        if Np <= MAX_PANEL_DIM and _panel_smem(Np, w) <= _MAX_SMEM:
+            return w
+        w -= 8
+    raise ValueError(f"system dim {n} exceeds the panel kernel (at most "
+                     f"{MAX_PANEL_DIM} padded rows, {_MAX_SMEM} bytes of "
+                     "shared memory per block)")
+
+
+def gj_panel_lanes(panel, used):
+    """Eliminate one panel: panel (N, Pw, B) float32 with any strides (a
+    column slice of the padded matrix), ``used`` (N, B) float32 ->
+    (Ap, TE, E, used_out), each new and contiguous.
+
+    A CUDA tensor launches ``gj_panel_kernel`` (``csrc/gj_panel.cu``,
+    one block per system) or raises; a CPU tensor runs
+    :func:`gj_panel_ref`."""
+    if panel.dim() != 3 or used.dim() != 2 or used.shape[0] != panel.shape[0] \
+            or used.shape[1] != panel.shape[2]:
+        raise ValueError(f"expected panel (N, Pw, B) and used (N, B), got "
+                         f"{tuple(panel.shape)} and {tuple(used.shape)}")
+    if panel.dtype != torch.float32 or used.dtype != torch.float32:
+        raise TypeError(f"the panel kernel takes float32, got "
+                        f"{panel.dtype}/{used.dtype}")
+    if panel.device != used.device:
+        raise ValueError("panel and used lie on different devices")
+    if panel.device.type == "cpu":
+        return gj_panel_ref(panel, used)
+    if panel.device.type != "cuda":
+        raise ValueError(f"no panel kernel for device {panel.device}")
+    N, Pw, B = panel.shape
+    outs = [torch.empty((N, Pw, B), dtype=torch.float32, device=panel.device)
+            for _ in range(3)]
+    used_out = torch.empty((N, B), dtype=torch.float32, device=panel.device)
+    if B > 0:
+        _launch_panel(panel, used, *outs, used_out)
+    return (*outs, used_out)
+
+
+def _launch_panel(panel, used, ap, te, e, used_out):
+    from ._build import load_library
+    N, Pw, B = panel.shape
+    smem = _panel_smem(N, Pw)
+    if N > MAX_PANEL_DIM or smem > _MAX_SMEM:
+        raise ValueError(f"panel ({N}, {Pw}) needs {smem} bytes of shared "
+                         f"memory and {N} threads per block (at most "
+                         f"{_MAX_SMEM} and {MAX_PANEL_DIM})")
+    lib = load_library()
+    st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
+    stream = torch.cuda.current_stream(panel.device).cuda_stream
+    with torch.cuda.device(panel.device):
+        err = lib.hpfx_gj_panel_kernel(
+            ctypes.c_void_p(panel.data_ptr()), ctypes.c_void_p(used.data_ptr()),
+            ctypes.c_void_p(ap.data_ptr()), ctypes.c_void_p(te.data_ptr()),
+            ctypes.c_void_p(e.data_ptr()), ctypes.c_void_p(used_out.data_ptr()),
+            ctypes.c_int(N), ctypes.c_int(Pw), ctypes.c_longlong(B),
+            *st(panel), *st(ap), *st(used), *st(used_out), ctypes.c_int(smem),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"panel kernel launch failed (cudaError {err}: "
+            f"{lib.hpfx_error_string(err).decode()}) at N={N}, Pw={Pw}, "
+            f"B={B}")
+    LAUNCHES["gj_panel_kernel"] += 1
+
+
+def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
+    """Blocked Gauss-Jordan solve with full partial pivoting, lane-major:
+    A (n, n, B), b (n, R, B) float32 -> x (n, R, B)
+    (``hpfx/ops/batched_solve.py:575-642``).
+
+    The dim-n elimination is split into panels of ``panel`` columns (the
+    width is lowered where the padded slabs would not fit shared memory,
+    :func:`panel_width_for`).  Each panel is eliminated by
+    :func:`gj_panel_lanes`, pivoting over all rows with the ``used`` mask
+    carried across panels, so the pivots are those of the direct
+    elimination.  With Z = T·E − E the panel's transform T = I + Z·Eᵀ is
+    applied to the trailing columns and the RHS by matrix products
+    (float32, TF32 off), and x = A_finalᵀ·b at the end."""
+    n, _, Bt = A.shape
+    R = b.shape[1]
+    panel = panel_width_for(n, panel)
+    Np = -(-n // panel) * panel
+    f32, dv = torch.float32, A.device
+
+    # pad N (not the batch): identity on the pad rows and columns (each pad
+    # column then picks its own pad row as pivot), zero RHS on pad rows
+    Af = torch.zeros((Np, Np, Bt), dtype=f32, device=dv)
+    Af[:n, :n] = A
+    if Np > n:
+        Af[n:, n:] = torch.eye(Np - n, dtype=f32, device=dv)[:, :, None]
+    bf = torch.zeros((Np, R, Bt), dtype=f32, device=dv)
+    bf[:n] = b
+
+    used = torch.zeros((Np, Bt), dtype=f32, device=dv)
+    for lo in range(0, Np, panel):
+        hi = lo + panel
+        Ap, TE, E, used = gj_panel_lanes(Af[:, lo:hi], used)
+        Z = TE - E
+        if hi < Np:
+            trail = Af[:, hi:]
+            piv = torch.einsum("nkb,njb->kjb", E, trail)
+            # in-place slice assignment where the JAX package rebuilds Af
+            # with .at[].set
+            Af[:, hi:] = trail + torch.einsum("nkb,kjb->njb", Z, piv)
+        pivb = torch.einsum("nkb,nrb->krb", E, bf)
+        bf = bf + torch.einsum("nkb,krb->nrb", Z, pivb)
+        # the converged panel replaces its columns in place: Af becomes
+        # A_final (the JAX package concatenates the panels instead)
+        Af[:, lo:hi] = Ap
+    x = torch.einsum("nkb,nrb->krb", Af, bf)
+    return x[:n].to(A.dtype)
+
+
 def batched_solve_lanes(A, b, impl: str = "auto"):
     """Lane-major batched solve: A (n, n, B), b (n, R, B) -> x (n, R, B).
 
@@ -175,20 +348,21 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
     goes to LU (``torch.linalg.solve``); float32 is equilibrated and goes
     to the plain elimination for n <= 16, to the ``gj_kernel`` wrapper for
     16 < n < 64 and to the ``gj_kernel_carried`` wrapper for
-    64 <= n <= 128 (up to 192 with ``impl`` "auto" or "direct").  Where
-    the JAX package takes its blocked panel kernel (``impl="panel"`` above
-    128, any dim above 192) or the panel-Schur solve (``impl="schur"``
-    above 128), this raises ``NotImplementedError``: that kernel
-    (``_gj_panel_kernel``) is not ported yet."""
+    64 <= n <= 128 (up to 192 with ``impl`` "auto" or "direct").  Above
+    192, and above 128 with ``impl="panel"``, it takes the blocked panel
+    solve (:func:`panel_gj_solve_lanes`).  ``impl="schur"`` above 128
+    raises ``NotImplementedError``: the panel-Schur solve
+    (``schur_solve_lanes``) is not part of the port."""
     n = A.shape[0]
     if A.dtype == torch.float64:
         return _lu_solve_lanes(A, b)
     if n <= XLA_GJ_MAX_DIM:
         return equilibrated_lanes(gj_solve_lanes_ref)(A, b)
-    if n > MAX_KERNEL_DIM or (n > SCHUR_MIN_DIM and impl in ("panel",
-                                                               "schur")):
+    if impl == "schur" and n > SCHUR_MIN_DIM:
         raise NotImplementedError(
-            f"dim-{n} solves with impl={impl!r} need the blocked panel "
-            "kernel (_gj_panel_kernel, hpfx/ops/batched_solve.py:452), "
-            "which is not ported yet")
+            f"dim-{n} solve with impl='schur': the panel-Schur solve "
+            "schur_solve_lanes is not ported (its panel-restricted pivoting "
+            "breaks Newton convergence); use impl='panel'")
+    if n > MAX_KERNEL_DIM or (impl == "panel" and n > SCHUR_MIN_DIM):
+        return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
     return equilibrated_lanes(_kernel_solve)(A, b)

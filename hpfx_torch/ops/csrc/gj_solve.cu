@@ -44,42 +44,18 @@
 // neighbouring addresses and meet in L2.  A tensor-core or TMA design is for
 // later work.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
+#include "gj_common.cuh"
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
+using hpfx::allow_smem;
+using hpfx::pivot_score;
+using hpfx::Strides;
+using hpfx::take_max;
+using hpfx::warp_argmax;
+
 constexpr int kWarpsPerBlock = 4;   // gj_kernel: systems per block
 constexpr int kRowsPerLane = 2;     // gj_kernel: n < 64 rows over 32 lanes
-
-__device__ __forceinline__ float pivot_score(float a, bool used) {
-  if (used) return -1.0f;
-  return isnan(a) ? INFINITY : fabsf(a);
-}
-
-// keep the larger score, the lower row index on ties (a total order, so
-// every lane of a butterfly ends with the same pivot)
-__device__ __forceinline__ void take_max(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFullMask, v, off);
-    const int oi = __shfl_xor_sync(kFullMask, i, off);
-    take_max(v, i, ov, oi);
-  }
-}
-
-struct Strides {
-  long long r, c, s;   // element strides of (row, column, system)
-};
 
 // load one system's [A | b] (n rows of w = n + R) into S at leading dim ld
 __device__ __forceinline__ void load_system(float* S, const float* A,
@@ -215,14 +191,6 @@ __global__ void gj_kernel_carried(const float* __restrict__ A,
 int smem_bytes(int n, int R, int systems_per_block) {
   const int ld = (n + R) | 1;
   return systems_per_block * (n + 1) * ld * (int)sizeof(float);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
 }
 
 }  // namespace

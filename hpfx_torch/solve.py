@@ -1,11 +1,13 @@
 """Batched scenario sweeps: the port of the sweep entry points of
 :mod:`hpfx.solve`.
 
-:func:`hpf_sweep_device` is the main path: the adaptive lane-major sweep
-(:func:`hpfx_torch.lanes.hpf_sweep_adaptive_lanes`) followed, only when
-lanes remain unconverged, by the deterministic host-driven rescue
+:func:`hpf_sweep_device` is the net2 main path: the adaptive lane-major
+sweep (:func:`hpfx_torch.lanes.hpf_sweep_adaptive_lanes`) followed, only
+when lanes remain unconverged, by the deterministic host-driven rescue
 (:func:`_rescue_sweep`), whose last pass re-solves the remaining
 stragglers in float64 on the same device (:func:`_f64_resolve`).
+:func:`hpf_sweep_adaptive` is the host-driven two-phase schedule of the
+net1-class sweeps, ending in the same rescue.
 """
 from __future__ import annotations
 
@@ -156,3 +158,67 @@ def hpf_sweep_device(net: Network, devices: DeviceSet, settings: Settings,
                 run64=lambda sub: _f64_resolve(net, devices, settings, sub,
                                                log=log))
     return out
+
+
+def hpf_sweep_adaptive(net: Network, devices: DeviceSet, settings: Settings,
+                       scenarios: Scenarios, phase_iters: int = 16,
+                       phase2_settings: Optional[Settings] = None,
+                       V0=None, rescue: bool = True, warm: str = "cold",
+                       log: Optional[PhaseLog] = None) -> HPFResult:
+    """Host-driven two-phase sweep (``hpfx.solve.hpf_sweep_adaptive``).
+
+    Phase 1 caps the Newton trip at ``phase_iters``; phase 2 re-solves the
+    unconverged scenarios, bucketed to a power of two, warm from their
+    phase-1 states with ``phase2_settings`` (default ``settings``) and
+    the remaining budget.  ``err_hist`` is NaN-padded to ``max_iter_h``,
+    with the phase-2 history spliced in at the phase-1 offset, and
+    ``n_iter`` sums both phases.  ``rescue`` runs :func:`_rescue_sweep`
+    on what is still unconverged (self-warm, cold, then float64).
+    ``V0``: optional batch-major (V_m, V_a) phase-1 start.
+    ``warm="linear"`` (the exact-linear Norton seed) is not ported on
+    this schedule.  ``log``: optional :class:`PhaseLog` with the phases
+    "phase1", "phase2" and "host_rescue"."""
+    if V0 is None and warm == "linear":
+        raise NotImplementedError(
+            "warm='linear' on the host schedule needs "
+            "warmstart.norton_warm_start, which is not ported; pass V0 or "
+            "use warm='cold' (hpf_sweep_device takes warm='linear')")
+    dv = net.device
+
+    def rescue_(out):
+        with _phase(log, "host_rescue", dv):
+            return _rescue_sweep(
+                settings, scenarios, out,
+                lambda sub, V0_: hpf_sweep(net, devices, settings, sub,
+                                           V0=V0_, log=log),
+                run64=lambda sub: _f64_resolve(net, devices, settings, sub,
+                                               log=log))
+
+    p1 = min(phase_iters, settings.max_iter_h)
+    s1 = settings.with_(max_iter_h=p1)
+    with _phase(log, "phase1", dv):
+        r1 = hpf_sweep(net, devices, s1, scenarios, V0=V0, log=log)
+    B = r1.V_m.shape[0]
+    hist = torch.full((B, settings.max_iter_h), float("nan"),
+                      dtype=r1.err_hist.dtype, device=dv)
+    hist[:, :p1] = r1.err_hist
+    idx = _bucket_pending(r1.converged, B)
+    if idx is None or p1 == settings.max_iter_h:
+        r1 = r1._replace(err_hist=hist)
+        return rescue_(r1) if rescue and idx is not None else r1
+
+    base2 = settings if phase2_settings is None else phase2_settings
+    s2 = base2.with_(max_iter_h=settings.max_iter_h - p1)
+    with _phase(log, "phase2", dv):
+        r2 = hpf_sweep(net, devices, s2, _take_scen(scenarios, idx),
+                       V0=(r1.V_m[idx], r1.V_a[idx]), log=log)
+    # re-solved scenarios ran all p1 trips of phase 1, so their phase-2
+    # history continues at that offset (err after trip i at [i])
+    hist[idx, p1:] = r2.err_hist
+    merged = HPFResult(
+        V_m=_put(r1.V_m, idx, r2.V_m), V_a=_put(r1.V_a, idx, r2.V_a),
+        err=_put(r1.err, idx, r2.err),
+        n_iter=_put(r1.n_iter, idx, r1.n_iter[idx] + r2.n_iter),
+        err_hist=hist, converged=_put(r1.converged, idx, r2.converged),
+        fund=r1.fund)
+    return rescue_(merged) if rescue else merged

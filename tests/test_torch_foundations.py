@@ -50,6 +50,19 @@ def _cx_close(j, t, tol=TOL):
     _close(j.im, t.im.numpy(), tol)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run torch's CPU ops on one thread in the port's test modules (each
+    imports this fixture).  With pytest workers sharing the cores, a
+    multi-threaded op waits for threads that are not scheduled: the net1
+    float32 sweep of test_torch_net1.py takes 6 s on one thread and did
+    not end in 900 s with 8 threads on 2 cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def net_leaves(net):
     return {f.name: getattr(net, f.name) for f in dataclasses.fields(net)}
 

@@ -1,8 +1,10 @@
-"""hpfx_torch.lanes against hpfx.lanes, function by function, at net2 H<=25
-and B=16 in float64 on the CPU: the setup and fundamental solve, the
-mismatch and its floor, the arrow Newton step, the exact-linear seed and
-the harmonic Newton trip.  Both packages start from the same inputs
-(hpfx_torch.convert)."""
+"""hpfx_torch.lanes against hpfx.lanes, function by function, at H<=25 and
+B=16 in float64 on the CPU, on net2 (coupled and uncoupled) and on net1
+(coupled): the setup and fundamental solve, the mismatch and its floor,
+the arrow Newton step, the exact-linear seed and the harmonic Newton trip.
+Both packages start from the same inputs (hpfx_torch.convert).  In
+float64 every solve is LU in both packages; the float32 panel twin is
+covered by test_torch_ops.py."""
 import dataclasses
 import os
 
@@ -18,12 +20,26 @@ from hpfx.solve import Scenarios as JScen
 from hpfx_torch import lanes as tl
 from hpfx_torch.solve import Scenarios as TScen
 
-from test_torch_foundations import dev_leaves, net_leaves
+from test_torch_foundations import (  # noqa: F401
+    dev_leaves, net_leaves, one_torch_thread)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "hpfx", "data")
 B = 16
 RTOL = 1e-10
+#: net1's Newton transient is chaotic (residuals ~1e2 for about a dozen
+#: trips): the two packages' float64 LU solves differ in rounding, and the
+#: transient grows that ~10x per trip.  Measured from the seed at this
+#: configuration (trips counted from 0): every lane's residual agrees to
+#: RTOL_HIST of the residual scale through trip 1 (max 2.8e-11), the first
+#: lanes part at trip 2 (2.9e-9), also when both packages start from the
+#: same seed, and the final V_m agree to 3.1e-7.  The JAX package's own
+#: lanes and vmap layouts part as early as trip 1 on net1.  So on net1
+#: the history is held over the first PART_TRIPS trips and the end state
+#: to VM_TOL_LOOSE (the LOOSE_ITERS rule of tests/conftest.py)
+PART_TRIPS = 2
+RTOL_HIST = 1e-9
+VM_TOL_LOOSE = 1e-6
 
 
 def _close(j, t, tol=RTOL, scale=None):
@@ -44,15 +60,16 @@ def _res_scale(hist):
 
 
 class Case:
-    """Both packages' setup of one net2 sweep, from identical inputs."""
+    """Both packages' setup of one sweep, from identical inputs."""
 
-    def __init__(self, coupled):
+    def __init__(self, net, coupled):
         s = hpfx.settings_for_hmax(25, coupled=coupled).with_(
             solver="arrow", stable_mismatch=True, big_solve="panel")
         self.s = s
+        self.chaotic = net == "net1"
         self.ts = ht.Settings(**dataclasses.asdict(s)).with_(dtype="float64")
-        self.jnet = hpfx.load_network(os.path.join(DATA, "net2_buses.csv"),
-                                      os.path.join(DATA, "net2_lines.csv"), s)
+        self.jnet = hpfx.load_network(os.path.join(DATA, f"{net}_buses.csv"),
+                                      os.path.join(DATA, f"{net}_lines.csv"), s)
         self.jdev = hpfx.load_device_set(self.jnet, s)
         self.tnet, self.tdev = ht.from_hpfx_arrays(net_leaves(self.jnet),
                                                    dev_leaves(self.jdev))
@@ -76,9 +93,11 @@ class Case:
             (torch.tensor(Vm), torch.tensor(Va))
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["c", "uc"])
+@pytest.fixture(scope="module",
+                params=[("net2", True), ("net2", False), ("net1", True)],
+                ids=["c", "uc", "net1_c"])
 def case(request):
-    return Case(request.param)
+    return Case(*request.param)
 
 
 def test_setup_and_fundamental(case):
@@ -142,10 +161,16 @@ def test_nr_trip(case):
     t = tl.nr_trip_lanes(case.tsu.Y, case.tsu.lineY, case.tsu.S, case.tdev,
                          case.tsu.inj_db, *case.tseed, case.ts,
                          case.tsu.consts, case.tsu.thresh)
+    res = _res_scale(j[4])
+    assert (t[2] <= case.tsu.thresh).all()
+    if case.chaotic:
+        _close(j[4][:PART_TRIPS], t[4][:PART_TRIPS], RTOL_HIST, scale=res)
+        _close(j[0], t[0], VM_TOL_LOOSE, scale=1.0)
+        assert (np.asarray(j[2]) <= np.asarray(case.jsu.thresh)).all()
+        np.testing.assert_allclose(t[3].numpy(), np.asarray(j[3]), atol=2)
+        return
     _close(j[0], t[0])                                 # V_m
     _close(j[1], t[1])                                 # V_a
-    res = _res_scale(j[4])
     _close(j[2], t[2], scale=res)                      # err
     _close(j[4], t[4], scale=res)                      # err_hist
     np.testing.assert_array_equal(np.asarray(j[3]), t[3].numpy())
-    assert (t[2] <= case.tsu.thresh).all()

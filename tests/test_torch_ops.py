@@ -1,8 +1,9 @@
-"""hpfx_torch.ops.batched_solve on the CPU: the plain Gauss-Jordan twin of
-the CUDA kernels against the JAX package's Pallas kernels (run by Pallas
-on the CPU) and its unrolled-XLA elimination, equilibration, and the
-dispatch rules.  The CUDA kernels themselves are checked on the card by
-chip_smoke.py."""
+"""hpfx_torch.ops.batched_solve on the CPU: the plain Gauss-Jordan twins of
+the CUDA kernels (the direct elimination and one panel of the blocked
+solve) against the JAX package's Pallas kernels (run by Pallas on the
+CPU) and its unrolled-XLA elimination, the blocked panel solve,
+equilibration, and the dispatch rules.  The CUDA kernels themselves are
+checked on the card by chip_smoke.py."""
 import importlib
 
 import jax.numpy as jnp
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 from hpfx_torch.ops import batched_solve as tbs
+
+from test_torch_foundations import one_torch_thread  # noqa: F401
 
 # the module (hpfx.ops re-exports a function of the same name)
 jbs = importlib.import_module("hpfx.ops.batched_solve")
@@ -123,7 +126,8 @@ def test_cpu_dispatch_takes_plain_path(n):
     x = tbs.batched_solve_lanes(At, bt)
     want = tbs.equilibrated_lanes(tbs.gj_solve_lanes_ref)(At, bt)
     torch.testing.assert_close(x, want, rtol=0, atol=0)
-    assert tbs.LAUNCHES == {"gj_kernel": 0, "gj_kernel_carried": 0}
+    assert tbs.LAUNCHES == {"gj_kernel": 0, "gj_kernel_carried": 0,
+                            "gj_panel_kernel": 0}
 
 
 def test_f64_goes_to_linalg_solve():
@@ -152,11 +156,81 @@ def test_kernel_wrapper_rejects_bad_operands():
 @pytest.mark.parametrize("n,impl", [(130, "panel"), (130, "schur"),
                                     (200, "auto")])
 def test_unported_panel_dims_raise(n, impl):
-    """Where the JAX dispatcher takes the panel kernel (or panel-Schur),
-    the port raises until _gj_panel_kernel is ported."""
-    A = torch.eye(n)[:, :, None].repeat(1, 1, 2)
-    with pytest.raises(NotImplementedError, match="_gj_panel_kernel"):
-        tbs.batched_solve_lanes(A, torch.ones((n, 1, 2)), impl=impl)
+    """Where the JAX dispatcher takes a blocked solve: impl="panel" above
+    128 and any impl above 192 go to the (equilibrated) panel solve;
+    the panel-Schur solve, which is not ported, raises."""
+    A, b = _systems(n, 2, 3, seed=n)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    if impl == "schur":
+        with pytest.raises(NotImplementedError, match="schur_solve_lanes"):
+            tbs.batched_solve_lanes(At, bt, impl=impl)
+        return
+    x = tbs.batched_solve_lanes(At, bt, impl=impl)
+    want = tbs.equilibrated_lanes(tbs.panel_gj_solve_lanes)(At, bt)
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    ref = _np_solve(A, b)
+    np.testing.assert_allclose(x.numpy(), ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
+
+
+def test_panel_ref_matches_pallas():
+    """One panel (N=192, Pw=32, B=8) of the blocked solve, as the second
+    panel sees it (32 rows already used): the twin against
+    _gj_panel_kernel run by Pallas on the CPU.  Ap, TE, E and the used
+    mask agree to F32_TOL of their scale (E and used exactly: the pivot
+    sequence is the same)."""
+    N, Pw, B = 192, 32, 8
+    rng = np.random.default_rng(192)
+    panel = rng.normal(size=(N, Pw, B)).astype(np.float32)
+    used = np.zeros((N, B), np.float32)
+    for i in range(B):
+        used[rng.choice(N, Pw, replace=False), i] = 1.0
+    outs_j = jbs._panel_pallas(jnp.asarray(panel[None]), jnp.asarray(used[None]),
+                               Pw=Pw, N=N, Bb=B, G=1, interpret=True)
+    outs_t = tbs.gj_panel_ref(torch.tensor(panel), torch.tensor(used))
+    for name, j, t in zip(("Ap", "TE", "E", "used"), outs_j, outs_t):
+        j = np.asarray(j)[0]
+        assert t.shape == j.shape, name
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=F32_TOL * np.abs(j).max(),
+                                   err_msg=name)
+    np.testing.assert_array_equal(outs_t[2].numpy(), np.asarray(outs_j[2])[0])
+    np.testing.assert_array_equal(outs_t[3].numpy(), np.asarray(outs_j[3])[0])
+
+
+@pytest.mark.parametrize("n,R,B,panel,pivot", [
+    (40, 2, 3, 16, False), (100, 1, 5, 32, False), (182, 3, 4, 32, False),
+    (48, 1, 2, 16, True)],
+    ids=["panel_40", "panel_100", "panel_182", "panel_pivot_48"])
+def test_panel_solve_matches_jax(n, R, B, panel, pivot):
+    """The blocked panel solve against the JAX package's (its panel kernel
+    run by Pallas on the CPU) and against float64 LU, both to F32_TOL of
+    the solution's scale: pad handling (n not a panel multiple), several
+    right-hand sides, ragged batches and a zero-diagonal system whose
+    pivots come from other panels' rows."""
+    A, b = _pivot_system(n, B) if pivot else _systems(n, R, B, seed=n)
+    x_j = np.asarray(jbs.panel_gj_solve_lanes(jnp.asarray(A), jnp.asarray(b),
+                                              panel=panel, interpret=True))
+    x_t = tbs.panel_gj_solve_lanes(torch.tensor(A), torch.tensor(b),
+                                   panel=panel)
+    assert x_t.shape == (n, b.shape[1], B) and x_t.dtype == torch.float32
+    scale = np.abs(x_j).max()
+    np.testing.assert_allclose(x_t.numpy(), x_j, rtol=0, atol=F32_TOL * scale)
+    np.testing.assert_allclose(x_t.numpy(), _np_solve(A, b), rtol=0,
+                               atol=F32_TOL * scale)
+
+
+def test_panel_wrapper_rejects_bad_operands():
+    panel, used = torch.zeros((64, 32, 3)), torch.zeros((64, 3))
+    with pytest.raises(TypeError):
+        tbs.gj_panel_lanes(panel.double(), used.double())
+    with pytest.raises(ValueError, match="expected"):
+        tbs.gj_panel_lanes(panel, used[:, :2])
+    with pytest.raises(ValueError, match="1030"):
+        tbs.panel_width_for(1030)
+    # widths step down by 8 where the slabs would not fit shared memory
+    assert tbs.panel_width_for(182) == 32 and tbs.panel_width_for(780) == 32
+    assert tbs.panel_width_for(1000) == 24
 
 
 def test_direct_dims_up_to_192():

@@ -18,7 +18,8 @@ import hpfx_torch as ht
 from hpfx.solve import Scenarios as JScen
 from hpfx.solve import hpf_sweep_device as j_sweep_device
 
-from test_torch_foundations import dev_leaves, net_leaves
+from test_torch_foundations import (  # noqa: F401
+    dev_leaves, net_leaves, one_torch_thread)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "hpfx", "data")
