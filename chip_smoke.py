@@ -30,7 +30,33 @@ kernels, and checks them:
   7. the deeper net1-class stages of bench.py at its settings and
      batches (net1 H<=51 B=256, net1 H<=99 B=64, synthetic 64-bus B=256,
      synthetic 128-bus B=128; phase_iters=30): one warm-up and one timed
-     rep each, conv >= 0.999 and launches of each stage's kernels.
+     rep each, conv >= 0.999 and launches of each stage's kernels;
+  8. the fused path: fused_sweep (one fused_trip_kernel launch per Newton
+     trip) at net2 H<=25 B=16384 from the main path's exact-linear seed
+     (warm-up, three timed reps), conv >= 0.999, against the unfused
+     hpf_sweep from the same seed (identical converged flags, phasors
+     within 5e-4 pu; its three reps timed beside), f32 against f64 on 64
+     scenarios; then both from the cold start, in float32 (each leaves at
+     most COLD_STALLS scenarios unconverged, their rates within
+     COLD_RATE_GAP, phasors within 5e-4 pu where both converge) and in
+     float64 (the fused sweep with the plain trip, and hpf_sweep: every
+     scenario converges);
+  9. one net2 main-path rep with GJ_UNROLLED set: launches of
+     gj_kernel_unrolled and none of gj_kernel_carried, conv >= 0.999.
+
+Phase 2 also holds gj_kernel_unrolled (K2u) against its plain version at
+its paths' shapes, beside gj_kernel_carried at the same shapes, and the
+fused trip (K5) against its plain version on the card at net2 B=16384 and
+net3 B=4096 (coupled, stable mismatch) and net2 B=4096 (uncoupled, dense
+mismatch), at the cold start and after 3 unfused trips, with act mixed
+(act = 0 lanes must come out bit for bit; the others held to the plain
+float32 version's distances from the float64 trip, see TRIP_TAME),
+timing the unfused trip beside it.  Beside every kernel it times
+library_ms, the one PyTorch call that computes the same function where
+there is one (torch.linalg.solve on the same systems, batch-major
+beforehand), and computes bound_ms, the larger of the bytes the function
+must move over 3.35 TB/s and its operations (each solve counted as LU)
+over the 67 TFLOP/s float32 peak.
 
 Every path resets the launch counts just before its warm-up run and reads
 them just after it.  Every failure raises (nonzero exit, no result line).
@@ -50,6 +76,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false — no result")
 
 import hpfx_torch as ht  # noqa: E402
+from hpfx_torch import fused_trip as ft, lanes  # noqa: E402
 from hpfx_torch.ops import _build, batched_solve as bs  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -69,11 +96,60 @@ KERNELS = {
     "gj_kernel_carried": ("hpfx/ops/batched_solve.py:139",
                           "hpfx_torch/ops/csrc/gj_solve.cu",
                           [(96, 1, B)]),
+    # the net2 seed, the synthetic 64-bus blocks, the net1 capacitance
+    # system when solved directly
+    "gj_kernel_unrolled": ("hpfx/ops/batched_solve.py:103",
+                           "hpfx_torch/ops/csrc/gj_solve.cu",
+                           [(96, 1, B), (128, 15, 13 * 256),
+                            (182, 1, 2048)]),
     "gj_panel_kernel": ("hpfx/ops/batched_solve.py:452",
                         "hpfx_torch/ops/csrc/gj_panel.cu",
                         [(192, 32, 2048), (384, 32, 256), (704, 32, 64),
                          (800, 32, 128)]),
+    # (network, B, coupled, stable mismatch) of one trip, each at the
+    # cold start and after 3 trips
+    "fused_trip_kernel": ("validation/fused_trip.py:483",
+                          "hpfx_torch/ops/csrc/fused_trip.cu",
+                          [("net2", B, True, True), ("net3", 4096, True, True),
+                           ("net2", 4096, False, False)]),
 }
+#: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+#: bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+#: the fused trip is held against the same trip in float64 (the plain
+#: version on the card), beside the plain version in float32.  One Newton
+#: step from these states carries float32 rounding of ~1e-4 pu in V and
+#: ~1e-3 of the residual in either version, which are equally far from the
+#: float64 trip but not close to each other (1.6e-4 pu in V_m at net2
+#: B=16384 on the card).  After 3 trips ~1% of the lanes are chaotic:
+#: there one float32 step moves a harmonic phasor by up to ~0.1 pu, and
+#: which lanes those are differs between two correct float32 versions.
+#: So the kernel is held to the plain float32 version's distribution of
+#: distances from the float64 trip:
+#:  - the lanes further than TRIP_TAME pu (phasor) from float64: the
+#:    kernel may have at most TRIP_WILD_FACTOR times as many as the plain
+#:    version, plus TRIP_WILD_SLACK;
+#:  - on the lanes where both are within TRIP_TAME: the TRIP_QUANTILE
+#:    quantile of the kernel's per-lane distances at most
+#:    TRIP_NOISE_FACTOR times the plain version's, plus a floor (their
+#:    ratio was 0.8-1.2 on the card, and the counts 131 against 136 and
+#:    34 against 39 after 3 trips at net2 and net3).
+#: V_m and the phasor in pu (angles of near-zero harmonics are noise, so
+#: the angle is held through the phasor), f and err relative to their
+#: largest float64 value
+TRIP_TAME = 1e-3
+TRIP_WILD_FACTOR = 1.5
+TRIP_WILD_SLACK = 16
+TRIP_QUANTILE = 0.99
+TRIP_NOISE_FACTOR = 2.0
+TRIP_FLOOR = 1e-6
+#: the fused path from the cold start at net2 B=16384 (phase 8): the most
+#: scenarios each float32 sweep may leave unconverged (154 fused, 183
+#: unfused on the card), the most their converged rates may differ by
+#: (0.0018 on the card); float64 converges every scenario in both forms
+COLD_STALLS = 200
+COLD_RATE_GAP = 0.003
 #: the blocked solves the net1-class paths make (dim, B): the capacitance
 #: systems of net1 at H<=25/51/99 and of the 128-bus feeder
 PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128)]
@@ -114,6 +190,25 @@ def time_ms(fn, reps):
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` and does ``flops`` float32 operations."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def lu_flops(n, R):
+    """Operations of one dense solve with R right-hand sides at the least
+    a solve needs: an LU factorization and two triangular solves."""
+    return 2 * n ** 3 / 3 + 2 * n * n * R
+
+
+def solve_work(n, R, Bt):
+    """Bytes (A and b read, x written, once) and operations of Bt dense
+    solves."""
+    return 4 * Bt * (n * n + 2 * n * R), Bt * lu_flops(n, R)
 
 
 def reset_launches():
@@ -161,15 +256,31 @@ def systems(n, R, Bt, gen, pivot_case):
     return A.contiguous(), b.contiguous()
 
 
+def library_solve_ms(A, b):
+    """torch.linalg.solve on the same systems, made batch-major
+    beforehand so that the permute is not timed."""
+    A_bm = A.permute(2, 0, 1).contiguous()
+    b_bm = b.permute(2, 0, 1).contiguous()
+    return time_ms(lambda: torch.linalg.solve(A_bm, b_bm), 10)
+
+
 def check_solve_kernel(name, gen):
-    """gj_kernel / gj_kernel_carried against the plain twin."""
+    """gj_kernel / gj_kernel_carried / gj_kernel_unrolled against the plain
+    twin; the unrolled kernel runs with GJ_UNROLLED set, beside
+    gj_kernel_carried at the same shape."""
     errs, first = [], None
+    unrolled = name == "gj_kernel_unrolled"
     for (n, R, Bt) in KERNELS[name][2]:
         A, b = systems(n, R, Bt, gen, pivot_case=True)
-        before = ht.LAUNCHES[name]
-        x = ht.gauss_solve_lanes(A, b)
-        torch.cuda.synchronize()
-        check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+        bs.GJ_UNROLLED = unrolled
+        try:
+            before = ht.LAUNCHES[name]
+            x = ht.gauss_solve_lanes(A, b)
+            torch.cuda.synchronize()
+            check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+            k_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
+        finally:
+            bs.GJ_UNROLLED = False
         x_ref = ht.gj_solve_lanes_ref(A, b)
         scale = x_ref.abs().max().item()
         err = (x - x_ref).abs().max().item()
@@ -177,13 +288,15 @@ def check_solve_kernel(name, gen):
         check(np.isfinite(err) and err <= KERNEL_TOL * scale,
               f"{name} at {(n, R, Bt)}: max err {err} > "
               f"{KERNEL_TOL} * {scale}")
-        k_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
         p_ms = time_ms(lambda: ht.gj_solve_lanes_ref(A, b),
                        3 if n > 32 else 10)
         msg = (f"[2] {name} n={n} R={R} B={Bt}: max|dx| {err:.3e} (scale "
                f"{scale:.3e}; pivot system {pv:.3e}) kernel {k_ms:.4f} ms, "
                f"plain {p_ms:.4f} ms")
-        if (n, R, Bt) == (26, 1, B) or (n, R, Bt) == (96, 1, B):
+        if unrolled:
+            c_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
+            msg += f", gj_kernel_carried at this shape {c_ms:.4f} ms"
+        elif (n, R, Bt) == (26, 1, B) or (n, R, Bt) == (96, 1, B):
             # the layout alternative: transpose to batch-major first
             A_bm = A.permute(2, 0, 1).contiguous()
             x_bm = torch.empty_like(x)
@@ -195,11 +308,17 @@ def check_solve_kernel(name, gen):
             check((x_bm - x).abs().max().item() <= KERNEL_TOL * scale,
                   f"{name}: batch-major operands disagree")
             msg += f", kernel on a batch-major copy incl. transpose {t_ms:.4f} ms"
-        log(msg)
+            del A_bm, x_bm
+        lib_ms = library_solve_ms(A, b)
+        b_ms, b_by = bound(*solve_work(n, R, Bt))
+        log(f"{msg}, torch.linalg.solve {lib_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by})")
         errs.append(err)
         if first is None:
-            first = dict(ms=k_ms, plain_ms=p_ms)
+            first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms)
         del A, b, x, x_ref
+    torch.cuda.empty_cache()
     return errs, first
 
 
@@ -241,10 +360,16 @@ def check_panel_kernel(gen):
             errs.append(d.max().item())
         k_ms = time_ms(lambda: ht.gj_panel_lanes(panel, used), 10)
         p_ms = time_ms(lambda: ht.gj_panel_ref(panel, used), 3)
+        # the panel and the mask in, Ap, TE, E and the mask out; Pw steps
+        # of two (N, Pw) rank-1 updates
+        b_ms, b_by = bound(4 * Bt * (4 * N * Pw + 2 * N), 4 * Bt * N * Pw * Pw)
         log(f"[2] {name} N={N} Pw={Pw} B={Bt}: E and used equal; "
-            f"{', '.join(line)}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            f"{', '.join(line)}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); no PyTorch call eliminates one "
+            "panel")
         if first is None:
-            first = dict(ms=k_ms, plain_ms=p_ms)
+            first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
         del A, panel, used, outs, refs
 
     for (n, Bt) in PANEL_SOLVES:
@@ -279,12 +404,176 @@ def check_panel_kernel(gen):
     return errs, first
 
 
+def trip_flops(d):
+    """Float32 operations of one active scenario's trip at the least the
+    function needs: the H blocks' assembly (~8 per entry) and their
+    solves with R right-hand sides; the capacitance system's build, its
+    solve and the correction; the update and the mismatch (~40 per line
+    flow).  A solve counts as LU (lu_flops), not as the kernel's
+    equilibrated Gauss-Jordan."""
+    H, n, nnl, L, r = d.H, d.n, d.n_nl, d.L, d.r
+    K2, R = 2 * n, 1 + 2 * nnl
+    blocks = H * (8 * K2 * K2 + lu_flops(K2, R))
+    cap = (r * H * (8 * nnl + 12) + lu_flops(r, 1)
+           + 4 * H * K2 * nnl) if d.coupled else 0
+    mism = (12 * H * n + (40 * H * L + 8 * H * n if L else 8 * H * n * n)
+            + 8 * nnl * H * (H if d.coupled else 1) + 4 * d.dim)
+    return blocks + cap + mism
+
+
+def trip_bytes(d, Bt):
+    """State in (V_m, V_a, f, S, err, act, inj) and out (V_m, V_a, f,
+    err), once each; the constants are a few KB."""
+    HN = d.H * d.n
+    return 4 * Bt * ((2 * HN + d.dim + 2 * d.n + 3) + (2 * HN + d.dim + 1))
+
+
+def trip_case(net, Bt, coupled, stable, trips):
+    """One trip's operands at net H<=25: the cold start of the sweep, or
+    the state after ``trips`` unfused trips; act = 0 on every 4th lane.
+    Returns (dims, consts, fused_trip arguments, the unfused trip)."""
+    s = settings(H_MAX).with_(coupled=coupled, stable_mismatch=stable)
+    tn = ht.load_network(os.path.join(DATA, f"{net}_buses.csv"),
+                         os.path.join(DATA, f"{net}_lines.csv"), s,
+                         device=DEV)
+    dv = ht.load_device_set(tn, s)
+    sc = scen(0, Bt)
+    su = lanes._sweep_setup(tn, dv, s, sc)
+    Vm, Va = su.cold_V_m, su.cold_V_a
+    if trips:
+        Vm, Va, *_ = lanes.nr_trip_lanes(
+            su.Y, su.lineY, su.S, su.dev, su.inj_db, Vm, Va,
+            s.with_(max_iter_h=trips), su.consts,
+            torch.zeros(Bt, device=DEV))
+    m, n, c, H = tn.m, tn.n, tn.c, s.n_harmonics
+    f, err = lanes.mismatch_lanes(Vm, Va, su.Y, su.S, su.dev, su.inj_db, m,
+                                  n, c, su.lineY)
+    dims, k = ft.make_trip_consts(su.Y, su.lineY, dv, tn, s)
+    act = (torch.arange(Bt, device=DEV) % 4 != 0).float()[None]
+    args = (Vm.contiguous(), Va.contiguous(),
+            f[su.consts.inv_f_perm].contiguous(), err[None].contiguous(), act,
+            su.S.re.contiguous(), su.S.im.contiguous(),
+            sc.injection_scale.reshape(1, Bt).contiguous())
+
+    def unfused():
+        """The port's unfused trip at the same state (nr_trip_lanes)."""
+        D, on = H * n, act[0] > 0
+        x = torch.cat([Va.reshape(D, Bt)[1:], Vm.reshape(D, Bt)[c:]])
+        x = x - lanes.arrow_step_lanes(Vm, Va, f, su.Y, su.dev, su.inj_db,
+                                       su.consts, big_solve=s.big_solve)
+        Va2 = torch.cat([Va.reshape(D, Bt)[:1], x[:D - 1]]).reshape(H, n, Bt)
+        Vm2 = torch.cat([Vm.reshape(D, Bt)[:c], x[D - 1:]]).reshape(H, n, Bt)
+        f2, err2 = lanes.mismatch_lanes(Vm2, Va2, su.Y, su.S, su.dev,
+                                        su.inj_db, m, n, c, su.lineY)
+        return tuple(torch.where(on, a, b) for a, b in
+                     ((Vm2, Vm), (Va2, Va), (f2, f), (err2, err)))
+    return dims, k, args, unfused
+
+
+def phasor(Vm, Va):
+    return torch.polar(Vm.double(), Va.double())
+
+
+def check_trip_kernel():
+    """fused_trip_kernel against fused_trip_ref on the card, both float32,
+    and both against fused_trip_ref in float64; act = 0 lanes bit for
+    bit; CUDA-event times of the kernel, the plain version and the
+    unfused trip."""
+    name = "fused_trip_kernel"
+    errs, first = [], None
+    for net, Bt, coupled, stable in KERNELS[name][2]:
+        for trips in (0, 3):
+            dims, k, args, unfused = trip_case(net, Bt, coupled, stable,
+                                               trips)
+            tag = (f"{name} {net} {'coupled' if coupled else 'uncoupled'} "
+                   f"{'stable' if stable else 'dense'} B={Bt} after {trips} "
+                   "trips")
+            check(ft.supports_fused(dims), f"{tag}: not supported")
+            before = ht.LAUNCHES[name]
+            outs = ft.fused_trip(dims, k, *args)
+            torch.cuda.synchronize()
+            check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+            refs = ft.fused_trip_ref(dims, k, *args)
+            k64 = ft.TripConsts(*(t.double() if t.is_floating_point() else t
+                                  for t in k))
+            refs64 = ft.fused_trip_ref(dims, k64, *(a.double() for a in args))
+            on = args[4][0] > 0
+            bits = lambda t: t[..., ~on].view(torch.int32)
+            for what, o, a in zip(("V_m", "V_a", "f", "err"), outs, args):
+                check(torch.equal(bits(o), bits(a)),
+                      f"{tag}: act = 0 lanes changed in {what}")
+            # active lanes whose float64 trip is finite (a lane the unfused
+            # trips drove to inf/NaN has nothing to compare)
+            ok = on & torch.stack([torch.isfinite(r).flatten(0, -2).all(0)
+                                   for r in refs64]).all(0)
+            big_f = refs64[2][..., ok].abs().max()
+            big_e = refs64[3][..., ok].abs().max()
+
+            def per_lane(o, r):
+                """(4, Bt): |dV_m|, phasor |dV| (pu), |df|, |derr| relative
+                to the float64 trip's largest |f|, err, per lane."""
+                return torch.stack([
+                    (o[0].double() - r[0].double()).abs().flatten(0, -2)
+                    .amax(0),
+                    (phasor(*o[:2]) - phasor(*r[:2])).abs().flatten(0, -2)
+                    .amax(0),
+                    (o[2].double() - r[2].double()).abs().amax(0) / big_f,
+                    (o[3].double() - r[3].double()).abs().amax(0) / big_e])
+            l_kp, l_k64, l_p64 = (per_lane(outs, refs), per_lane(outs, refs64),
+                                  per_lane(refs, refs64))
+            tame_p = ok & (l_p64[1] <= TRIP_TAME)
+            tame_k = ok & (l_k64[1] <= TRIP_TAME)
+            wild_p = int((ok & ~tame_p).sum().item())
+            wild_k = int((ok & ~tame_k).sum().item())
+            check(wild_k <= TRIP_WILD_FACTOR * wild_p + TRIP_WILD_SLACK,
+                  f"{tag}: {wild_k} lanes beyond {TRIP_TAME} pu of float64, "
+                  f"plain float32 {wild_p}")
+            tame = tame_p & tame_k
+            q = lambda l: [torch.quantile(x[tame], TRIP_QUANTILE).item()
+                           for x in l]
+            d_kp, d_k64, d_p64 = ([x.item() for x in l[:, tame].amax(1)]
+                                  for l in (l_kp, l_k64, l_p64))
+            q_k64, q_p64 = q(l_k64), q(l_p64)
+            for what, dk, dp in zip(("V_m", "phasor", "f", "err"), q_k64,
+                                    q_p64):
+                check(np.isfinite(dk)
+                      and dk <= TRIP_NOISE_FACTOR * dp + TRIP_FLOOR,
+                      f"{tag}: {what} quantile {TRIP_QUANTILE} {dk} from "
+                      f"float64 on the tame lanes, plain float32 {dp}")
+            dvm = d_kp[0]
+            k_ms = time_ms(lambda: ft.fused_trip(dims, k, *args), 20)
+            p_ms = time_ms(lambda: ft.fused_trip_ref(dims, k, *args), 3)
+            u_ms = time_ms(unfused, 5)
+            n_act, n_ok = int(on.sum().item()), int(ok.sum().item())
+            b_ms, b_by = bound(trip_bytes(dims, Bt), n_act * trip_flops(dims))
+            fmt = lambda d: "/".join(f"{x:.3e}" for x in d)
+            log(f"[2] {tag}, {n_act} active, {n_ok} of them finite in "
+                f"float64, beyond {TRIP_TAME} pu of it: plain float32 "
+                f"{wild_p}, kernel {wild_k}; on the {int(tame.sum().item())} "
+                f"lanes tame in both, V_m/phasor/f/err: max kernel vs "
+                f"plain {fmt(d_kp)}, max kernel vs float64 {fmt(d_k64)}, "
+                f"max plain vs float64 {fmt(d_p64)}, quantile "
+                f"{TRIP_QUANTILE} kernel vs float64 {fmt(q_k64)}, plain vs "
+                f"float64 {fmt(q_p64)}; act = 0 lanes bit-exact; kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, unfused trip "
+                f"{u_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            errs.append(dvm)
+            if first is None:
+                first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+            del outs, refs, refs64, args
+        torch.cuda.empty_cache()
+    return errs, first
+
+
 def phase2():
     gen = torch.Generator(device=DEV).manual_seed(1234)
     rows = {}
     for name, (replaces, source, _) in KERNELS.items():
         if name == "gj_panel_kernel":
             errs, first = check_panel_kernel(gen)
+        elif name == "fused_trip_kernel":
+            errs, first = check_trip_kernel()
         else:
             errs, first = check_solve_kernel(name, gen)
         rows[name] = dict(name=name, route="cuda", source=source,
@@ -456,18 +745,139 @@ def phase7():
     return total
 
 
+def linear_seed(net, dev, s, sc):
+    """The main path's start, the exact-linear Norton seed, batch-major."""
+    su = lanes._sweep_setup(net, dev, s, sc)
+    return tuple(torch.movedim(v, -1, 0)
+                 for v in lanes._linear_seed_lanes(su, net, s))
+
+
+def phase8():
+    """The fused path: fused_sweep at net2 H<=25 B=16384 from the main
+    path's start (the exact-linear seed), against the unfused hpf_sweep
+    from the same start and against float64; then both from the cold
+    start, where neither converges every scenario in float32 and both do
+    in float64."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    run = lambda sc, lg=None: ft.fused_sweep(net, dev, s, sc,
+                                             V0=linear_seed(net, dev, s, sc))
+    launches = warm_up(run, B, None, ("fused_trip_kernel",), 8)
+    reps, rep0 = timed_reps(run, B, s, net, 8, 3)
+    unfused = lambda sc, lg=None: ht.hpf_sweep(
+        net, dev, s, sc, V0=linear_seed(net, dev, s, sc))
+    u_reps, u0 = timed_reps(unfused, B, s, net, "8 unfused", 3)
+    check(torch.equal(rep0.converged, u0.converged),
+          "[8] fused and unfused sweeps converge on different scenarios")
+    dV = (phasor(rep0.V_m, rep0.V_a) - phasor(u0.V_m, u0.V_a)).abs().max()
+    check(dV.item() <= 5e-4, f"[8] fused vs unfused phasor {dV.item()}")
+    log(f"[8] from the seed: fused sweep median {np.median(reps):.4f} s, "
+        f"unfused {np.median(u_reps):.4f} s; {launches['fused_trip_kernel']} "
+        f"fused trips in the warm-up; fused vs unfused: same converged "
+        f"flags, max phasor |dV| {dV.item():.3e} pu")
+    f64 = torch.float64
+    compare_f64(rep0, lambda sub: ht.hpf_sweep_device(
+        net.to(dtype=f64), dev.to(dtype=f64), s.with_(dtype="float64"), sub,
+        phase_iters=PHASE_ITERS, warm="linear"), B, 5e-5, 1e-4, 8)
+    # the cold start of tests/test_fused_trip.py's sweep: the Newton
+    # transient is chaotic for ~10 trips, so float32 rounding decides which
+    # ~1% of the scenarios stall, in either form; float64 (the plain fused
+    # trip on the card, and the unfused sweep) is the witness that they
+    # are float32's stalls and not the scenarios'
+    sc = scen(0, B)
+    sc64 = ht.Scenarios(*(x.double() for x in sc))
+    net64, dev64 = net.to(dtype=f64), dev.to(dtype=f64)
+    s64 = s.with_(dtype="float64")
+    out = {}
+    for tag, fn, args in (
+            ("fused", ft.fused_sweep, (net, dev, s, sc)),
+            ("unfused", ht.hpf_sweep, (net, dev, s, sc)),
+            ("fused f64", fused_sweep_plain, (net64, dev64, s64, sc64)),
+            ("unfused f64", ht.hpf_sweep, (net64, dev64, s64, sc64))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out[tag] = (res, time.perf_counter() - t0)
+    conv = {k: r.converged for k, (r, _) in out.items()}
+    cf, cu = conv["fused"], conv["unfused"]
+    both = cf & cu
+    (rf, _), (ru, _) = out["fused"], out["unfused"]
+    dVc = (phasor(rf.V_m[both], rf.V_a[both])
+           - phasor(ru.V_m[both], ru.V_a[both])).abs().max().item()
+    stalls = {k: int((~c).sum().item()) for k, c in conv.items()}
+    differ = int((cf != cu).sum().item())
+    log("[8] from the cold start: " + ", ".join(
+        f"{k} {t:.4f} s conv {c.float().mean().item():.6f} ({stalls[k]} "
+        f"not converged, n_iter max {int(r.n_iter.max())})"
+        for (k, (r, t)), c in zip(out.items(), conv.values())))
+    log(f"[8] cold start, float32: the fused and unfused flags differ on "
+        f"{differ} scenarios, {int((~cf & ~cu).sum().item())} stall in "
+        f"both; max phasor |dV| where both converge {dVc:.3e} pu")
+    for k in ("fused f64", "unfused f64"):
+        check(stalls[k] == 0,
+              f"[8] cold start: {k} leaves {stalls[k]} not converged")
+    for k in ("fused", "unfused"):
+        check(stalls[k] <= COLD_STALLS,
+              f"[8] cold start: {k} leaves {stalls[k]} not converged")
+    gap = abs(stalls["fused"] - stalls["unfused"]) / B
+    check(gap <= COLD_RATE_GAP,
+          f"[8] cold start: fused and unfused conv differ by {gap}")
+    check(dVc <= 5e-4, "[8] cold start: phasors differ")
+    return launches
+
+
+def fused_sweep_plain(*args):
+    """fused_sweep with the plain version of the trip in place of the
+    kernel (for float64 on the card)."""
+    kernel = ft.fused_trip
+    ft.fused_trip = ft.fused_trip_ref
+    try:
+        return ft.fused_sweep(*args)
+    finally:
+        ft.fused_trip = kernel
+
+
+def phase9():
+    """One net2 main-path rep with GJ_UNROLLED set."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    bs.GJ_UNROLLED = True
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ht.hpf_sweep_device(net, dev, s, scen(0, B),
+                                  phase_iters=PHASE_ITERS, warm="linear")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ht.LAUNCHES)
+    finally:
+        bs.GJ_UNROLLED = False
+    conv = check_result(res, B, s, net, "[9] GJ_UNROLLED rep")
+    check(launches["gj_kernel_unrolled"] > 0
+          and launches["gj_kernel_carried"] == 0,
+          f"[9] GJ_UNROLLED rep launched {launches}")
+    log(f"[9] net2 main path with GJ_UNROLLED: {dt:.4f} s, "
+        f"{conv * B / dt:.1f} converged solves/s, conv {conv:.6f}, "
+        f"launches {launches}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
+    # the paths run gj_kernel_carried whatever HPFX_GJ_UNROLLED says; the
+    # K2u checks and phase 9 set the flag for themselves
+    bs.GJ_UNROLLED = False
     smi = phase0()
     phase1()
     rows = phase2()
-    paths = [phase3_4(), phase5_6(), phase7()]
+    paths = [phase3_4(), phase5_6(), phase7(), phase8(), phase9()]
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
-    log(f"[8] whole run {time.perf_counter() - t_start:.1f} s")
+        check(row["launches"] > 0, f"no path launched {name}")
+    log(f"[10] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms")}
+                             "launches", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")}
         for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 The PyTorch/CUDA port of the JAX package ``hpfx``, which stays the
 reference.  Module names follow ``hpfx``; this package never imports JAX
 or ``hpfx``, and reads the shared data files under ``hpfx/data/`` by
-path.  Devices come from the input tensors (or ``device=`` on the
-loaders); nothing moves data to a GPU behind the caller's back.
+path.  The loaders (``load_network``, ``network_from_arrays``,
+``synthetic_feeder``, ``from_hpfx_arrays``) put their tensors on the CUDA
+card unless given ``device=``, and raise when there is no card: pass
+``device="cpu"`` to run on the CPU.  Everything downstream follows the
+device of its input tensors.
 
 Importing the package pins float32 matmuls to full precision (TF32 off):
 a TF32 contraction keeps ~3 decimal digits and stalls Newton-Raphson at a

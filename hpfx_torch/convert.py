@@ -11,13 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .cx import Cx
 from .devices import DeviceSet
 from .network import ARRAY_FIELDS, Network
 
 
 def from_hpfx_arrays(net_leaves: dict, dev_leaves: dict, device=None):
-    """Rebuild ``(Network, DeviceSet)`` on ``device``.
+    """Rebuild ``(Network, DeviceSet)`` on ``device`` (default: the CUDA
+    card, :func:`hpfx_torch._device.resolve_device`).
 
     ``net_leaves`` maps every field of ``hpfx.network.Network`` to its
     value: numpy arrays for the array fields, the Python values of
@@ -25,6 +27,8 @@ def from_hpfx_arrays(net_leaves: dict, dev_leaves: dict, device=None):
     ``I_N`` and ``Y_N`` as ``(re, im)`` numpy pairs and ``coupled``.
     Floating arrays keep their dtype; bus indices become int64.
     """
+    device = resolve_device(device)
+
     def t(a):
         a = np.asarray(a)
         dt = None if a.dtype.kind == "f" else torch.int64

@@ -21,7 +21,8 @@ def synthetic_feeder(n_buses: int, n_nonlinear: int, settings: Settings,
                      impedance_scale: float = None,
                      device=None) -> Network:
     """A net1-style ring feeder with ``n_chords`` extra cross-ties, on
-    ``device`` (``hpfx.generators.synthetic_feeder``).
+    ``device``, the CUDA card by default
+    (``hpfx.generators.synthetic_feeder``).
 
     Bus 0 is the slack; the last ``n_nonlinear`` buses carry nonlinear
     devices cycling through ``components``; the rest are PQ loads.  Line

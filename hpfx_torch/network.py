@@ -4,7 +4,8 @@ The PyTorch counterpart of :mod:`hpfx.network`: the same two CSV schemas
 (net2/net3 ``X_sh`` with line G/B; net1 ``X_shunt`` without them), the
 same per-unit conversion and the same bus-ordering contract (slack, PV,
 PQ, nonlinear).  Numeric fields are tensors on the device the loader is
-given; ``n``/``m``/``c``/``bus_types``/``components`` are plain Python.
+given, the CUDA card by default; ``n``/``m``/``c``/``bus_types``/
+``components`` are plain Python.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .config import Settings
 
 # bus type codes
@@ -92,7 +94,8 @@ def load_network(buses_csv: str, lines_csv: str, settings: Settings,
                  sort: bool = False, validate: bool = True,
                  device=None) -> Network:
     """Load a network from the reference ``;``-delimited CSV schemas
-    (``hpfx.network.load_network``) onto ``device``."""
+    (``hpfx.network.load_network``) onto ``device`` (default: the CUDA
+    card, :func:`hpfx_torch._device.resolve_device`)."""
     bus_rows = _read_semicolon_csv(buses_csv)
     line_rows = _read_semicolon_csv(lines_csv)
     types = [_TYPE_CODES[r["type"]] for r in bus_rows]
@@ -138,7 +141,7 @@ def network_from_arrays(*, bus_types: Sequence[int],
                         phase_shift=None, settings: Settings,
                         per_unit: bool = True, device=None) -> Network:
     """Programmatic constructor (``hpfx.network.network_from_arrays``) onto
-    ``device``.  ``line_from``/``line_to`` are 0-based bus indices and
+    ``device`` (default: the CUDA card).  ``line_from``/``line_to`` are 0-based bus indices and
     ``phase_shift`` is in degrees.  If ``per_unit`` is False, quantities are
     converted with the settings' bases, as the CSV loader does."""
     nb, nl = len(P), len(R)
@@ -198,6 +201,7 @@ def _make_network(arrays, types: Tuple[int, ...], components: Tuple[str, ...],
     m = min(nl_idx) if nl_idx else n          # hcne_generalized.py:122-125
     c = sum(1 for t in types if t == PV) + 1  # hcne_generalized.py:127
     rd = settings.real_dtype
+    device = resolve_device(device)
 
     def as_t(k):
         dt = torch.int64 if k in ("line_from", "line_to") else rd

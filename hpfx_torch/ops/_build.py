@@ -18,7 +18,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", f)
-                for f in ("gj_solve.cu", "gj_panel.cu"))
+                for f in ("gj_solve.cu", "gj_panel.cu", "fused_trip.cu"))
 HEADERS = (os.path.join(_HERE, "csrc", "gj_common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                          "build", "hpfx_torch_kernels")
@@ -41,18 +41,27 @@ def _nvcc() -> str:
 
 def _declare(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3),
+    # shared-memory bytes (not for the unrolled kernel, which sizes its
+    # own), stream
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried"):
-        fn = getattr(lib, name)
-        # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3),
-        # shared-memory bytes, stream
-        fn.argtypes = [vp, vp, vp, i, i, ll] + [ll] * 9 + [i, vp]
-        fn.restype = i
+        getattr(lib, name).argtypes = [vp, vp, vp, i, i, ll] + [ll] * 9 \
+            + [i, vp]
+    lib.hpfx_gj_kernel_unrolled.argtypes = [vp, vp, vp, i, i, ll] \
+        + [ll] * 9 + [vp]
+    for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
+                 "hpfx_gj_kernel_unrolled"):
+        getattr(lib, name).restype = i
     # panel, used, Ap, TE, E, used_out, N, Pw, B, panel strides (3),
     # output strides (3), used strides (2), used_out strides (2),
     # shared-memory bytes, stream
     lib.hpfx_gj_panel_kernel.argtypes = [vp] * 6 + [i, i, ll] + [ll] * 10 \
         + [i, vp]
     lib.hpfx_gj_panel_kernel.restype = i
+    # Vm, Va, f, err, act, Sr, Si, inj, packed constants, lines, the four
+    # outputs, H, n, m, c, L, coupled, constant count, B, stream
+    lib.hpfx_fused_trip.argtypes = [vp] * 14 + [i] * 7 + [ll, vp]
+    lib.hpfx_fused_trip.restype = i
     lib.hpfx_error_string.argtypes = [i]
     lib.hpfx_error_string.restype = ctypes.c_char_p
 

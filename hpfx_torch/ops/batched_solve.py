@@ -16,8 +16,9 @@ pivoting, wrapped in row and column max-abs equilibration
 :func:`gj_solve_lanes_ref` is that algorithm in plain PyTorch (the twin
 of the Pallas kernels and of ``gj_solve_xla_lanes``).
 :func:`gauss_solve_lanes` is the wrapper of the hand-written CUDA
-kernels (``csrc/gj_solve.cu``); it runs the plain twin only for tensors
-that lie on the CPU.
+kernels (``csrc/gj_solve.cu``; :func:`kernel_for` names the one a dim
+takes, :data:`GJ_UNROLLED` picks the unrolled variant for dims >= 64);
+it runs the plain twin only for tensors that lie on the CPU.
 
 Large dims take the blocked form of the same elimination
 (:func:`panel_gj_solve_lanes`): one panel of columns at a time is
@@ -31,6 +32,7 @@ matrix products apply each panel to the trailing columns and the RHS.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -54,8 +56,15 @@ _MAX_SMEM = 232448 - 1024
 #: systems (warps) per block of the one-warp-per-system kernel
 _WARPS_PER_BLOCK = 4
 
+#: route dims >= KERNEL_SWITCH_DIM to ``gj_kernel_unrolled`` (the column
+#: loop unrolled at compile time) instead of ``gj_kernel_carried``.  Read
+#: once at import from HPFX_GJ_UNROLLED=1, as the JAX package reads it
+#: (``hpfx/ops/batched_solve.py:204``); off by default
+GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
+
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
-LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_panel_kernel": 0}
+LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_kernel_unrolled": 0,
+            "gj_panel_kernel": 0, "fused_trip_kernel": 0}
 
 
 def gj_solve_lanes_ref(A, b):
@@ -91,13 +100,23 @@ def _kernel_smem(n: int, R: int, systems_per_block: int) -> int:
     return systems_per_block * (n + 1) * ld * 4
 
 
+def kernel_for(n: int) -> str:
+    """The CUDA kernel that solves a dim-n system: ``gj_kernel`` below
+    ``KERNEL_SWITCH_DIM``, above it ``gj_kernel_carried``, or
+    ``gj_kernel_unrolled`` when :data:`GJ_UNROLLED` is set."""
+    if n < KERNEL_SWITCH_DIM:
+        return "gj_kernel"
+    return "gj_kernel_unrolled" if GJ_UNROLLED else "gj_kernel_carried"
+
+
 def gauss_solve_lanes(A, b):
     """Solve A[:, :, i] x = b[:, :, i] for every lane i: A (n, n, B),
     b (n, R, B) float32, contiguous -> x (n, R, B) float32.
 
-    A CUDA tensor runs the hand-written kernel — ``gj_kernel`` (one warp
-    per system) for n < 64, ``gj_kernel_carried`` (one block per system)
-    for 64 <= n <= 192 — or raises.  A CPU tensor runs
+    A CUDA tensor runs the hand-written kernel :func:`kernel_for` names —
+    ``gj_kernel`` (one warp per system) for n < 64, ``gj_kernel_carried``
+    or ``gj_kernel_unrolled`` (one block per system) for 64 <= n <= 192
+    — or raises.  A CPU tensor runs
     :func:`gj_solve_lanes_ref`.  No equilibration here: callers wrap it
     with :func:`equilibrated_lanes`."""
     if A.dim() != 3 or b.dim() != 3 or A.shape[0] != A.shape[1] \
@@ -132,27 +151,30 @@ def _launch(A, b, x):
     R = b.shape[1]
     if B == 0:
         return
-    carried = n >= KERNEL_SWITCH_DIM
-    spb = 1 if carried else _WARPS_PER_BLOCK
-    smem = _kernel_smem(n, R, spb)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"dim {n} with {R} right-hand sides needs {smem} "
-                         f"bytes of shared memory per block (> {_MAX_SMEM})")
+    name = kernel_for(n)
+    smem = []   # the unrolled kernel sizes its own shared memory
+    if name != "gj_kernel_unrolled":
+        nbytes = _kernel_smem(n, R, 1 if name == "gj_kernel_carried"
+                              else _WARPS_PER_BLOCK)
+        if nbytes > _MAX_SMEM:
+            raise ValueError(f"dim {n} with {R} right-hand sides needs "
+                             f"{nbytes} bytes of shared memory per block "
+                             f"(> {_MAX_SMEM})")
+        smem = [ctypes.c_int(nbytes)]
     lib = load_library()
-    fn = lib.hpfx_gj_kernel_carried if carried else lib.hpfx_gj_kernel
+    fn = getattr(lib, f"hpfx_{name}")
     st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = fn(ctypes.c_void_p(A.data_ptr()), ctypes.c_void_p(b.data_ptr()),
                  ctypes.c_void_p(x.data_ptr()), ctypes.c_int(n),
                  ctypes.c_int(R), ctypes.c_longlong(B),
-                 *st(A), *st(b), *st(x), ctypes.c_int(smem),
-                 ctypes.c_void_p(stream))
+                 *st(A), *st(b), *st(x), *smem, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"GJ kernel launch failed (cudaError {err}: "
             f"{lib.hpfx_error_string(err).decode()}) at n={n}, R={R}, B={B}")
-    LAUNCHES["gj_kernel_carried" if carried else "gj_kernel"] += 1
+    LAUNCHES[name] += 1
 
 
 def equilibrated_lanes(solve):

@@ -48,4 +48,19 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
                               smem);
 }
 
+// the most dynamic shared memory one block of `kernel` may ask for on the
+// current device: its opt-in limit less the kernel's static shared words
+template <typename Kernel>
+cudaError_t max_dynamic_smem(Kernel kernel, int* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess) *bytes = optin - (int)fa.sharedSizeBytes;
+  return e;
+}
+
 }  // namespace hpfx

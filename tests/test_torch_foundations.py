@@ -77,7 +77,7 @@ def dev_leaves(dev):
 def test_load_network_matches(name):
     s, ts = _settings()
     jn = hpfx.load_network(*_paths(name), s)
-    tn = ht.load_network(*_paths(name), ts)
+    tn = ht.load_network(*_paths(name), ts, device="cpu")
     for f in dataclasses.fields(jn):
         jv, tv = getattr(jn, f.name), getattr(tn, f.name)
         if isinstance(tv, torch.Tensor):
@@ -91,7 +91,8 @@ def test_load_network_matches(name):
 def test_load_device_set_matches(name, coupled):
     s, ts = _settings(coupled)
     jd = hpfx.load_device_set(hpfx.load_network(*_paths(name), s), s)
-    td = ht.load_device_set(ht.load_network(*_paths(name), ts), ts)
+    td = ht.load_device_set(
+        ht.load_network(*_paths(name), ts, device="cpu"), ts)
     assert td.coupled == jd.coupled
     _cx_close(jd.I_N, td.I_N)
     _cx_close(jd.Y_N, td.Y_N)
@@ -102,7 +103,8 @@ def test_load_device_set_matches(name, coupled):
 def test_build_ybus_matches(name, compat):
     s, ts = _settings(compat_shunt_bug=compat)
     Yj = hpfx.build_ybus(hpfx.load_network(*_paths(name), s), s)
-    Yt = ht.build_ybus(ht.load_network(*_paths(name), ts), ts)
+    Yt = ht.build_ybus(ht.load_network(*_paths(name), ts, device="cpu"),
+                       ts)
     _cx_close(Yj, Yt)
 
 
@@ -110,7 +112,8 @@ def test_build_ybus_matches(name, compat):
 def test_build_line_ybus_matches(name):
     s, ts = _settings()
     lj = j_line_ybus(hpfx.load_network(*_paths(name), s), s)
-    lt = build_line_ybus(ht.load_network(*_paths(name), ts), ts)
+    lt = build_line_ybus(
+        ht.load_network(*_paths(name), ts, device="cpu"), ts)
     _cx_close(lj.Ys, lt.Ys)
     _cx_close(lj.d, lt.d)
     for k in ("a_ff", "inv_tau", "shift", "f_idx", "t_idx"):
@@ -121,7 +124,7 @@ def test_build_line_ybus_matches(name):
 def test_stable_matvec_lanes_matches(name):
     s, ts = _settings()
     jn = hpfx.load_network(*_paths(name), s)
-    tn = ht.load_network(*_paths(name), ts)
+    tn = ht.load_network(*_paths(name), ts, device="cpu")
     rng = np.random.default_rng(11)
     shape = (s.n_harmonics, jn.n, 5)
     V_m = rng.uniform(-0.2, 1.1, shape)
@@ -162,7 +165,8 @@ def test_from_hpfx_arrays_round_trip(name):
     s, _ = _settings()
     jn = hpfx.load_network(*_paths(name), s)
     jd = hpfx.load_device_set(jn, s)
-    tn, td = ht.from_hpfx_arrays(net_leaves(jn), dev_leaves(jd))
+    tn, td = ht.from_hpfx_arrays(net_leaves(jn), dev_leaves(jd),
+                                  device="cpu")
     for f in dataclasses.fields(jn):
         jv, tv = getattr(jn, f.name), getattr(tn, f.name)
         if isinstance(tv, torch.Tensor):
@@ -177,6 +181,45 @@ def test_from_hpfx_arrays_round_trip(name):
                 getattr(getattr(td, part), k).numpy(),
                 np.asarray(getattr(getattr(jd, part), k)))
     assert td.coupled == jd.coupled
+
+
+def _loader_calls():
+    """Each loader of the port, called with the given device keywords."""
+    s, ts = _settings()
+    jn = hpfx.load_network(*_paths("net2"), s)
+    jd = hpfx.load_device_set(jn, s)
+    return {
+        "load_network": lambda **kw: ht.load_network(*_paths("net2"), ts,
+                                                     **kw),
+        "network_from_arrays": lambda **kw: ht.network_from_arrays(
+            bus_types=(0, 3), components=("generator", "SMPS"), P=[0, 0.2],
+            Q=[0, 0.1], line_from=[0], line_to=[1], R=[0.1], X=[0.2],
+            settings=ts, **kw),
+        "synthetic_feeder": lambda **kw: ht.synthetic_feeder(8, 2, ts, **kw),
+        "from_hpfx_arrays": lambda **kw: ht.from_hpfx_arrays(
+            net_leaves(jn), dev_leaves(jd), **kw)[0],
+    }
+
+
+@pytest.mark.parametrize("loader", ["load_network", "network_from_arrays",
+                                    "synthetic_feeder", "from_hpfx_arrays"])
+def test_loaders_default_to_the_card(monkeypatch, loader):
+    """With no device= every loader puts its data on the CUDA card, and
+    with no card it raises rather than fall back to the CPU; device="cpu"
+    gives CPU tensors."""
+    call = _loader_calls()[loader]
+    net = call(device="cpu")
+    assert net.bus_P.device.type == "cpu"
+    assert net.line_from.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_resolve_device():
+    from hpfx_torch._device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
 
 
 def test_import_leaves_jax_out():

@@ -71,8 +71,8 @@ class Case:
         self.jnet = hpfx.load_network(os.path.join(DATA, f"{net}_buses.csv"),
                                       os.path.join(DATA, f"{net}_lines.csv"), s)
         self.jdev = hpfx.load_device_set(self.jnet, s)
-        self.tnet, self.tdev = ht.from_hpfx_arrays(net_leaves(self.jnet),
-                                                   dev_leaves(self.jdev))
+        self.tnet, self.tdev = ht.from_hpfx_arrays(
+            net_leaves(self.jnet), dev_leaves(self.jdev), device="cpu")
         rng = np.random.default_rng(21)
         p = rng.uniform(0.8, 1.2, B)
         q = rng.uniform(0.8, 1.2, B)

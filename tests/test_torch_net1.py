@@ -78,7 +78,8 @@ def _run_jax(Bt, phase_iters, V0=None, rescue=True):
 def _run_torch(Bt, dtype, phase_iters, log=None, **kw):
     _, ts, jnet, jdev, scen = _inputs(Bt)
     ts = ts.with_(dtype=dtype)
-    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev))
+    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev),
+                                   device="cpu")
     net, dev = net.to(dtype=ts.real_dtype), dev.to(dtype=ts.real_dtype)
     t = lambda a: torch.tensor(a, dtype=ts.real_dtype)
     return ht.hpf_sweep_adaptive(net, dev, ts, ht.Scenarios(*map(t, scen)),
@@ -178,7 +179,8 @@ def test_adaptive_f32_close_to_f64():
 
 def test_adaptive_warm_linear_not_ported():
     _, ts, jnet, jdev, scen = _inputs(2)
-    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev))
+    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev),
+                                   device="cpu")
     with pytest.raises(NotImplementedError, match="norton_warm_start"):
         ht.hpf_sweep_adaptive(net, dev, ts.with_(dtype="float64"),
                               ht.Scenarios(*map(torch.tensor, scen)),
@@ -193,7 +195,7 @@ def test_synthetic_feeder_matches(n, n_nl, seed):
     s, ts = _settings()
     jn = j_feeder(n, n_nl, s, components=("SMPS",), seed=seed)
     tn = ht.synthetic_feeder(n, n_nl, ts.with_(dtype="float64"),
-                             components=("SMPS",), seed=seed)
+                             components=("SMPS",), seed=seed, device="cpu")
     for f in dataclasses.fields(jn):
         jv, tv = getattr(jn, f.name), getattr(tn, f.name)
         if isinstance(tv, torch.Tensor):

@@ -127,7 +127,27 @@ def test_cpu_dispatch_takes_plain_path(n):
     want = tbs.equilibrated_lanes(tbs.gj_solve_lanes_ref)(At, bt)
     torch.testing.assert_close(x, want, rtol=0, atol=0)
     assert tbs.LAUNCHES == {"gj_kernel": 0, "gj_kernel_carried": 0,
-                            "gj_panel_kernel": 0}
+                            "gj_kernel_unrolled": 0, "gj_panel_kernel": 0,
+                            "fused_trip_kernel": 0}
+
+
+@pytest.mark.parametrize("unrolled", [False, True], ids=["carried",
+                                                         "unrolled"])
+def test_unrolled_flag_routes_large_dims(monkeypatch, unrolled):
+    """GJ_UNROLLED (HPFX_GJ_UNROLLED=1) sends dims >= 64 to
+    gj_kernel_unrolled on the card; below 64 the route stays gj_kernel,
+    and CPU tensors still take the plain version, launching nothing."""
+    monkeypatch.setattr(tbs, "GJ_UNROLLED", unrolled)
+    big = "gj_kernel_unrolled" if unrolled else "gj_kernel_carried"
+    assert [tbs.kernel_for(n) for n in (17, 63, 64, 96, 192)] == \
+        ["gj_kernel"] * 2 + [big] * 3
+    for k in tbs.LAUNCHES:
+        tbs.LAUNCHES[k] = 0
+    A, b = _systems(96, 2, 3, seed=96)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    torch.testing.assert_close(tbs.gauss_solve_lanes(At, bt),
+                               tbs.gj_solve_lanes_ref(At, bt), rtol=0, atol=0)
+    assert not any(tbs.LAUNCHES.values())
 
 
 def test_f64_goes_to_linalg_solve():

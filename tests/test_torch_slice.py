@@ -59,7 +59,8 @@ def _run_jax(Bt, **kw):
 def _run_torch(Bt, dtype, log=None, **kw):
     _, ts, jnet, jdev, p, inj = _inputs(Bt)
     ts = ts.with_(dtype=dtype)
-    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev))
+    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev),
+                                   device="cpu")
     net, dev = net.to(dtype=ts.real_dtype), dev.to(dtype=ts.real_dtype)
     t = lambda a: torch.tensor(a, dtype=ts.real_dtype)
     return ht.hpf_sweep_device(net, dev, ts, ht.Scenarios(t(p), t(p), t(inj)),
