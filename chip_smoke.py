@@ -7,13 +7,18 @@ kernels, and checks them:
 
   0. versions, card name and power limit; fails without CUDA, and if
      anything of JAX or of the JAX package was imported;
-  1. builds the kernels from the sources in this checkout;
+  1. builds the kernels from the sources in this checkout and prints
+     ptxas's registers and spills; fails if the panel kernel's report is
+     missing or shows a spill;
   2. holds each kernel against its plain PyTorch version at its paths'
      shapes (max |x_kernel - x_plain| <= 1e-4 * max |x_plain|; the panel
-     kernel's pivots exactly and its Ap, TE to 1e-4 of each system's
-     scale) and times both with CUDA events; the blocked panel solve is
-     held against itself with the plain panel twin, and against float64
-     LU, to 1e-4 of the solution's scale;
+     kernel's pivot rows and mask exactly and its Z to 1e-4 of each
+     system's scale, from a lane-major and a batch-major panel) and times
+     both with CUDA events; the blocked panel solve is held against
+     itself with the plain panel twin, and against float64 LU, to 1e-4 of
+     the solution's scale, and timed beside torch.linalg.solve and, where
+     a direct kernel takes the dim, gj_kernel_unrolled and
+     gj_kernel_carried on the same systems;
   3. the net2 main path: the H<=25 B=16384 float32 device-side sweep
      with the exact-linear seed (one warm-up, three timed reps with
      distinct scenario sets, one logged rep for the per-phase breakdown);
@@ -58,13 +63,16 @@ beforehand), and computes bound_ms, the larger of the bytes the function
 must move over 3.35 TB/s and its operations (each solve counted as LU)
 over the 67 TFLOP/s float32 peak.
 
-Every path resets the launch counts just before its warm-up run and reads
-them just after it.  Every failure raises (nonzero exit, no result line).
-The line before the last is a JSON object per kernel; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+Every path resets the launch counts, by kernel and by shape, just before
+its warm-up run and reads them just after it.  Every failure raises
+(nonzero exit, no result line).  The line before the card's name is a
+JSON object per kernel, with its launches by shape on the paths; the last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,8 +159,9 @@ TRIP_FLOOR = 1e-6
 COLD_STALLS = 200
 COLD_RATE_GAP = 0.003
 #: the blocked solves the net1-class paths make (dim, B): the capacitance
-#: systems of net1 at H<=25/51/99 and of the 128-bus feeder
-PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128)]
+#: systems of net1 at H<=25/51/99 and of the 128-bus feeder; and dim 192,
+#: the size dim 182 is padded to, for what the pad costs
+PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128), (192, 2048)]
 #: bench.py's deeper net1-class stages: (name, network, H max, B,
 #: scenario spread (p_lo, p_hi, inj_lo, inj_hi), kernels the path runs)
 DEEP_STAGES = [
@@ -211,9 +220,21 @@ def solve_work(n, R, Bt):
     return 4 * Bt * (n * n + 2 * n * R), Bt * lu_flops(n, R)
 
 
+#: launches by (kernel, shape) over the paths' warm-up runs
+PATH_SHAPES = collections.Counter()
+
+
 def reset_launches():
     for k in ht.LAUNCHES:
         ht.LAUNCHES[k] = 0
+    ht.LAUNCHES_BY_SHAPE.clear()
+
+
+def read_launches():
+    """The launch counts of the run since the last reset; adds those by
+    shape to PATH_SHAPES."""
+    PATH_SHAPES.update(ht.LAUNCHES_BY_SHAPE)
+    return dict(ht.LAUNCHES)
 
 
 def phase0():
@@ -232,6 +253,28 @@ def phase0():
     return smi
 
 
+def ptxas_report(build_log):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+            cur = None   # the function's report ends here
+    return out
+
+
 def phase1():
     t0 = time.perf_counter()
     _build.load_library()
@@ -239,6 +282,13 @@ def phase1():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"    ptxas: {line.strip()}")
+    panel = [v for sym, v in ptxas_report(_build.build_log).items()
+             if "gj_panel_kernel" in sym]
+    check(len(panel) == 1, f"{len(panel)} ptxas reports of gj_panel_kernel")
+    regs, st, ld = panel[0]
+    log(f"[1] gj_panel_kernel<{bs.PANEL_WIDTH}>: {regs} registers, spill "
+        f"stores {st} B, spill loads {ld} B")
+    check(st == 0 and ld == 0, "gj_panel_kernel spills")
 
 
 def systems(n, R, Bt, gen, pivot_case):
@@ -324,49 +374,59 @@ def check_solve_kernel(name, gen):
 
 def check_panel_kernel(gen):
     """gj_panel_kernel against gj_panel_ref on one panel per dim, as a
-    middle panel sees it (a third of the rows already used), then the
-    whole blocked solve with the kernel against the same solve with the
-    plain panel twin and against float64 LU."""
+    middle panel sees it (a third of the rows already used), read from a
+    lane-major and from a batch-major matrix; then the whole blocked solve
+    with the kernel against the same solve with the plain panel twin and
+    against float64 LU, timed beside torch.linalg.solve and the direct
+    kernels on the same systems."""
     name = "gj_panel_kernel"
     errs, first = [], None
     for (N, Pw, Bt) in KERNELS[name][2]:
         A, _ = systems(N, 1, Bt, gen, pivot_case=True)
-        panel = A[:, N // 3:N // 3 + Pw]           # a strided column slice
+        cols = slice(N // 3, N // 3 + Pw)
         used = (torch.rand((N, Bt), generator=gen, device=DEV)
                 < 1.0 / 3.0).float()
-        before = ht.LAUNCHES[name]
-        outs = ht.gj_panel_lanes(panel, used)
-        torch.cuda.synchronize()
-        check(ht.LAUNCHES[name] > before, f"{name} was not launched")
-        refs = ht.gj_panel_ref(panel, used)
-        # E and used: the same pivot sequence, exactly.  Ap and TE: per
-        # system, against the largest magnitude of its elimination (its
-        # |TE|, ~1e2 on the pivot systems): Ap's entries are 0/1 plus the
-        # cancellation noise of those intermediates, taken in another
-        # rounding order (the kernel fuses multiply-adds)
-        check(torch.equal(outs[2], refs[2]) and torch.equal(outs[3], refs[3]),
-              f"{name} at {(N, Pw, Bt)}: pivot sequences differ")
-        sys_scale = torch.maximum(refs[0].abs().amax(dim=(0, 1)),
-                                  refs[1].abs().amax(dim=(0, 1)))
-        line = []
-        for what, o, r in zip(("Ap", "TE"), outs, refs):
-            d = (o - r).abs().amax(dim=(0, 1))
-            rel = (d / sys_scale).max().item()
+        refs = None
+        for layout in ("lane-major", "batch-major"):
+            if layout == "lane-major":
+                panel = A[:, cols]                 # a strided column slice
+            else:   # as panel_gj_solve_lanes reads its buffer
+                panel = A.permute(2, 0, 1).contiguous()[:, :, cols] \
+                    .permute(1, 2, 0)
+            before = ht.LAUNCHES[name]
+            outs = ht.gj_panel_lanes(panel, used)
+            torch.cuda.synchronize()
+            check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+            if refs is None:
+                refs = ht.gj_panel_ref(panel, used)
+            # the pivot rows and the mask: the same pivot sequence, exactly.
+            # Z: per system, against its largest |Z| (~1e2 on the pivot
+            # systems), in another rounding order (the kernel fuses
+            # multiply-adds)
+            check(torch.equal(outs[1], refs[1])
+                  and torch.equal(outs[2], refs[2]),
+                  f"{name} {layout} at {(N, Pw, Bt)}: pivot sequences differ")
+            d = (outs[0] - refs[0]).abs().amax(dim=(0, 1))
+            rel = (d / refs[0].abs().amax(dim=(0, 1))).max().item()
             check(np.isfinite(rel) and rel <= KERNEL_TOL,
-                  f"{name} {what} at {(N, Pw, Bt)}: max err / system scale "
-                  f"{rel} > {KERNEL_TOL}")
-            line.append(f"{what} {d.max().item():.3e} abs, {rel:.3e} of "
-                        "system scale")
+                  f"{name} {layout} Z at {(N, Pw, Bt)}: max err / system "
+                  f"scale {rel} > {KERNEL_TOL}")
             errs.append(d.max().item())
-        k_ms = time_ms(lambda: ht.gj_panel_lanes(panel, used), 10)
+            k_ms = time_ms(lambda: ht.gj_panel_lanes(panel, used), 20)
+            log(f"[2] {name} N={N} Pw={Pw} B={Bt} {layout}: pivots and used "
+                f"equal; Z {d.max().item():.3e} abs, {rel:.3e} of system "
+                f"scale; kernel {k_ms:.4f} ms")
         p_ms = time_ms(lambda: ht.gj_panel_ref(panel, used), 3)
-        # the panel and the mask in, Ap, TE, E and the mask out; Pw steps
-        # of two (N, Pw) rank-1 updates
-        b_ms, b_by = bound(4 * Bt * (4 * N * Pw + 2 * N), 4 * Bt * N * Pw * Pw)
-        log(f"[2] {name} N={N} Pw={Pw} B={Bt}: E and used equal; "
-            f"{', '.join(line)}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}); no PyTorch call eliminates one "
-            "panel")
+        # the panel and the mask in; Z, the mask and the pivot rows out;
+        # Pw steps of Pw multiply-adds per row.  The old outputs (Ap, TE
+        # and E for Z and the pivots) moved 4 B (4 N Pw + 2 N) bytes
+        b_ms, b_by = bound(4 * Bt * (2 * N * Pw + 2 * N + Pw),
+                           2 * Bt * N * Pw * Pw)
+        old_ms = bound(4 * Bt * (4 * N * Pw + 2 * N), 4 * Bt * N * Pw * Pw)[0]
+        log(f"[2] {name} N={N} Pw={Pw} B={Bt}: kernel (batch-major) "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {old_ms:.4f} ms on the old outputs); no PyTorch call "
+            "eliminates one panel")
         if first is None:
             first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
@@ -382,7 +442,7 @@ def check_panel_kernel(gen):
             p_ms = time_ms(lambda: ht.panel_gj_solve_lanes(A, b), 2)
         finally:
             bs.gj_panel_lanes = ht.gj_panel_lanes
-        k_ms = time_ms(lambda: ht.panel_gj_solve_lanes(A, b), 5)
+        k_ms = time_ms(lambda: ht.panel_gj_solve_lanes(A, b), 10)
         x64 = torch.linalg.solve(A.double().permute(2, 0, 1),
                                  b.double().permute(2, 0, 1)).permute(1, 2, 0)
         scale = x_ref.abs().max().item()
@@ -394,10 +454,24 @@ def check_panel_kernel(gen):
               f"{KERNEL_TOL} * {scale}")
         check(err64 <= KERNEL_TOL * scale,
               f"panel solve at {(n, Bt)}: {err64} from float64 LU")
+        lib_ms = library_solve_ms(A, b)
+        direct = ""
+        if n <= bs.MAX_KERNEL_DIM:
+            for unrolled in (True, False):
+                bs.GJ_UNROLLED = unrolled
+                try:
+                    d_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 10)
+                finally:
+                    bs.GJ_UNROLLED = False
+                kname = bs.kernel_for(n) if not unrolled \
+                    else "gj_kernel_unrolled"
+                direct += f", {kname} direct {d_ms:.4f} ms"
+        b_ms, b_by = bound(*solve_work(n, 1, Bt))
         log(f"[2] panel_gj_solve_lanes n={n} B={Bt}: max|dx| {err:.3e} "
             f"(scale {scale:.3e}; pivot system {pv:.3e}; vs f64 LU "
             f"{err64:.3e}) with the kernel {k_ms:.4f} ms, with the plain "
-            f"twin {p_ms:.4f} ms")
+            f"twin {p_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms"
+            f"{direct}, bound {b_ms:.4f} ms ({b_by})")
         errs.append(err)
         del A, b, x, x_ref, x64
     torch.cuda.empty_cache()
@@ -624,7 +698,7 @@ def warm_up(run, Bt, spread, kernels, tag):
     t0 = time.perf_counter()
     run(scen(-1, Bt, spread))
     torch.cuda.synchronize()
-    launches = dict(ht.LAUNCHES)
+    launches = read_launches()
     log(f"[{tag}] warm-up sweep {time.perf_counter() - t0:.3f} s, launches "
         f"{launches}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -848,7 +922,7 @@ def phase9():
                                   phase_iters=PHASE_ITERS, warm="linear")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = dict(ht.LAUNCHES)
+        launches = read_launches()
     finally:
         bs.GJ_UNROLLED = False
     conv = check_result(res, B, s, net, "[9] GJ_UNROLLED rep")
@@ -873,11 +947,18 @@ def main():
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
         check(row["launches"] > 0, f"no path launched {name}")
+        row["launches_by_shape"] = {
+            "x".join(map(str, shape)): count
+            for (k, shape), count in sorted(PATH_SHAPES.items())
+            if k == name}
+        check(sum(row["launches_by_shape"].values()) == row["launches"],
+              f"{name}: launches by shape do not add up")
     log(f"[10] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "bound_by", "library_ms")}
+                             "bound_ms", "bound_by", "library_ms",
+                             "launches_by_shape")}
         for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

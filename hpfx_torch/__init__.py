@@ -29,7 +29,8 @@ from .harmonic import HPFResult, cleanup_voltages  # noqa: E402
 from .lanes import PhaseLog, hpf_sweep_adaptive_lanes  # noqa: E402
 from .network import (Network, load_network, network_from_arrays,  # noqa: E402
                       validate_network)
-from .ops.batched_solve import (LAUNCHES, batched_solve_lanes,  # noqa: E402
+from .ops.batched_solve import (LAUNCHES, LAUNCHES_BY_SHAPE,  # noqa: E402
+                                batched_solve_lanes, expand_panel,
                                 gauss_solve_lanes, gj_panel_lanes,
                                 gj_panel_ref, gj_solve_lanes_ref,
                                 panel_gj_solve_lanes)
@@ -39,9 +40,10 @@ from .solve import (Scenarios, hpf_sweep, hpf_sweep_adaptive,  # noqa: E402
 from .ybus import build_ybus  # noqa: E402
 
 __all__ = [
-    "Cx", "DATA_DIR", "DeviceSet", "HPFResult", "LAUNCHES", "Network",
-    "PhaseLog", "Scenarios", "Settings", "batched_solve_lanes", "build_ybus",
-    "cleanup_voltages", "cx", "default_harmonics", "from_hpfx_arrays",
+    "Cx", "DATA_DIR", "DeviceSet", "HPFResult", "LAUNCHES",
+    "LAUNCHES_BY_SHAPE", "Network", "PhaseLog", "Scenarios", "Settings",
+    "batched_solve_lanes", "build_ybus", "cleanup_voltages", "cx",
+    "default_harmonics", "expand_panel", "from_hpfx_arrays",
     "gauss_solve_lanes", "get_thd", "gj_panel_lanes", "gj_panel_ref",
     "gj_solve_lanes_ref", "hpf_sweep", "hpf_sweep_adaptive",
     "hpf_sweep_adaptive_lanes", "hpf_sweep_device", "load_device_set",

@@ -421,7 +421,7 @@ def _launch_trip(dims: TripDims, consts: TripConsts, args, outs):
         raise RuntimeError(
             f"fused-trip kernel launch failed (cudaError {code}: "
             f"{lib.hpfx_error_string(code).decode()}) at {dims}, B={B}")
-    _bs.LAUNCHES["fused_trip_kernel"] += 1
+    _bs._count_launch("fused_trip_kernel", (dims.H, dims.n, B))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib = None
-#: compiler output of the build that produced the loaded library
+#: compiler output of the build that produced the loaded library (kept as
+#: ``<library>.log``)
 build_log = ""
 
 
@@ -52,11 +53,11 @@ def _declare(lib):
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
                  "hpfx_gj_kernel_unrolled"):
         getattr(lib, name).restype = i
-    # panel, used, Ap, TE, E, used_out, N, Pw, B, panel strides (3),
-    # output strides (3), used strides (2), used_out strides (2),
-    # shared-memory bytes, stream
-    lib.hpfx_gj_panel_kernel.argtypes = [vp] * 6 + [i, i, ll] + [ll] * 10 \
-        + [i, vp]
+    # panel, used, Z, pivots, used_out, N, Pw, B, panel strides (3), Z
+    # strides (3), pivot strides (2), used strides (2), used_out strides
+    # (2), stream
+    lib.hpfx_gj_panel_kernel.argtypes = [vp] * 5 + [i, i, ll] + [ll] * 12 \
+        + [vp]
     lib.hpfx_gj_panel_kernel.restype = i
     # Vm, Va, f, err, act, Sr, Si, inj, packed constants, lines, the four
     # outputs, H, n, m, c, L, coupled, constant count, B, stream
@@ -75,9 +76,10 @@ def _run_all(cmds):
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
-def _compile_and_link(so: str, tag: str) -> str:
+def _compile_and_link(so: str, tag: str) -> None:
     """Compile every source to an object in parallel, link them into
-    ``so``; returns the compilers' output."""
+    ``so`` and write the compilers' output to ``<so>.log`` (before the
+    library appears)."""
     pid = os.getpid()
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.{pid}.o")
             for src in SOURCES]
@@ -93,15 +95,18 @@ def _compile_and_link(so: str, tag: str) -> str:
     log += link.stdout + link.stderr
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write(log)
+    os.replace(f"{tmp}.log", f"{so}.log")
     os.replace(tmp, so)
     for o in objs:
         os.remove(o)
-    return log
 
 
 def load_library():
     """Build (if needed) and load the kernel library; returns the
-    ``ctypes.CDLL`` with every entry point declared."""
+    ``ctypes.CDLL`` with every entry point declared.  The compilers'
+    output is kept beside the library and read into :data:`build_log`."""
     global _lib, build_log
     with _lock:
         if _lib is not None:
@@ -114,7 +119,9 @@ def load_library():
         tag = h.hexdigest()[:16]
         so = os.path.join(BUILD_DIR, f"libhpfx_gj_{tag}.so")
         if not os.path.exists(so):
-            build_log = _compile_and_link(so, tag)
+            _compile_and_link(so, tag)
+        with open(f"{so}.log") as fh:
+            build_log = fh.read()
         lib = ctypes.CDLL(so)
         _declare(lib)
         _lib = lib

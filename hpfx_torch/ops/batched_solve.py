@@ -23,14 +23,17 @@ it runs the plain twin only for tensors that lie on the CPU.
 Large dims take the blocked form of the same elimination
 (:func:`panel_gj_solve_lanes`): one panel of columns at a time is
 eliminated with pivots chosen over all rows (:func:`gj_panel_lanes`, the
-wrapper of ``csrc/gj_panel.cu``; plain twin :func:`gj_panel_ref`), and
-matrix products apply each panel to the trailing columns and the RHS.
+wrapper of ``csrc/gj_panel.cu``; plain twin :func:`gj_panel_ref`), which
+exports the panel's transform as Z and its pivot rows; a gather of the
+pivot rows and one batched product apply it to the trailing columns and
+the RHS.
 
 :func:`batched_solve_lanes` routes each solve as the JAX dispatcher does
 (``hpfx/ops/batched_solve.py:748-790``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -65,6 +68,16 @@ GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
 LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_kernel_unrolled": 0,
             "gj_panel_kernel": 0, "fused_trip_kernel": 0}
+#: the same launches by (kernel, shape) since the last ``clear()``: shape
+#: (n, R, B) of a direct solve, (N, Pw, B) of a panel, (H, n, B) of a
+#: fused trip
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+
+
+def _count_launch(name: str, shape) -> None:
+    """Count one launch of kernel ``name`` at ``shape``."""
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_SHAPE[(name, tuple(int(d) for d in shape))] += 1
 
 
 def gj_solve_lanes_ref(A, b):
@@ -174,7 +187,7 @@ def _launch(A, b, x):
         raise RuntimeError(
             f"GJ kernel launch failed (cudaError {err}: "
             f"{lib.hpfx_error_string(err).decode()}) at n={n}, R={R}, B={B}")
-    LAUNCHES[name] += 1
+    _count_launch(name, (n, R, B))
 
 
 def equilibrated_lanes(solve):
@@ -182,11 +195,14 @@ def equilibrated_lanes(solve):
     D_r·A·D_c x' = D_r·b, x = D_c·x' (exact in exact arithmetic; keeps
     f32 pivoting well scaled on HPF Jacobians that mix O(1) power rows
     with O(|Y|) current rows)."""
+    # the max-abs norms reduce |A| without writing it out
+    amax_abs = lambda X, d: torch.linalg.vector_norm(X, float("inf"), dim=d)
+
     def wrapped(A, b):
-        r = 1.0 / torch.clamp_min(A.abs().amax(dim=1), 1e-30)      # (n, B)
+        r = 1.0 / torch.clamp_min(amax_abs(A, 1), 1e-30)           # (n, B)
         As = A * r[:, None, :]
-        c = 1.0 / torch.clamp_min(As.abs().amax(dim=0), 1e-30)
-        As = As * c[None, :, :]
+        c = 1.0 / torch.clamp_min(amax_abs(As, 0), 1e-30)
+        As.mul_(c[None, :, :])
         x = solve(As, b * r[:, None, :])
         return x * c[:, None, :]
     return wrapped
@@ -203,69 +219,91 @@ def _kernel_solve(A, b):
 
 
 def gj_panel_ref(panel, used):
-    """One panel of the blocked Gauss-Jordan solve in plain PyTorch
-    (``_gj_panel_kernel``, ``hpfx/ops/batched_solve.py:452-510``, step for
-    step): panel (N, Pw, B), the 0/1 ``used`` mask (N, B) ->
-    (Ap, TE, E, used_out).
+    """One panel of the blocked Gauss-Jordan solve in plain PyTorch, as
+    ``csrc/gj_panel.cu`` computes it: panel (N, Pw, B), the 0/1 ``used``
+    mask (N, B) -> (Z, piv, used_out): Z (N, Pw, B), the pivot rows piv
+    (Pw, B) int32 and the updated mask.
 
-    For each column k of the panel the pivot is the unused row with the
-    largest |A[r, k]| over all N rows; column k of E and of TE becomes
-    e_p, and one fused rank-1 update eliminates column k of the panel and
-    carries TE along.  Ap is the converged panel, TE = T·E with T the
-    panel's composite row transform, E the one-hot pivot columns."""
+    For each column k the pivot is the unused row with the largest
+    |A[r, k]| over all N rows; one rank-1 update eliminates the columns
+    after k and carries Z = T·E − E (T the panel's composite row
+    transform, E the one-hot pivot columns) on the columns up to k.  One
+    slot per column holds A[:, c] before step c and Z[:, c] from step c
+    on: the TPU kernel ``_gj_panel_kernel``
+    (``hpfx/ops/batched_solve.py:452-510``) also updates A's eliminated
+    columns and T·E's zero ones, which changes no pivot and only moves Z
+    by rounding.  :func:`expand_panel` rebuilds its outputs."""
     N, Pw, B = panel.shape
     rows = torch.arange(N, device=panel.device)[:, None]
-    A = panel
-    TE = torch.zeros_like(panel)
-    E = torch.zeros_like(panel)
-    take = lambda X, p: X.gather(0, p.view(1, 1, B).expand(1, X.shape[1],
-                                                           B))[0]
+    S = panel
+    piv = torch.empty((Pw, B), dtype=torch.int32, device=panel.device)
     for k in range(Pw):
-        colk = A[:, k, :]                                      # (N, B)
+        colk = S[:, k, :]                                      # (N, B)
         p = torch.argmax(colk.abs() - 1e30 * used, dim=0)      # (B,)
         on_p = rows == p[None, :]                              # (N, B)
-        E[:, k, :] = on_p
-        TE[:, k, :] = on_p
-        rowp, tep = take(A, p), take(TE, p)                    # (Pw, B)
-        inv_piv = 1.0 / colk.gather(0, p[None])[0]             # (B,)
+        rowp = S.gather(0, p.view(1, 1, B).expand(1, Pw, B))[0]  # (Pw, B)
+        inv_piv = 1.0 / rowp[k]                                # (B,)
         w = torch.where(on_p, 1.0 - inv_piv[None, :], colk * inv_piv[None, :])
-        A = A - w[:, None, :] * rowp[None, :, :]
-        TE = TE - w[:, None, :] * tep[None, :, :]
+        S = S - w[:, None, :] * rowp[None, :, :]
+        S[:, k, :] = -w
         used = torch.maximum(used, on_p.to(used.dtype))
-    return A, TE, E, used
+        piv[k] = p.to(torch.int32)
+    return S, piv, used
 
 
-def _panel_smem(N: int, Pw: int) -> int:
-    """Dynamic shared memory of one panel-kernel block: the A and TE
-    slabs column-major at an odd leading dimension, the two staged pivot
-    rows and the pivot indices (bytes)."""
-    return (2 * Pw * (N | 1) + 3 * Pw) * 4
+def expand_panel(Z, piv):
+    """The TPU kernel's outputs from :func:`gj_panel_ref`'s: Z (N, Pw, B)
+    and the pivot rows piv (Pw, B) -> (Ap, TE, E), each (N, Pw, B).  E
+    holds the one-hot pivot columns, TE = Z + E, and Ap (the converged
+    panel, a permutation up to rounding) is E."""
+    N = Z.shape[0]
+    rows = torch.arange(N, device=Z.device)[:, None, None]
+    E = (rows == piv[None].long()).to(Z.dtype)
+    return E, Z + E, E
+
+
+#: the blocked solve's buffer pads its rows to a multiple of this many
+#: floats (128 bytes, zero past the right-hand sides), so that the trailing
+#: products read and write aligned rows (faster on the H100 at every net1
+#: dim than pitches of 1, 4 or 8 floats)
+_ROW_PITCH = 32
+#: the blocked solve copies A into its buffer in slices of rows of at most
+#: this many bytes, so that the strided reads of a slice meet in the cache
+#: (on the H100 several times faster at dim 780, B=128, and no slower at
+#: dim 182, B=2048; 16 MiB slices were slower at both)
+_FILL_BYTES = 64 << 20
 
 
 def panel_width_for(n: int, panel: int = PANEL_WIDTH) -> int:
-    """Widest panel <= ``panel`` (stepping down by 8) whose slabs for dim
-    ``n``, padded to a multiple of the width, fit one block's shared
-    memory.  The pivot sequence does not depend on the width.  Raises
-    ``ValueError`` for a dim the panel kernel cannot take."""
-    w = panel
-    while w > 0:
-        Np = -(-n // w) * w
-        if Np <= MAX_PANEL_DIM and _panel_smem(Np, w) <= _MAX_SMEM:
-            return w
-        w -= 8
-    raise ValueError(f"system dim {n} exceeds the panel kernel (at most "
-                     f"{MAX_PANEL_DIM} padded rows, {_MAX_SMEM} bytes of "
-                     "shared memory per block)")
+    """The panel width of a dim-``n`` blocked solve: ``panel`` (the card's
+    kernel takes :data:`PANEL_WIDTH` only, and every dim up to
+    :data:`MAX_PANEL_DIM` padded rows at that width; the plain twin takes
+    any).  Raises ``ValueError`` for a dim the panel kernel cannot take."""
+    if -(-n // panel) * panel > MAX_PANEL_DIM:
+        raise ValueError(f"system dim {n} exceeds the panel kernel (at most "
+                         f"{MAX_PANEL_DIM} padded rows at width {panel})")
+    return panel
+
+
+def _lanes_view(shape, batch_major: bool, dtype, device):
+    """An empty tensor of lane-major ``shape`` (..., B), stored
+    batch-major (B, ...) when ``batch_major``."""
+    if not batch_major:
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.empty((shape[-1], *shape[:-1]), dtype=dtype, device=device)
+    return t.movedim(0, -1)
 
 
 def gj_panel_lanes(panel, used):
     """Eliminate one panel: panel (N, Pw, B) float32 with any strides (a
     column slice of the padded matrix), ``used`` (N, B) float32 ->
-    (Ap, TE, E, used_out), each new and contiguous.
+    (Z, piv, used_out) as :func:`gj_panel_ref` returns them, each new
+    and stored batch-major when the panel is (its system stride the
+    largest), lane-major otherwise.
 
     A CUDA tensor launches ``gj_panel_kernel`` (``csrc/gj_panel.cu``,
-    one block per system) or raises; a CPU tensor runs
-    :func:`gj_panel_ref`."""
+    one block per system, Pw = :data:`PANEL_WIDTH`) or raises; a CPU
+    tensor runs :func:`gj_panel_ref`, at any width."""
     if panel.dim() != 3 or used.dim() != 2 or used.shape[0] != panel.shape[0] \
             or used.shape[1] != panel.shape[2]:
         raise ValueError(f"expected panel (N, Pw, B) and used (N, B), got "
@@ -280,39 +318,38 @@ def gj_panel_lanes(panel, used):
     if panel.device.type != "cuda":
         raise ValueError(f"no panel kernel for device {panel.device}")
     N, Pw, B = panel.shape
-    outs = [torch.empty((N, Pw, B), dtype=torch.float32, device=panel.device)
-            for _ in range(3)]
-    used_out = torch.empty((N, B), dtype=torch.float32, device=panel.device)
+    if N > MAX_PANEL_DIM or Pw != PANEL_WIDTH or Pw > N:
+        raise ValueError(f"panel ({N}, {Pw}): the kernel takes at most "
+                         f"{MAX_PANEL_DIM} rows and width {PANEL_WIDTH}")
+    bm = panel.stride(2) > panel.stride(0)
+    dv = panel.device
+    Z = _lanes_view((N, Pw, B), bm, torch.float32, dv)
+    piv = _lanes_view((Pw, B), bm, torch.int32, dv)
+    used_out = _lanes_view((N, B), bm, torch.float32, dv)
     if B > 0:
-        _launch_panel(panel, used, *outs, used_out)
-    return (*outs, used_out)
+        _launch_panel(panel, used, Z, piv, used_out)
+    return Z, piv, used_out
 
 
-def _launch_panel(panel, used, ap, te, e, used_out):
+def _launch_panel(panel, used, Z, piv, used_out):
     from ._build import load_library
     N, Pw, B = panel.shape
-    smem = _panel_smem(N, Pw)
-    if N > MAX_PANEL_DIM or smem > _MAX_SMEM:
-        raise ValueError(f"panel ({N}, {Pw}) needs {smem} bytes of shared "
-                         f"memory and {N} threads per block (at most "
-                         f"{_MAX_SMEM} and {MAX_PANEL_DIM})")
     lib = load_library()
     st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = torch.cuda.current_stream(panel.device).cuda_stream
     with torch.cuda.device(panel.device):
         err = lib.hpfx_gj_panel_kernel(
-            ctypes.c_void_p(panel.data_ptr()), ctypes.c_void_p(used.data_ptr()),
-            ctypes.c_void_p(ap.data_ptr()), ctypes.c_void_p(te.data_ptr()),
-            ctypes.c_void_p(e.data_ptr()), ctypes.c_void_p(used_out.data_ptr()),
+            ptr(panel), ptr(used), ptr(Z), ptr(piv), ptr(used_out),
             ctypes.c_int(N), ctypes.c_int(Pw), ctypes.c_longlong(B),
-            *st(panel), *st(ap), *st(used), *st(used_out), ctypes.c_int(smem),
+            *st(panel), *st(Z), *st(piv), *st(used), *st(used_out),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"panel kernel launch failed (cudaError {err}: "
             f"{lib.hpfx_error_string(err).decode()}) at N={N}, Pw={Pw}, "
             f"B={B}")
-    LAUNCHES["gj_panel_kernel"] += 1
+    _count_launch("gj_panel_kernel", (N, Pw, B))
 
 
 def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
@@ -320,47 +357,50 @@ def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
     A (n, n, B), b (n, R, B) float32 -> x (n, R, B)
     (``hpfx/ops/batched_solve.py:575-642``).
 
-    The dim-n elimination is split into panels of ``panel`` columns (the
-    width is lowered where the padded slabs would not fit shared memory,
-    :func:`panel_width_for`).  Each panel is eliminated by
-    :func:`gj_panel_lanes`, pivoting over all rows with the ``used`` mask
-    carried across panels, so the pivots are those of the direct
-    elimination.  With Z = T·E − E the panel's transform T = I + Z·Eᵀ is
-    applied to the trailing columns and the RHS by matrix products
-    (float32, TF32 off), and x = A_finalᵀ·b at the end."""
+    [A | b] is copied once, batch-major, into one buffer (B, Np, W),
+    padded to Np, a multiple of the panel width (:func:`panel_width_for`):
+    identity on the pad rows and columns, so each pad column picks its own
+    pad row, and zero right-hand sides there.  The row pitch W >= Np + R
+    is a multiple of 32 floats, zero past the right-hand sides, of which
+    the trailing products take R rounded up to 8.  Each panel is
+    eliminated by :func:`gj_panel_lanes` in place in that buffer, pivoting
+    over all rows with the ``used`` mask carried across panels, so the
+    pivots are those of the direct elimination.  Its transform
+    T = I + Z·Eᵀ is applied to the columns after it, the right-hand sides
+    included: the rows at the panel's pivots are gathered (Eᵀ·trail) and
+    one batched product (float32, TF32 off) adds Z times them.  A_final is
+    the pivot permutation, so x is the final right-hand side gathered at
+    the pivot sequence."""
     n, _, Bt = A.shape
     R = b.shape[1]
     panel = panel_width_for(n, panel)
     Np = -(-n // panel) * panel
     f32, dv = torch.float32, A.device
 
-    # pad N (not the batch): identity on the pad rows and columns (each pad
-    # column then picks its own pad row as pivot), zero RHS on pad rows
-    Af = torch.zeros((Np, Np, Bt), dtype=f32, device=dv)
-    Af[:n, :n] = A
+    W = -(-(Np + R) // _ROW_PITCH) * _ROW_PITCH
+    end = Np + -(-R // 8) * 8   # the columns the trailing products take
+    M = torch.empty((Bt, Np, W), dtype=f32, device=dv)
+    step = max(1, _FILL_BYTES // max(1, 4 * n * Bt))
+    for i in range(0, n, step):
+        M[:, i:min(i + step, n), :n] = A[i:i + step].permute(2, 0, 1)
+    M[:, :n, Np:Np + R] = b.permute(2, 0, 1)
+    M[:, :n, Np + R:] = 0.0
     if Np > n:
-        Af[n:, n:] = torch.eye(Np - n, dtype=f32, device=dv)[:, :, None]
-    bf = torch.zeros((Np, R, Bt), dtype=f32, device=dv)
-    bf[:n] = b
-
-    used = torch.zeros((Np, Bt), dtype=f32, device=dv)
+        M[:, :n, n:Np] = 0.0
+        M[:, n:] = 0.0
+        M[:, n:, n:Np] = torch.eye(Np - n, dtype=f32, device=dv)
+    used = torch.zeros((Bt, Np), dtype=f32, device=dv).t()
+    order = torch.empty((Bt, Np), dtype=torch.int64, device=dv)
     for lo in range(0, Np, panel):
         hi = lo + panel
-        Ap, TE, E, used = gj_panel_lanes(Af[:, lo:hi], used)
-        Z = TE - E
-        if hi < Np:
-            trail = Af[:, hi:]
-            piv = torch.einsum("nkb,njb->kjb", E, trail)
-            # in-place slice assignment where the JAX package rebuilds Af
-            # with .at[].set
-            Af[:, hi:] = trail + torch.einsum("nkb,kjb->njb", Z, piv)
-        pivb = torch.einsum("nkb,nrb->krb", E, bf)
-        bf = bf + torch.einsum("nkb,krb->nrb", Z, pivb)
-        # the converged panel replaces its columns in place: Af becomes
-        # A_final (the JAX package concatenates the panels instead)
-        Af[:, lo:hi] = Ap
-    x = torch.einsum("nkb,nrb->krb", Af, bf)
-    return x[:n].to(A.dtype)
+        Z, piv, used = gj_panel_lanes(M[:, :, lo:hi].permute(1, 2, 0), used)
+        order[:, lo:hi] = piv.t()
+        trail = M[:, :, hi:end]                 # (B, Np, J), J a multiple of 8
+        rows = trail.gather(1, order[:, lo:hi, None].expand(-1, -1,
+                                                             trail.shape[2]))
+        trail.baddbmm_(Z.permute(2, 0, 1), rows)
+    x = M[:, :, Np:Np + R].gather(1, order[:, :n, None].expand(-1, -1, R))
+    return x.permute(1, 2, 0).contiguous().to(A.dtype)
 
 
 def batched_solve_lanes(A, b, impl: str = "auto"):

@@ -1,5 +1,6 @@
-// Helpers shared by the Gauss-Jordan kernels of gj_solve.cu and gj_panel.cu:
-// the pivot score, its total order, the warp-wide argmax and element strides.
+// Helpers of the Gauss-Jordan kernels (gj_solve.cu, gj_panel.cu,
+// fused_trip.cu): the pivot score, its total order, the warp-wide argmax,
+// element strides and the dynamic shared-memory limits.
 #pragma once
 
 #include <cuda_runtime.h>

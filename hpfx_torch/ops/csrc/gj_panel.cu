@@ -6,135 +6,185 @@
 // panel of columns (the net1 Woodbury capacitance systems: dim 182, 364, 700
 // at H<=25/51/99, padded to 192/384/704; 780 -> 800 on the 128-bus feeder).
 // Per system, on the panel's Pw columns of the (N, N) padded matrix and the
-// 0/1 `used` mask carried across panels:
-//   TE = 0
+// 0/1 `used` mask carried across panels, it computes what the TPU kernel
+// computes, restricted to the live columns:
 //   for k in 0..Pw-1:
 //     p    = the unused row with the largest |A[r,k]| over ALL N rows (lowest
 //            index on ties; NaN ranks highest, as argmax does)
-//     E[:,k] = TE[:,k] = e_p
 //     w[r] = A[r,k] / piv off the pivot row, 1 - 1/piv on it
-//     A  -= w (outer) A[p,:]       (eliminates column k, normalizes row p)
-//     TE -= w (outer) TE[p,:]      (carries T = prod_k (I - w_k e_p^T) on E)
+//     A[:, c] -= w A[p, c]   for c > k    (the columns still to eliminate)
+//     Z[:, c] -= w Z[p, c]   for c < k    (Z = T.E - E, T the panel's
+//     Z[:, k]  = -w                         composite row transform, E the
+//                                           one-hot pivot columns)
 //     mark p used
-// and writes the converged panel Ap, TE = T.E, E and the updated mask.  The
-// caller applies T = I + (TE - E) E^T to the trailing columns and the RHS
-// with matrix products.  No guard on a zero pivot: inf/NaN propagates and
-// the caller treats a non-finite lane as diverged.  No atomics.
+// and writes Z (N, Pw), the Pw pivot rows and the updated mask.  A's
+// columns up to k are eliminated already (the TPU kernel keeps updating
+// them: cancellation noise of an ulp) and T.E's columns beyond k are zero,
+// so one slot per column holds A[r,c] before step c and Z[r,c] from step c
+// on: Pw multiply-adds per row and step, half of the TPU kernel's.  E, T.E
+// and the converged panel (a permutation) follow from the pivots; the caller
+// gathers the pivot rows of the trailing columns and of the right-hand sides
+// and applies T = I + Z E^T with one matrix product.  No guard on a zero
+// pivot: inf/NaN propagates and the caller treats a non-finite lane as
+// diverged.  No atomics.
 //
-// What bounds it on this card.  Each step is two N x Pw rank-1 updates, so a
-// panel is 2 * Pw * N * Pw multiply-adds per system: ~0.8 G per panel at
-// N=192, B=2048, in 32 steps that each wait on the previous step's pivot.
-// Every multiply-add reads and writes one shared-memory word, so the
-// shared-memory bandwidth (~32 words per clock per SM) and the two block
-// barriers of each step bound it; device memory is touched once per element
-// (the panel in, Ap, TE and E out).
+// What bounds it on this card.  The function reads the panel and the mask
+// and writes Z, the mask and Pw indices: 4 B (2 N Pw + 2 N + Pw) bytes per
+// system, ~0.03 ms at N=192, Pw=32, B=2048.  Its Pw^2 N multiply-adds per
+// system take a third of that at the float32 peak.  What bounds the kernel
+// is latency: Pw dependent steps, each an argmax over all N rows, a block
+// barrier and a broadcast of the pivot row.
 //
-// What the design does about it.  One block per system and one thread per
-// row.  The A and TE slabs live in dynamic shared memory column-major, at an
-// odd leading dimension, so the 32 rows of a warp hit 32 banks in the update
-// and in the argmax, and the staged pivot row's columns hit distinct banks
-// too; the staged pivot rows are read as broadcasts.  E is one-hot, so it
-// never enters shared memory: it is written at the end from the Pw pivot
-// indices.  The argmax over N rows goes through shuffles and one word per
-// warp (two barriers per step, as gj_kernel_carried).  Slabs up to N=800 at
-// Pw=32 take 205 KB, above the default 48 KB: the launch raises the block's
-// dynamic shared-memory limit.  The caller picks the panel width from that
-// budget; the pivot sequence does not depend on it.  Operands take element
-// strides, so a column slice of the lane-major padded matrix is read in place.
+// What the design does about it.  One block per system, one thread per row.
+// Pw is a template constant, instantiated for 32 (the blocked solve's
+// width), and the column loops are unrolled, so the thread's Pw slots live
+// in registers: Pw + ~30 registers a thread, within the 64 a block of 1024
+// rows may have (__launch_bounds__ holds ptxas to that, so every dim up to
+// 1024 takes the full width).  The step loop runs at run time (gj_kernel_unrolled's
+// pattern: unrolling it too does not build), so the slots rotate: at step k
+// slot j holds column (k + j) mod Pw, the update writes each result one
+// slot down, and the working column is always slot 0.  No index depends on
+// k, so a step has no selects.  Each step:
+//   - the warp's argmax: one warp-wide max of the rows' pivot keys (their
+//     scores' bits, so the order is the scores') and a ballot for the lowest
+//     row holding it; that row writes its key, its index and its Pw slots to
+//     the warp's words in shared memory, the only shared-memory writes;
+//   - one block barrier; every warp takes the same max and ballot over the
+//     warp words and reads the winning warp's staged row as float4
+//     broadcasts;
+//   - Pw - 1 multiply-adds, the rotation included.
+// The warp words and staged rows are double-buffered: step k+1 writes the
+// other buffer, and step k+2 writes this one only after every thread has
+// passed step k+1's barrier, so one barrier a step suffices.  Operands take
+// element strides, so a column slice of the caller's buffer is read in
+// place, lane-major or batch-major.
 
 #include "gj_common.cuh"
 
 namespace {
 
-using hpfx::allow_smem;
-using hpfx::pivot_score;
+using hpfx::kFullMask;
 using hpfx::Strides;
-using hpfx::take_max;
-using hpfx::warp_argmax;
 
-struct Strides2 {
-  long long r, s;   // element strides of (row, system)
-};
+constexpr int kMaxRows = 1024;   // one thread per row, one block per system
 
-__global__ void gj_panel_kernel(const float* __restrict__ panel,
-                                const float* __restrict__ used_in,
-                                float* __restrict__ ap, float* __restrict__ te,
-                                float* __restrict__ e,
-                                float* __restrict__ used_out, int N, int Pw,
-                                Strides sp, Strides so, Strides2 su,
-                                Strides2 suo) {
-  extern __shared__ float smem[];
-  __shared__ float warp_v[32];
-  __shared__ int warp_p[32];
-  const long long sys = blockIdx.x;
-  const int r = threadIdx.x;   // the row this thread owns
-  const int lane = r & 31;
-  const int warp = r >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const bool own = r < N;
-  const int ld = N | 1;
-  float* SA = smem;                          // A[r, c] at SA[c * ld + r]
-  float* ST = SA + (size_t)Pw * ld;          // TE, the same layout
-  float* prow_a = ST + (size_t)Pw * ld;      // staged pivot row of A
-  float* prow_t = prow_a + Pw;               // staged pivot row of TE
-  int* piv = reinterpret_cast<int*>(prow_t + Pw);
-
-  bool used = true;
-  if (own) {
-    used = used_in[sys * su.s + r * su.r] != 0.0f;
-    const float* src = panel + sys * sp.s + r * sp.r;
-    for (int c = 0; c < Pw; ++c) {
-      SA[c * ld + r] = src[c * sp.c];
-      ST[c * ld + r] = 0.0f;
-    }
-  }
-  // no barrier here: until the first staging (after a barrier) each thread
-  // touches only its own row
-
-  for (int k = 0; k < Pw; ++k) {
-    float v = own ? pivot_score(SA[k * ld + r], used) : -2.0f;
-    int p = own ? r : INT_MAX;
-    warp_argmax(v, p);
-    if (lane == 0) {
-      warp_v[warp] = v;
-      warp_p[warp] = p;
-    }
-    __syncthreads();   // warp results written; every row of step k-1 done
-    v = warp_v[0];
-    p = warp_p[0];
-    for (int j = 1; j < nwarps; ++j) take_max(v, p, warp_v[j], warp_p[j]);
-    if (r < Pw) {
-      // TE[p, k] is set to 1 (column k of TE becomes e_p) before the update
-      prow_a[r] = SA[r * ld + p];
-      prow_t[r] = r == k ? 1.0f : ST[r * ld + p];
-    }
-    if (r == 0) piv[k] = p;
-    __syncthreads();   // pivot rows staged; warp_v/warp_p reads done
-    if (own) {
-      const float inv_piv = 1.0f / prow_a[k];
-      const float wr = r == p ? 1.0f - inv_piv : SA[k * ld + r] * inv_piv;
-      for (int c = 0; c < Pw; ++c) SA[c * ld + r] -= wr * prow_a[c];
-      for (int c = 0; c < Pw; ++c) {
-        const float t = c == k ? (r == p ? 1.0f : 0.0f) : ST[c * ld + r];
-        ST[c * ld + r] = t - wr * prow_t[c];
-      }
-      used = used || r == p;
-    }
-  }
-  // piv[] is complete: its last entry was written before the last barrier
-  if (own) {
-    const long long o = sys * so.s + r * so.r;
-    for (int c = 0; c < Pw; ++c) {
-      ap[o + c * so.c] = SA[c * ld + r];
-      te[o + c * so.c] = ST[c * ld + r];
-      e[o + c * so.c] = piv[c] == r ? 1.0f : 0.0f;
-    }
-    used_out[sys * suo.s + r * suo.r] = used ? 1.0f : 0.0f;
-  }
+// A row's pivot key: 0 for a used row (and for a thread past the last row),
+// else the bits of |A[r,k]| plus one, NaN ranking as +inf.  The unsigned
+// order of the keys is the order of the scores, so one warp-wide max
+// instruction finds the best key and a ballot its lowest row: the argmax
+// with the lowest index on ties, as in the other kernels.
+__device__ __forceinline__ unsigned pivot_key(float a, bool used) {
+  return used ? 0u : __float_as_uint(isnan(a) ? INFINITY : fabsf(a)) + 1u;
 }
 
-int panel_smem_bytes(int N, int Pw) {
-  return (2 * Pw * (N | 1) + 3 * Pw) * (int)sizeof(float);
+// the lowest lane whose key is the warp's largest, and that key
+__device__ __forceinline__ int warp_best(unsigned key, unsigned& best) {
+  best = __reduce_max_sync(kFullMask, key);
+  return __ffs(__ballot_sync(kFullMask, key == best)) - 1;
+}
+
+struct Strides2 {
+  long long a, s;   // element strides of (row or column, system)
+};
+
+template <int PW>
+__global__ void __launch_bounds__(kMaxRows)
+    gj_panel_kernel(const float* __restrict__ panel,
+                    const float* __restrict__ used_in, float* __restrict__ z,
+                    int* __restrict__ piv, float* __restrict__ used_out,
+                    int N, Strides sp, Strides sz, Strides2 sv, Strides2 su,
+                    Strides2 suo) {
+  static_assert(PW % 4 == 0, "the staged row is read as float4");
+  __shared__ __align__(16) float stage[2][32][PW];   // each warp's best row
+  __shared__ unsigned warp_k[2][32];                 // its key
+  __shared__ int warp_p[2][32];                      // its index
+  const long long sys = blockIdx.x;
+  const int r = threadIdx.x;   // the row this thread owns
+  const int lane = r & 31, warp = r >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool own = r < N;
+
+  // slot j holds column (k + j) mod PW at step k: A[r, c] for c >= k, Z[r, c]
+  // for c < k.  The update shifts the slots down by one as it writes them,
+  // so the working column is always slot 0 and every index is static
+  float s[PW];
+  bool used = true;
+  if (own) {
+    const float* src = panel + sys * sp.s + r * sp.r;
+#pragma unroll
+    for (int c = 0; c < PW; ++c) s[c] = src[c * sp.c];
+    used = used_in[sys * su.s + r * su.a] != 0.0f;
+  } else {
+#pragma unroll
+    for (int c = 0; c < PW; ++c) s[c] = 0.0f;
+  }
+  int my_piv = 0;   // thread k keeps the pivot of column k
+
+#pragma unroll 1
+  for (int k = 0; k < PW; ++k) {
+    const int buf = k & 1;
+    unsigned best;
+    if (lane == warp_best(pivot_key(s[0], used || !own), best)) {
+      // this warp's best row (a row < N: the lowest lane wins a tie)
+      float* dst = stage[buf][warp];
+#pragma unroll
+      for (int c = 0; c < PW; c += 4)
+        *reinterpret_cast<float4*>(dst + c) =
+            make_float4(s[c], s[c + 1], s[c + 2], s[c + 3]);
+      warp_k[buf][warp] = best;
+      warp_p[buf][warp] = r;
+    }
+    __syncthreads();   // warp words written; step k-1's reads of them done
+    // the lowest warp with the largest key holds the pivot (lanes past the
+    // last warp take key 0, and lose a tie to the warps below them)
+    const int w = warp_best(lane < nwarps ? warp_k[buf][lane] : 0u, best);
+    const int p = warp_p[buf][w];
+    const float* prow = stage[buf][w];   // row p, in slot order
+    float4 q = *reinterpret_cast<const float4*>(prow);
+    const float inv_piv = __frcp_rn(q.x);   // 1/piv, rounded as 1.0f / piv
+    const float wr = r == p ? 1.0f - inv_piv : s[0] * inv_piv;
+    if (r == k) my_piv = p;
+    // slot j takes column k+1+j; the last slot takes Z's column k
+#pragma unroll
+    for (int c = 0; c < PW; c += 4) {
+      if (c > 0) {
+        q = *reinterpret_cast<const float4*>(prow + c);
+        s[c - 1] = s[c] - wr * q.x;
+      }
+      s[c] = s[c + 1] - wr * q.y;
+      s[c + 1] = s[c + 2] - wr * q.z;
+      s[c + 2] = s[c + 3] - wr * q.w;
+    }
+    s[PW - 1] = -wr;
+    used = used || r == p;
+  }
+  // PW shifts: slot c holds Z's column c again
+
+  if (own) {
+    const long long o = sys * sz.s + r * sz.r;
+    if (sz.c == 1 && (o & 3) == 0 &&
+        (reinterpret_cast<unsigned long long>(z) & 15) == 0) {
+#pragma unroll
+      for (int c = 0; c < PW; c += 4)
+        *reinterpret_cast<float4*>(z + o + c) =
+            make_float4(s[c], s[c + 1], s[c + 2], s[c + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < PW; ++c) z[o + c * sz.c] = s[c];
+    }
+    used_out[sys * suo.s + r * suo.a] = used ? 1.0f : 0.0f;
+  }
+  if (r < PW) piv[sys * sv.s + r * sv.a] = my_piv;
+}
+
+template <int PW>
+int launch(const float* panel, const float* used, float* z, int* piv,
+           float* used_out, int N, long long B, Strides sp, Strides sz,
+           Strides2 sv, Strides2 su, Strides2 suo, cudaStream_t stream) {
+  const int threads = (N + 31) / 32 * 32;
+  gj_panel_kernel<PW><<<(unsigned)B, threads, 0, stream>>>(
+      panel, used, z, piv, used_out, N, sp, sz, sv, su, suo);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,28 +192,22 @@ int panel_smem_bytes(int N, int Pw) {
 extern "C" {
 
 // Launches on `stream`, does not synchronize, and returns cudaGetLastError()
-// after the launch (0 = launched).  panel (N, Pw, B) and the outputs ap, te,
-// e (N, Pw, B) take (row, column, system) element strides (the outputs share
-// theirs); used and used_out (N, B) take (row, system) strides.  `smem` is
-// the dynamic shared memory the caller computed; it is checked here.
-int hpfx_gj_panel_kernel(const float* panel, const float* used, float* ap,
-                         float* te, float* e, float* used_out, int N, int Pw,
+// after the launch (0 = launched).  panel and z (N, Pw, B) take (row,
+// column, system) element strides; piv (Pw, B) int32 takes (column, system)
+// strides; used and used_out (N, B) take (row, system) strides.  Pw is 32.
+int hpfx_gj_panel_kernel(const float* panel, const float* used, float* z,
+                         int* piv, float* used_out, int N, int Pw,
                          long long B, long long sp_r, long long sp_c,
-                         long long sp_s, long long so_r, long long so_c,
-                         long long so_s, long long su_r, long long su_s,
-                         long long suo_r, long long suo_s, int smem,
-                         void* stream) {
-  if (N < 1 || N > 1024 || Pw < 1 || Pw > N || B < 1 || B > INT_MAX ||
-      smem < panel_smem_bytes(N, Pw))
+                         long long sp_s, long long sz_r, long long sz_c,
+                         long long sz_s, long long sv_c, long long sv_s,
+                         long long su_r, long long su_s, long long suo_r,
+                         long long suo_s, void* stream) {
+  if (Pw != 32 || N < Pw || N > kMaxRows || B < 1 || B > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(gj_panel_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = (N + 31) / 32 * 32;
-  gj_panel_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      panel, used, ap, te, e, used_out, N, Pw, Strides{sp_r, sp_c, sp_s},
-      Strides{so_r, so_c, so_s}, Strides2{su_r, su_s},
-      Strides2{suo_r, suo_s});
-  return (int)cudaGetLastError();
+  const Strides sp{sp_r, sp_c, sp_s}, sz{sz_r, sz_c, sz_s};
+  const Strides2 sv{sv_c, sv_s}, su{su_r, su_s}, suo{suo_r, suo_s};
+  return launch<32>(panel, used, z, piv, used_out, N, B, sp, sz, sv, su, suo,
+                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

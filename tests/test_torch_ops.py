@@ -193,21 +193,61 @@ def test_unported_panel_dims_raise(n, impl):
                                atol=F32_TOL * np.abs(ref).max())
 
 
-def test_panel_ref_matches_pallas():
-    """One panel (N=192, Pw=32, B=8) of the blocked solve, as the second
-    panel sees it (32 rows already used): the twin against
-    _gj_panel_kernel run by Pallas on the CPU.  Ap, TE, E and the used
-    mask agree to F32_TOL of their scale (E and used exactly: the pivot
-    sequence is the same)."""
-    N, Pw, B = 192, 32, 8
-    rng = np.random.default_rng(192)
+def _panel_full_width(panel, used):
+    """The panel elimination step for step as the TPU kernel
+    ``_gj_panel_kernel`` does it, at full width: every step updates all Pw
+    columns of A and of TE = T·E.  -> (Ap, TE, E, used_out)."""
+    N, Pw, B = panel.shape
+    rows = torch.arange(N)[:, None]
+    A = panel
+    TE = torch.zeros_like(panel)
+    E = torch.zeros_like(panel)
+    take = lambda X, p: X.gather(0, p.view(1, 1, B).expand(1, X.shape[1],
+                                                           B))[0]
+    for k in range(Pw):
+        colk = A[:, k, :]
+        p = torch.argmax(colk.abs() - 1e30 * used, dim=0)
+        on_p = rows == p[None, :]
+        E[:, k, :] = on_p
+        TE[:, k, :] = on_p
+        rowp, tep = take(A, p), take(TE, p)
+        inv_piv = 1.0 / colk.gather(0, p[None])[0]
+        w = torch.where(on_p, 1.0 - inv_piv[None, :], colk * inv_piv[None, :])
+        A = A - w[:, None, :] * rowp[None, :, :]
+        TE = TE - w[:, None, :] * tep[None, :, :]
+        used = torch.maximum(used, on_p.to(used.dtype))
+    return A, TE, E, used
+
+
+def _panel_case(N, Pw, B, n_used, seed, pivot=False):
+    """A panel as a middle panel sees it: ``n_used`` random rows of each
+    system already used; with ``pivot`` the panel of a zero-diagonal
+    system whose large entries lie in rows of other panels."""
+    rng = np.random.default_rng(seed)
     panel = rng.normal(size=(N, Pw, B)).astype(np.float32)
+    if pivot:
+        panel *= 0.1
+        panel[(np.arange(Pw) + N // 2) % N, np.arange(Pw)] += 3.0 * np.sqrt(N)
     used = np.zeros((N, B), np.float32)
     for i in range(B):
-        used[rng.choice(N, Pw, replace=False), i] = 1.0
+        used[rng.choice(N, n_used, replace=False), i] = 1.0
+    return panel, used
+
+
+def test_panel_ref_matches_pallas():
+    """One panel (N=192, Pw=32, B=8) of the blocked solve, as the second
+    panel sees it (32 rows already used): the twin, its outputs expanded
+    from the pivots, against _gj_panel_kernel run by Pallas on the CPU.
+    E and used agree exactly (the pivot sequence is the same); TE = Z + E
+    and Ap (the pivot permutation) to F32_TOL of their scale."""
+    N, Pw, B = 192, 32, 8
+    panel, used = _panel_case(N, Pw, B, Pw, seed=192)
     outs_j = jbs._panel_pallas(jnp.asarray(panel[None]), jnp.asarray(used[None]),
                                Pw=Pw, N=N, Bb=B, G=1, interpret=True)
-    outs_t = tbs.gj_panel_ref(torch.tensor(panel), torch.tensor(used))
+    Z, piv, used_t = tbs.gj_panel_ref(torch.tensor(panel), torch.tensor(used))
+    assert Z.shape == (N, Pw, B) and piv.shape == (Pw, B)
+    assert piv.dtype == torch.int32
+    outs_t = (*tbs.expand_panel(Z, piv), used_t)
     for name, j, t in zip(("Ap", "TE", "E", "used"), outs_j, outs_t):
         j = np.asarray(j)[0]
         assert t.shape == j.shape, name
@@ -218,17 +258,53 @@ def test_panel_ref_matches_pallas():
     np.testing.assert_array_equal(outs_t[3].numpy(), np.asarray(outs_j[3])[0])
 
 
+@pytest.mark.parametrize("N,Pw,B,n_used,pivot", [
+    (192, 32, 6, 32, False), (40, 8, 5, 0, False), (64, 16, 4, 16, True),
+    (72, 24, 3, 48, False)],
+    ids=["panel_192x32", "panel_40x8_first", "panel_64x16_pivot",
+         "panel_72x24_last"])
+def test_panel_ref_matches_full_width(N, Pw, B, n_used, pivot):
+    """The live-column twin against the step-for-step full-width update:
+    the same pivots and mask exactly, Z = TE - E to F32_TOL of its scale."""
+    panel, used = _panel_case(N, Pw, B, n_used, seed=N + Pw, pivot=pivot)
+    Z, piv, used_t = tbs.gj_panel_ref(torch.tensor(panel), torch.tensor(used))
+    _, TE, E, used_f = _panel_full_width(torch.tensor(panel),
+                                         torch.tensor(used))
+    E_t = tbs.expand_panel(Z, piv)[2]
+    torch.testing.assert_close(E_t, E, rtol=0, atol=0)
+    torch.testing.assert_close(used_t, used_f, rtol=0, atol=0)
+    ref = (TE - E).numpy()
+    np.testing.assert_allclose(Z.numpy(), ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
+
+
+def _far_pivot_system(n, B):
+    """Systems whose column j has its one large entry in row n - 1 - j:
+    every pivot lies in the rows of the mirrored panel."""
+    A, b = _systems(n, 1, B, seed=7)
+    A = 0.1 * A + 3.0 * np.sqrt(n) * np.eye(n)[::-1, :, None]
+    return A.astype(np.float32), b
+
+
 @pytest.mark.parametrize("n,R,B,panel,pivot", [
-    (40, 2, 3, 16, False), (100, 1, 5, 32, False), (182, 3, 4, 32, False),
-    (48, 1, 2, 16, True)],
-    ids=["panel_40", "panel_100", "panel_182", "panel_pivot_48"])
+    (40, 2, 3, 16, None), (100, 1, 5, 32, None), (182, 3, 4, 32, None),
+    (48, 1, 2, 16, "roll"), (192, 2, 3, 32, None), (200, 1, 3, 32, None),
+    (64, 2, 3, 16, "mirror")],
+    ids=["panel_40", "panel_100", "panel_182", "panel_pivot_48",
+         "panel_192_whole", "panel_200_ragged", "panel_pivot_mirror_64"])
 def test_panel_solve_matches_jax(n, R, B, panel, pivot):
     """The blocked panel solve against the JAX package's (its panel kernel
     run by Pallas on the CPU) and against float64 LU, both to F32_TOL of
-    the solution's scale: pad handling (n not a panel multiple), several
-    right-hand sides, ragged batches and a zero-diagonal system whose
-    pivots come from other panels' rows."""
-    A, b = _pivot_system(n, B) if pivot else _systems(n, R, B, seed=n)
+    the solution's scale: pad handling (n not a panel multiple, or a whole
+    number of panels), several right-hand sides, ragged batches, and
+    zero-diagonal systems whose pivots come from other panels' rows (the
+    previous row, or the mirrored panel's)."""
+    if pivot == "roll":
+        A, b = _pivot_system(n, B)
+    elif pivot == "mirror":
+        A, b = _far_pivot_system(n, B)
+    else:
+        A, b = _systems(n, R, B, seed=n)
     x_j = np.asarray(jbs.panel_gj_solve_lanes(jnp.asarray(A), jnp.asarray(b),
                                               panel=panel, interpret=True))
     x_t = tbs.panel_gj_solve_lanes(torch.tensor(A), torch.tensor(b),
@@ -248,9 +324,63 @@ def test_panel_wrapper_rejects_bad_operands():
         tbs.gj_panel_lanes(panel, used[:, :2])
     with pytest.raises(ValueError, match="1030"):
         tbs.panel_width_for(1030)
-    # widths step down by 8 where the slabs would not fit shared memory
-    assert tbs.panel_width_for(182) == 32 and tbs.panel_width_for(780) == 32
-    assert tbs.panel_width_for(1000) == 24
+    # the full width up to 1024 padded rows; the twin's narrower widths
+    # pass through, and count their own padding
+    assert tbs.panel_width_for(182) == 32 and tbs.panel_width_for(1024) == 32
+    assert tbs.panel_width_for(182, 16) == 16
+    with pytest.raises(ValueError, match="1021"):
+        tbs.panel_width_for(1021, 24)
+
+
+@pytest.mark.parametrize("n,Np", [(182, 192), (364, 384), (700, 704),
+                                  (780, 800), (1000, 1024)])
+def test_panel_width_register_rule(n, Np):
+    """The capacitance dims of net1 at H<=25/51/99, the 128-bus feeder's and
+    the largest the kernel takes all run at the full width: the kernel's
+    bound of 1024 threads holds a thread to 64 registers, so a block of up
+    to 1024 padded rows always fits an SM's 65,536 and the register budget
+    never narrows the panel."""
+    w = tbs.panel_width_for(n)
+    assert w == tbs.PANEL_WIDTH == 32
+    assert -(-n // w) * w == Np <= tbs.MAX_PANEL_DIM
+
+
+def test_panel_solve_launches_nothing_on_cpu():
+    """On CPU tensors the blocked solve runs the plain twin: no launch is
+    counted, by kernel or by shape."""
+    for k in tbs.LAUNCHES:
+        tbs.LAUNCHES[k] = 0
+    tbs.LAUNCHES_BY_SHAPE.clear()
+    A, b = _systems(182, 1, 3, seed=18)
+    x = tbs.batched_solve_lanes(torch.tensor(A), torch.tensor(b),
+                                impl="panel")
+    assert x.shape == (182, 1, 3)
+    assert not any(tbs.LAUNCHES.values()) and not tbs.LAUNCHES_BY_SHAPE
+
+
+def test_panel_solve_empty_batch():
+    """A batch of no systems gives an empty solution of the right shape."""
+    x = tbs.panel_gj_solve_lanes(torch.zeros((182, 182, 0)),
+                                 torch.zeros((182, 2, 0)))
+    assert x.shape == (182, 2, 0) and x.dtype == torch.float32
+
+
+def test_count_launch_by_shape():
+    """Each launch counts once in LAUNCHES and once under its shape."""
+    before = dict(tbs.LAUNCHES)
+    tbs.LAUNCHES_BY_SHAPE.clear()
+    try:
+        tbs._count_launch("gj_panel_kernel", (192, 32, 2048))
+        tbs._count_launch("gj_panel_kernel", (192, 32, 2048))
+        tbs._count_launch("gj_kernel", torch.Size([26, 1, 16384]))
+        assert tbs.LAUNCHES_BY_SHAPE == {
+            ("gj_panel_kernel", (192, 32, 2048)): 2,
+            ("gj_kernel", (26, 1, 16384)): 1}
+        assert tbs.LAUNCHES["gj_panel_kernel"] == \
+            before["gj_panel_kernel"] + 2
+    finally:
+        tbs.LAUNCHES.update(before)
+        tbs.LAUNCHES_BY_SHAPE.clear()
 
 
 def test_direct_dims_up_to_192():
