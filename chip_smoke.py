@@ -8,10 +8,19 @@ kernels, and checks them:
   0. versions, card name and power limit; fails without CUDA, and if
      anything of JAX or of the JAX package was imported;
   1. builds the kernels from the sources in this checkout and prints
-     ptxas's registers and spills; fails if the panel kernel's report is
-     missing or shows a spill;
-  2. holds each kernel against its plain PyTorch version at its paths'
-     shapes (max |x_kernel - x_plain| <= 1e-4 * max |x_plain|; the panel
+     ptxas's registers and spills; fails if the report of the panel kernel
+     or of any instantiation of gj_kernel and gj_kernel_carried in the
+     launch plan's tables is missing or shows a spill; prints the launch
+     plan, registers and blocks per SM of the direct kernels at the paths'
+     shapes;
+  2. runs every instantiation of gj_kernel and gj_kernel_carried against
+     the plain twin at a small batch, with and without the equilibration
+     inside; holds each kernel against its plain PyTorch version at its
+     paths' shapes (max |x_kernel - x_plain| <= 1e-4 * max |x_plain|; the
+     direct kernels also with the equilibration inside, as
+     batched_solve_lanes runs them, on systems whose rows are scaled over
+     1e-3..1e3, against equilibrated_lanes around the twin, timed beside
+     equilibrated_lanes around the kernel; the panel
      kernel's pivot rows and mask exactly and its Z to 1e-4 of each
      system's scale, from a lane-major and a batch-major panel) and times
      both with CUDA events; the blocked panel solve is held against
@@ -66,10 +75,12 @@ over the 67 TFLOP/s float32 peak.
 Every path resets the launch counts, by kernel and by shape, just before
 its warm-up run and reads them just after it.  Every failure raises
 (nonzero exit, no result line).  The line before the card's name is a
-JSON object per kernel, with its launches by shape on the paths; the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+JSON object per kernel: its first shape's numbers, every shape's under
+"shapes", and its launches by shape on the paths; the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 import collections
+import ctypes
 import json
 import os
 import re
@@ -98,12 +109,21 @@ KERNEL_TOL = 1e-4
 #: kernel -> (TPU kernel it replaces, source, solve shapes (n, R, B)); the
 #: panel kernel's shapes are panels (N, Pw, B), see PANEL_SOLVES
 KERNELS = {
+    # the net2 capacitance system at the main path's batch and at the
+    # rescue's width; the net1 arrow blocks at 13 harmonics x B_NET1 and at
+    # phase-2 bucket sizes, and net1's fundamental Jacobian (the bucket
+    # sizes vary from run to run with the lanes left after phase 1)
     "gj_kernel": ("hpfx/ops/batched_solve.py:63",
                   "hpfx_torch/ops/csrc/gj_solve.cu",
-                  [(26, 1, B), (26, 1, 1024), (40, 15, 13 * B_NET1)]),
+                  [(26, 1, B), (26, 1, 1024), (40, 15, 13 * B_NET1),
+                   (40, 15, 6656), (40, 15, 3200), (40, 15, 1600),
+                   (40, 15, 800), (38, 1, B_NET1), (38, 1, 256)]),
+    # the net2 seed; the synthetic 64-bus blocks (13 x 256, and a phase-2
+    # bucket) and its fundamental Jacobian
     "gj_kernel_carried": ("hpfx/ops/batched_solve.py:139",
                           "hpfx_torch/ops/csrc/gj_solve.cu",
-                          [(96, 1, B)]),
+                          [(96, 1, B), (128, 15, 13 * 256), (126, 1, 256),
+                           (128, 15, 416), (126, 1, 32)]),
     # the net2 seed, the synthetic 64-bus blocks, the net1 capacitance
     # system when solved directly
     "gj_kernel_unrolled": ("hpfx/ops/batched_solve.py:103",
@@ -275,6 +295,38 @@ def ptxas_report(build_log):
     return out
 
 
+#: the shapes at which phase 1 prints blocks per SM of the direct kernels
+OCCUPANCY_SHAPES = [(26, 1), (38, 1), (40, 15), (96, 1), (126, 1), (128, 15),
+                    (182, 1)]
+
+
+def instances(report):
+    """{(kernel, rows, slots, b in shared memory): (registers, spill
+    stores, spill loads)} of gj_kernel's and gj_kernel_carried's
+    instantiations in a ptxas report (their mangled template names)."""
+    out = {}
+    for sym, v in report.items():
+        m = re.search(r"\d+(gj_kernel(?:_carried)?)ILi(\d+)ELi(\d+)ELb([01])E",
+                      sym)
+        if m:
+            out[(m.group(1), int(m.group(2)), int(m.group(3)),
+                 m.group(4) == "1")] = tuple(v)
+    return out
+
+
+def blocks_per_sm(plan):
+    """Blocks of a launch plan's instantiation that fit one SM (the CUDA
+    occupancy calculator)."""
+    lib = _build.load_library()
+    out = ctypes.c_int(0)
+    err = lib.hpfx_gj_blocks_per_sm(int(plan.kernel == "gj_kernel_carried"),
+                                    plan.rows, plan.slots,
+                                    int(plan.b_in_smem), plan.threads,
+                                    plan.smem, ctypes.byref(out))
+    check(err == 0, f"occupancy of {plan}: cudaError {err}")
+    return out.value
+
+
 def phase1():
     t0 = time.perf_counter()
     _build.load_library()
@@ -282,13 +334,34 @@ def phase1():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"    ptxas: {line.strip()}")
-    panel = [v for sym, v in ptxas_report(_build.build_log).items()
-             if "gj_panel_kernel" in sym]
+    report = ptxas_report(_build.build_log)
+    panel = [v for sym, v in report.items() if "gj_panel_kernel" in sym]
     check(len(panel) == 1, f"{len(panel)} ptxas reports of gj_panel_kernel")
     regs, st, ld = panel[0]
     log(f"[1] gj_panel_kernel<{bs.PANEL_WIDTH}>: {regs} registers, spill "
         f"stores {st} B, spill loads {ld} B")
     check(st == 0 and ld == 0, "gj_panel_kernel spills")
+    # every instantiation of the direct kernels, and no spill in any
+    want = {("gj_kernel", r, w, m) for m, table in
+            ((False, bs.K1_INSTANCES), (True, bs.K1_SMEM_INSTANCES))
+            for r, w in table}
+    want |= {("gj_kernel_carried", r, w, m) for m, table in
+             ((False, bs.K2_INSTANCES), (True, bs.K2_SMEM_INSTANCES))
+             for r, w in table}
+    got = instances(report)
+    check(set(got) == want, f"ptxas reports {sorted(got)}, the launch plan's "
+          f"tables {sorted(want)}")
+    for (name, rows, slots, smem), (regs, st, ld) in sorted(got.items()):
+        log(f"[1] {name}<{rows}, {slots}, {'b in smem' if smem else 'b in slots'}"
+            f">: {regs} registers, spill stores {st} B, spill loads {ld} B")
+        check(st == 0 and ld == 0, f"{name}<{rows}, {slots}, {smem}> spills")
+    for n, R in OCCUPANCY_SHAPES:
+        p = bs.launch_plan(n, R)
+        regs = got[(p.kernel, p.rows, p.slots, p.b_in_smem)][0]
+        log(f"[1] {n}x{R}: {p.kernel}<{p.rows}, {p.slots}, {int(p.b_in_smem)}>"
+            f", {p.threads} threads and {p.systems} systems a block, "
+            f"{p.smem} B dynamic shared memory, {regs} registers, "
+            f"{blocks_per_sm(p)} blocks per SM")
 
 
 def systems(n, R, Bt, gen, pivot_case):
@@ -314,11 +387,83 @@ def library_solve_ms(A, b):
     return time_ms(lambda: torch.linalg.solve(A_bm, b_bm), 10)
 
 
+def scaled_systems(n, R, Bt, gen):
+    """The pivot-case systems with their rows scaled over 1e-3 to 1e3, as
+    the equilibration sees HPF Jacobians."""
+    A, b = systems(n, R, Bt, gen, pivot_case=True)
+    r = 10.0 ** (6.0 * torch.rand((n, 1, Bt), generator=gen, device=DEV) - 3.0)
+    return (A * r).contiguous(), b
+
+
+def check_equilibrated(n, R, Bt, gen):
+    """The solve as batched_solve_lanes runs it on the card (the
+    equilibration inside the kernel) against equilibrated_lanes around the
+    plain twin, on badly scaled systems; timed beside equilibrated_lanes
+    around the kernel.  Returns (max err, fused ms, wrapped ms)."""
+    A, b = scaled_systems(n, R, Bt, gen)
+    x = ht.batched_solve_lanes(A, b)
+    x_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(A, b)
+    scale = x_ref.abs().max().item()
+    err = (x - x_ref).abs().max().item()
+    check(np.isfinite(err) and err <= KERNEL_TOL * scale,
+          f"equilibrated solve at {(n, R, Bt)}: max err {err} > "
+          f"{KERNEL_TOL} * {scale}")
+    f_ms = time_ms(lambda: ht.batched_solve_lanes(A, b), 20)
+    w_ms = time_ms(lambda: bs.equilibrated_lanes(ht.gauss_solve_lanes)(A, b),
+                   10)
+    return err, f_ms, w_ms
+
+
+def instance_cases():
+    """One (n, R) per instantiation of gj_kernel and gj_kernel_carried that
+    launch_plan picks it for: n + R fills the slots, or overflows the
+    widest instantiation of its rows where b lies in shared memory."""
+    cases = []
+    for rows, w in bs.K1_INSTANCES:
+        n = 17 if rows == 1 else 33
+        cases.append((n, w - n))
+    cases += [(20, 100), (40, 30)]
+    for rows, w in bs.K2_INSTANCES:
+        cases.append((rows, w - rows))
+    for rows, _ in bs.K2_SMEM_INSTANCES:
+        cases.append((rows, 40) if rows < bs.MAX_KERNEL_DIM else (182, 1))
+    return cases
+
+
+def check_instances(gen):
+    """Every instantiation of the direct kernels against the plain twin at
+    a small batch, with and without the equilibration inside."""
+    seen = set()
+    for n, R in instance_cases():
+        p = bs.launch_plan(n, R)
+        seen.add((p.kernel, p.rows, p.slots, p.b_in_smem))
+        A, b = systems(n, R, 512, gen, pivot_case=True)
+        x = ht.gauss_solve_lanes(A, b)
+        x_ref = ht.gj_solve_lanes_ref(A, b)
+        err = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+        A, b = scaled_systems(n, R, 512, gen)
+        x = bs.equilibrated_gauss_solve_lanes(A, b)
+        x_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(A, b)
+        err_e = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+        log(f"[2] {p.kernel}<{p.rows}, {p.slots}, {int(p.b_in_smem)}> at "
+            f"n={n} R={R} B=512: max|dx| / scale {err:.3e}, equilibrated "
+            f"inside {err_e:.3e}")
+        check(np.isfinite(err) and err <= KERNEL_TOL
+              and np.isfinite(err_e) and err_e <= KERNEL_TOL,
+              f"{p.kernel} instantiation {p} disagrees with the twin")
+    n_inst = sum(len(t) for t in (bs.K1_INSTANCES, bs.K1_SMEM_INSTANCES,
+                                  bs.K2_INSTANCES, bs.K2_SMEM_INSTANCES))
+    check(len(seen) == n_inst, f"{len(seen)} of {n_inst} instantiations run")
+
+
 def check_solve_kernel(name, gen):
     """gj_kernel / gj_kernel_carried / gj_kernel_unrolled against the plain
     twin; the unrolled kernel runs with GJ_UNROLLED set, beside
-    gj_kernel_carried at the same shape."""
-    errs, first = [], None
+    gj_kernel_carried at the same shape.  gj_kernel and gj_kernel_carried
+    are also held, with the equilibration inside, against
+    equilibrated_lanes around the twin.  Returns (max errors, one dict per
+    shape)."""
+    errs, shapes = [], []
     unrolled = name == "gj_kernel_unrolled"
     for (n, R, Bt) in KERNELS[name][2]:
         A, b = systems(n, R, Bt, gen, pivot_case=True)
@@ -363,13 +508,20 @@ def check_solve_kernel(name, gen):
         b_ms, b_by = bound(*solve_work(n, R, Bt))
         log(f"{msg}, torch.linalg.solve {lib_ms:.4f} ms, bound {b_ms:.4f} "
             f"ms ({b_by})")
-        errs.append(err)
-        if first is None:
-            first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms)
         del A, b, x, x_ref
+        if not unrolled:
+            e_err, f_ms, w_ms = check_equilibrated(n, R, Bt, gen)
+            log(f"[2] {name} n={n} R={R} B={Bt}, rows scaled over 1e-3..1e3: "
+                f"the equilibration inside the kernel (batched_solve_lanes) "
+                f"{f_ms:.4f} ms, equilibrated_lanes around the kernel "
+                f"{w_ms:.4f} ms; max|dx| {e_err:.3e} from "
+                f"equilibrated_lanes around the twin")
+        errs.append(err)
+        shapes.append(dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                           max_abs_err=err))
     torch.cuda.empty_cache()
-    return errs, first
+    return errs, shapes
 
 
 def check_panel_kernel(gen):
@@ -380,7 +532,7 @@ def check_panel_kernel(gen):
     against float64 LU, timed beside torch.linalg.solve and the direct
     kernels on the same systems."""
     name = "gj_panel_kernel"
-    errs, first = [], None
+    errs, shapes = [], []
     for (N, Pw, Bt) in KERNELS[name][2]:
         A, _ = systems(N, 1, Bt, gen, pivot_case=True)
         cols = slice(N // 3, N // 3 + Pw)
@@ -427,9 +579,9 @@ def check_panel_kernel(gen):
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}; {old_ms:.4f} ms on the old outputs); no PyTorch call "
             "eliminates one panel")
-        if first is None:
-            first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None)
+        shapes.append(dict(shape=[N, Pw, Bt], ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           max_abs_err=max(errs[-2:])))
         del A, panel, used, outs, refs
 
     for (n, Bt) in PANEL_SOLVES:
@@ -475,7 +627,7 @@ def check_panel_kernel(gen):
         errs.append(err)
         del A, b, x, x_ref, x64
     torch.cuda.empty_cache()
-    return errs, first
+    return errs, shapes
 
 
 def trip_flops(d):
@@ -554,7 +706,7 @@ def check_trip_kernel():
     bit; CUDA-event times of the kernel, the plain version and the
     unfused trip."""
     name = "fused_trip_kernel"
-    errs, first = [], None
+    errs, shapes = [], []
     for net, Bt, coupled, stable in KERNELS[name][2]:
         for trips in (0, 3):
             dims, k, args, unfused = trip_case(net, Bt, coupled, stable,
@@ -632,26 +784,34 @@ def check_trip_kernel():
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, unfused trip "
                 f"{u_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             errs.append(dvm)
-            if first is None:
-                first = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None)
+            shapes.append(dict(shape=[net, Bt, "coupled" if coupled
+                                      else "uncoupled", f"{trips} trips"],
+                               ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None,
+                               max_abs_err=dvm))
             del outs, refs, refs64, args
         torch.cuda.empty_cache()
-    return errs, first
+    return errs, shapes
 
 
 def phase2():
+    """Each kernel against its plain version; a row per kernel with the
+    first shape's numbers (its main path's) and every shape's."""
     gen = torch.Generator(device=DEV).manual_seed(1234)
+    check_instances(gen)
     rows = {}
     for name, (replaces, source, _) in KERNELS.items():
         if name == "gj_panel_kernel":
-            errs, first = check_panel_kernel(gen)
+            errs, shapes = check_panel_kernel(gen)
         elif name == "fused_trip_kernel":
-            errs, first = check_trip_kernel()
+            errs, shapes = check_trip_kernel()
         else:
-            errs, first = check_solve_kernel(name, gen)
+            errs, shapes = check_solve_kernel(name, gen)
+        first = {k: v for k, v in shapes[0].items()
+                 if k not in ("shape", "max_abs_err")}
         rows[name] = dict(name=name, route="cuda", source=source,
-                          replaces=replaces, max_abs_err=max(errs), **first)
+                          replaces=replaces, max_abs_err=max(errs), **first,
+                          shapes=shapes)
     return rows
 
 
@@ -958,7 +1118,7 @@ def main():
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms",
-                             "launches_by_shape")}
+                             "launches_by_shape", "shapes")}
         for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,16 +42,19 @@ def _nvcc() -> str:
 
 def _declare(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3),
-    # shared-memory bytes (not for the unrolled kernel, which sizes its
-    # own), stream
+    # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3), the
+    # launch plan (rows, slots, b in shared memory, threads and systems a
+    # block), equilibrate, shared-memory bytes, stream; the unrolled kernel
+    # takes no plan (it sizes its own shared memory)
+    head = [vp, vp, vp, i, i, ll] + [ll] * 9
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried"):
-        getattr(lib, name).argtypes = [vp, vp, vp, i, i, ll] + [ll] * 9 \
-            + [i, vp]
-    lib.hpfx_gj_kernel_unrolled.argtypes = [vp, vp, vp, i, i, ll] \
-        + [ll] * 9 + [vp]
+        getattr(lib, name).argtypes = head + [i] * 7 + [vp]
+    lib.hpfx_gj_kernel_unrolled.argtypes = head + [vp]
+    # carried?, the launch plan (rows, slots, b in shared memory, threads,
+    # smem), out: blocks
+    lib.hpfx_gj_blocks_per_sm.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
-                 "hpfx_gj_kernel_unrolled"):
+                 "hpfx_gj_kernel_unrolled", "hpfx_gj_blocks_per_sm"):
         getattr(lib, name).restype = i
     # panel, used, Z, pivots, used_out, N, Pw, B, panel strides (3), Z
     # strides (3), pivot strides (2), used strides (2), used_out strides

@@ -17,8 +17,11 @@ pivoting, wrapped in row and column max-abs equilibration
 of the Pallas kernels and of ``gj_solve_xla_lanes``).
 :func:`gauss_solve_lanes` is the wrapper of the hand-written CUDA
 kernels (``csrc/gj_solve.cu``; :func:`kernel_for` names the one a dim
-takes, :data:`GJ_UNROLLED` picks the unrolled variant for dims >= 64);
-it runs the plain twin only for tensors that lie on the CPU.
+takes, :func:`launch_plan` how it is launched, :data:`GJ_UNROLLED` picks
+the unrolled variant for dims >= 64); it runs the plain twin only for
+tensors that lie on the CPU.  :func:`equilibrated_gauss_solve_lanes` is
+``equilibrated_lanes(gauss_solve_lanes)`` with the equilibration run
+inside ``gj_kernel`` and ``gj_kernel_carried`` on the card.
 
 Large dims take the blocked form of the same elimination
 (:func:`panel_gj_solve_lanes`): one panel of columns at a time is
@@ -36,6 +39,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -53,11 +57,25 @@ SCHUR_MIN_DIM = 128
 PANEL_WIDTH = 32
 #: largest padded dim of the panel kernel: one thread per row of a block
 MAX_PANEL_DIM = 1024
-#: dynamic shared memory one block may use on Hopper (bytes): 227 KB less
-#: room for the kernels' static shared words
-_MAX_SMEM = 232448 - 1024
-#: systems (warps) per block of the one-warp-per-system kernel
-_WARPS_PER_BLOCK = 4
+#: shared memory one block may use on Hopper, static and dynamic (bytes)
+_SMEM_PER_BLOCK = 232448
+#: ``gj_kernel``'s instantiations (``k1_instance`` in ``csrc/gj_solve.cu``):
+#: (rows a lane keeps, register slots a row) with the right-hand sides in
+#: the slots, and with them in shared memory (the slots then hold A only)
+K1_INSTANCES = ((1, 32), (1, 96), (2, 40), (2, 56), (2, 64))
+K1_SMEM_INSTANCES = ((1, 32), (2, 64))
+#: ``gj_kernel_carried``'s (``k2_instance``): (padded rows, slots a row)
+K2_INSTANCES = ((64, 80), (96, 112), (128, 144), (160, 176))
+K2_SMEM_INSTANCES = ((64, 64), (96, 96), (128, 128), (160, 160),
+                     (192, 192))
+#: ``gj_kernel_carried``: threads a row by (padded rows, slots), one where
+#: not listed: a wider row is split over two threads so that its slots fit
+#: the registers without spilling
+K2_THREADS_PER_ROW = {(128, 128): 2, (160, 176): 2, (160, 160): 2,
+                      (192, 192): 2}
+#: ``gj_kernel``: systems (warps) a block when a lane keeps one row; half
+#: as many with two (``kMaxSystemsK1``)
+_K1_SYSTEMS = 8
 
 #: route dims >= KERNEL_SWITCH_DIM to ``gj_kernel_unrolled`` (the column
 #: loop unrolled at compile time) instead of ``gj_kernel_carried``.  Read
@@ -106,11 +124,70 @@ def gj_solve_lanes_ref(A, b):
     return torch.einsum("kib,krb->irb", A, b)
 
 
-def _kernel_smem(n: int, R: int, systems_per_block: int) -> int:
-    """Dynamic shared memory of one block: per system the [A | b] rows at
-    an odd leading dimension plus one staged pivot row (bytes)."""
-    ld = (n + R) | 1
-    return systems_per_block * (n + 1) * ld * 4
+class LaunchPlan(NamedTuple):
+    """How ``gj_kernel`` or ``gj_kernel_carried`` solves one (n, R) shape
+    on the card."""
+    kernel: str       # "gj_kernel" or "gj_kernel_carried"
+    rows: int         # gj_kernel: rows a lane keeps; carried: padded rows
+    slots: int        # register slots a row keeps (the instantiation)
+    b_in_smem: bool   # the right-hand sides in shared memory, not slots
+    threads: int      # threads a block
+    systems: int      # systems a block
+    smem: int         # dynamic shared memory a block (bytes)
+
+
+def launch_plan(n: int, R: int) -> LaunchPlan:
+    """The launch of a dim-n solve with R right-hand sides by the kernel
+    that takes dims below or from ``KERNEL_SWITCH_DIM`` (the instantiation
+    tables :data:`K1_INSTANCES` and :data:`K2_INSTANCES`, mirrored in
+    ``csrc/gj_solve.cu``):
+
+    * ``gj_kernel`` (n < 64): one warp per system, a lane keeping one row
+      (n <= 32) or two; 8 or 4 consecutive systems a block;
+    * ``gj_kernel_carried`` (64 <= n <= 192): one system a block, a
+      thread per row (two for the widest, :data:`K2_THREADS_PER_ROW`), n
+      padded to whole warps;
+
+    each with [A | b]'s row in the narrowest instantiation's slots that
+    holds it, or with A in the slots and b in shared memory where none
+    does.  Raises ``ValueError``, naming the limit, for a shape no
+    instantiation takes."""
+    if n < 1 or R < 1:
+        raise ValueError(f"no solve of dim {n} with {R} right-hand sides")
+    if n > MAX_KERNEL_DIM:
+        raise ValueError(f"system dim {n} exceeds the direct kernels' "
+                         f"{MAX_KERNEL_DIM}")
+    if n < KERNEL_SWITCH_DIM:
+        kernel, rows = "gj_kernel", (1 if n <= 32 else 2)
+        table, smem_table = K1_INSTANCES, K1_SMEM_INSTANCES
+        systems, threads = _K1_SYSTEMS // rows, 32 * (_K1_SYSTEMS // rows)
+    else:
+        kernel, rows = "gj_kernel_carried", -(-n // 32) * 32
+        table, smem_table = K2_INSTANCES, K2_SMEM_INSTANCES
+        systems, threads = 1, rows
+    fits = [w for r, w in table if r == rows and w >= n + R]
+    b_in_smem = not fits
+    if b_in_smem:
+        fits = [w for r, w in smem_table if r == rows and w >= n]
+    slots = fits[0]
+    if kernel == "gj_kernel_carried":
+        threads = rows * K2_THREADS_PER_ROW.get((rows, slots), 1)
+    ldb, nw = R | 1, threads // 32
+    if kernel == "gj_kernel":
+        # per warp: its b rows and its staged pivot b; statically the
+        # stages and column scales of the warps
+        smem = systems * (32 * rows * ldb + 2 * R) * 4 if b_in_smem else 0
+        static = 4 * systems * (2 * slots + 32 * rows)
+    else:
+        # the b rows and each warp's staged b; statically the warps'
+        # stages, keys, indices and reciprocals, and the column scales
+        smem = (rows * ldb + 2 * nw * R) * 4 if b_in_smem else 0
+        static = 4 * (2 * nw * slots + 6 * nw + rows)
+    if smem + static > _SMEM_PER_BLOCK:
+        raise ValueError(f"dim {n} with {R} right-hand sides needs "
+                         f"{smem + static} bytes of shared memory per block "
+                         f"(> {_SMEM_PER_BLOCK})")
+    return LaunchPlan(kernel, rows, slots, b_in_smem, threads, systems, smem)
 
 
 def kernel_for(n: int) -> str:
@@ -122,6 +199,32 @@ def kernel_for(n: int) -> str:
     return "gj_kernel_unrolled" if GJ_UNROLLED else "gj_kernel_carried"
 
 
+def fuses_equilibration(n: int) -> bool:
+    """Whether the card's kernel for a dim-n solve runs the equilibration
+    inside (``gj_kernel``, ``gj_kernel_carried``), or it stays around the
+    kernel (``gj_kernel_unrolled``)."""
+    return kernel_for(n) != "gj_kernel_unrolled"
+
+
+def _check_operands(A, b):
+    """Shape, dtype, layout and device checks of the direct kernels."""
+    if A.dim() != 3 or b.dim() != 3 or A.shape[0] != A.shape[1] \
+            or b.shape[0] != A.shape[0] or b.shape[2] != A.shape[2]:
+        raise ValueError(f"expected A (n, n, B) and b (n, R, B), got "
+                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if A.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"the GJ kernels take float32, got {A.dtype}/{b.dtype}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the GJ kernels take contiguous lane-major tensors")
+    if A.shape[0] > MAX_KERNEL_DIM:
+        raise ValueError(f"system dim {A.shape[0]} exceeds the direct "
+                         f"kernels' {MAX_KERNEL_DIM}")
+    if A.device != b.device:
+        raise ValueError("A and b lie on different devices")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no GJ kernel for device {A.device}")
+
+
 def gauss_solve_lanes(A, b):
     """Solve A[:, :, i] x = b[:, :, i] for every lane i: A (n, n, B),
     b (n, R, B) float32, contiguous -> x (n, R, B) float32.
@@ -131,49 +234,52 @@ def gauss_solve_lanes(A, b):
     or ``gj_kernel_unrolled`` (one block per system) for 64 <= n <= 192
     — or raises.  A CPU tensor runs
     :func:`gj_solve_lanes_ref`.  No equilibration here: callers wrap it
-    with :func:`equilibrated_lanes`."""
-    if A.dim() != 3 or b.dim() != 3 or A.shape[0] != A.shape[1] \
-            or b.shape[0] != A.shape[0] or b.shape[2] != A.shape[2]:
-        raise ValueError(f"expected A (n, n, B) and b (n, R, B), got "
-                         f"{tuple(A.shape)} and {tuple(b.shape)}")
-    if A.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"the GJ kernels take float32, got {A.dtype}/{b.dtype}")
-    if not (A.is_contiguous() and b.is_contiguous()):
-        raise ValueError("the GJ kernels take contiguous lane-major tensors")
-    n, _, B = A.shape
-    R = b.shape[1]
-    if n > MAX_KERNEL_DIM:
-        raise ValueError(f"system dim {n} exceeds the direct kernels' "
-                         f"{MAX_KERNEL_DIM}")
-    if A.device != b.device:
-        raise ValueError("A and b lie on different devices")
+    with :func:`equilibrated_lanes`, or call
+    :func:`equilibrated_gauss_solve_lanes`."""
+    _check_operands(A, b)
     if A.device.type == "cpu":
         return gj_solve_lanes_ref(A, b)
-    if A.device.type != "cuda":
-        raise ValueError(f"no GJ kernel for device {A.device}")
-    x = torch.empty((n, R, B), dtype=torch.float32, device=A.device)
+    x = torch.empty_like(b)
     _launch(A, b, x)
     return x
 
 
-def _launch(A, b, x):
-    """Launch the kernel for ``n`` on the current stream.  Operands may
-    have any element strides (the kernels index with them)."""
+def equilibrated_gauss_solve_lanes(A, b):
+    """``equilibrated_lanes(gauss_solve_lanes)(A, b)`` with the row and
+    column equilibration inside the kernel: the same float operations in
+    the same order, and no scaled copy of A.
+
+    A CUDA tensor launches ``gj_kernel`` or ``gj_kernel_carried`` with the
+    equilibration on (``gj_kernel_unrolled``, chosen by
+    :data:`GJ_UNROLLED`, has none: there the equilibration stays around
+    it); a CPU tensor runs ``equilibrated_lanes(gj_solve_lanes_ref)``."""
+    _check_operands(A, b)
+    if A.device.type == "cpu":
+        return equilibrated_lanes(gj_solve_lanes_ref)(A, b)
+    if not fuses_equilibration(A.shape[0]):
+        return equilibrated_lanes(gauss_solve_lanes)(A, b)
+    x = torch.empty_like(b)
+    _launch(A, b, x, equilibrate=True)
+    return x
+
+
+def _launch(A, b, x, equilibrate: bool = False):
+    """Launch the kernel for ``n`` on the current stream, with the
+    equilibration inside when ``equilibrate`` (not for the unrolled
+    kernel).  Operands may have any element strides (the kernels index
+    with them)."""
     from ._build import load_library
     n, _, B = A.shape
     R = b.shape[1]
     if B == 0:
         return
     name = kernel_for(n)
-    smem = []   # the unrolled kernel sizes its own shared memory
-    if name != "gj_kernel_unrolled":
-        nbytes = _kernel_smem(n, R, 1 if name == "gj_kernel_carried"
-                              else _WARPS_PER_BLOCK)
-        if nbytes > _MAX_SMEM:
-            raise ValueError(f"dim {n} with {R} right-hand sides needs "
-                             f"{nbytes} bytes of shared memory per block "
-                             f"(> {_MAX_SMEM})")
-        smem = [ctypes.c_int(nbytes)]
+    if name == "gj_kernel_unrolled":
+        plan = []   # the unrolled kernel sizes its own shared memory
+    else:
+        p = launch_plan(n, R)
+        plan = [p.rows, p.slots, int(p.b_in_smem), p.threads, p.systems]
+        plan = [ctypes.c_int(v) for v in plan + [int(equilibrate), p.smem]]
     lib = load_library()
     fn = getattr(lib, f"hpfx_{name}")
     st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
@@ -182,7 +288,7 @@ def _launch(A, b, x):
         err = fn(ctypes.c_void_p(A.data_ptr()), ctypes.c_void_p(b.data_ptr()),
                  ctypes.c_void_p(x.data_ptr()), ctypes.c_int(n),
                  ctypes.c_int(R), ctypes.c_longlong(B),
-                 *st(A), *st(b), *st(x), *smem, ctypes.c_void_p(stream))
+                 *st(A), *st(b), *st(x), *plan, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"GJ kernel launch failed (cudaError {err}: "
@@ -212,10 +318,6 @@ def _lu_solve_lanes(A, b):
     """LAPACK/cuSOLVER LU for lane-major operands (the float64 path)."""
     x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
     return x.permute(1, 2, 0)
-
-
-def _kernel_solve(A, b):
-    return gauss_solve_lanes(A.contiguous(), b.contiguous())
 
 
 def gj_panel_ref(panel, used):
@@ -408,9 +510,10 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
 
     Routes as ``hpfx.ops.batched_solve.batched_solve_lanes`` does: float64
     goes to LU (``torch.linalg.solve``); float32 is equilibrated and goes
-    to the plain elimination for n <= 16, to the ``gj_kernel`` wrapper for
-    16 < n < 64 and to the ``gj_kernel_carried`` wrapper for
-    64 <= n <= 128 (up to 192 with ``impl`` "auto" or "direct").  Above
+    to the plain elimination for n <= 16, and to
+    :func:`equilibrated_gauss_solve_lanes` (``gj_kernel`` for 16 < n < 64,
+    ``gj_kernel_carried`` for 64 <= n <= 128, up to 192 with ``impl``
+    "auto" or "direct"; on the card the equilibration runs inside them).  Above
     192, and above 128 with ``impl="panel"``, it takes the blocked panel
     solve (:func:`panel_gj_solve_lanes`).  ``impl="schur"`` above 128
     raises ``NotImplementedError``: the panel-Schur solve
@@ -427,4 +530,4 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
             "breaks Newton convergence); use impl='panel'")
     if n > MAX_KERNEL_DIM or (impl == "panel" and n > SCHUR_MIN_DIM):
         return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
-    return equilibrated_lanes(_kernel_solve)(A, b)
+    return equilibrated_gauss_solve_lanes(A.contiguous(), b.contiguous())

@@ -63,25 +63,11 @@
 
 namespace {
 
-using hpfx::kFullMask;
+using hpfx::pivot_key;
 using hpfx::Strides;
+using hpfx::warp_best;
 
 constexpr int kMaxRows = 1024;   // one thread per row, one block per system
-
-// A row's pivot key: 0 for a used row (and for a thread past the last row),
-// else the bits of |A[r,k]| plus one, NaN ranking as +inf.  The unsigned
-// order of the keys is the order of the scores, so one warp-wide max
-// instruction finds the best key and a ballot its lowest row: the argmax
-// with the lowest index on ties, as in the other kernels.
-__device__ __forceinline__ unsigned pivot_key(float a, bool used) {
-  return used ? 0u : __float_as_uint(isnan(a) ? INFINITY : fabsf(a)) + 1u;
-}
-
-// the lowest lane whose key is the warp's largest, and that key
-__device__ __forceinline__ int warp_best(unsigned key, unsigned& best) {
-  best = __reduce_max_sync(kFullMask, key);
-  return __ffs(__ballot_sync(kFullMask, key == best)) - 1;
-}
 
 struct Strides2 {
   long long a, s;   // element strides of (row or column, system)

@@ -2,13 +2,17 @@
 // partial pivoting, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU (Pallas) kernels of hpfx/ops/batched_solve.py:
-//   gj_kernel          <- _gj_kernel          (dims < 64; the sweep's dim-26
-//                                              Woodbury capacitance solve)
-//   gj_kernel_carried  <- _gj_kernel_carried  (dims 64..192; the dim-96
-//                                              exact-linear seed solve)
+//   gj_kernel          <- _gj_kernel          (dims < 64: the net2 Woodbury
+//                                              capacitance solve, dim 26; the
+//                                              net1 arrow blocks, dim 40 with
+//                                              15 right-hand sides)
+//   gj_kernel_carried  <- _gj_kernel_carried  (dims 64..192: the net2
+//                                              exact-linear seed, dim 96; the
+//                                              64-bus feeder's blocks, dim 128
+//                                              with 15 right-hand sides)
 //   gj_kernel_unrolled <- _gj_kernel_unrolled (the same dims, chosen with
 //                                              HPFX_GJ_UNROLLED=1)
-// Both compute, per system, exactly what the TPU kernels compute:
+// Per system they compute what the TPU kernels compute:
 //   for k in 0..n-1:
 //     p    = the unused row with the largest |A[r,k]| (lowest index on ties;
 //            NaN ranks highest, as argmax does)
@@ -17,190 +21,552 @@
 //     [A | b] -= w (outer) [A | b][p]      (eliminates column k and
 //                                           normalizes the pivot row at once)
 //     mark p used
-//   x[i, q] = sum_r A[r,i] * b[r,q]        (A has become a permutation)
 // No guard on a zero pivot: inf/NaN propagates and the caller treats a
 // non-finite lane as diverged.  No atomics: results are deterministic.
 //
-// What bounds it on this card.  Operands are lane-major, (n, n, B) with the
-// batch last, so one system's n*n entries are strided by B in device memory
-// and each is read once (604 MB at n=96, B=16384: ~0.2 ms at 3.35 TB/s).
-// The elimination does n*n*(n+R) multiply-adds per system, every one of
-// which reads the thread's own row element and the staged pivot element from
-// shared memory and writes the row element back: shared-memory bandwidth
-// (~32 words per clock per SM), not device memory and not the FP32 units,
-// is the bound, together with the barriers of the n sequential steps.
+// gj_kernel and gj_kernel_carried depart from the TPU kernels in two ways,
+// both of which change results only by rounding:
+//   - only the live columns are updated: A's columns after k, and b.  The
+//     columns up to k are eliminated already (the TPU kernel keeps updating
+//     them: the pivot row's unit and an ulp of cancellation noise elsewhere),
+//     and no later pivot or update reads them, so the pivots are the same
+//     and the live columns take the same multiply-adds;
+//   - x is gathered at the pivot rows, x[k] = b[p_k], where the TPU kernel
+//     sums x[k] = sum_r A[r,k] b[r] over the converged A, a permutation up to
+//     that noise (panel_gj_solve_lanes gathers x the same way).
+// With `equil` set they also run the row and column max-abs equilibration
+// of equilibrated_lanes (hpfx_torch/ops/batched_solve.py) around the solve,
+// with the same float operations in the same order:
+//   r = 1/max(|row of A|_inf, 1e-30), As = A r, c = 1/max(|column of As|_inf,
+//   1e-30), As c, b r, solve, x c      (IEEE division; NaN stays NaN)
+// so the caller makes no scaled copy of A and no passes over it.
 //
-// What the design does about it.  One thread owns one row of [A | b] in
-// dynamic shared memory, at an odd leading dimension so the 32 rows of a
-// warp fall in 32 different banks; the pivot row is staged once per step and
-// read as a broadcast.  The next step's pivot column is carried in a
-// register, taken from the row the thread has just updated (the TPU kernel
-// _gj_kernel_carried's idea), so the argmax reads no shared memory.
-//   gj_kernel: one warp per system, four systems per block; the argmax is
-//     five shuffles and a step needs no block barrier, only __syncwarp.
-//   gj_kernel_carried: one block per system (n rounded up to warps); the
-//     argmax goes through shuffles and one word per warp, two barriers per
-//     step.  Above 48 KB of shared memory (n > 109 at R=1) the launch raises
-//     the block's dynamic shared-memory limit.
-//   gj_kernel_unrolled: gj_kernel_carried with the column loop of the
-//     update unrolled at compile time, instantiated for padded dims NP =
-//     64, 96, 128, 160, 192 (pad rows and columns are zero, pad rows start
-//     used).  Every column index is static, so a thread keeps its row of A
-//     in registers: the update reads only the staged pivot row from shared
-//     memory (as float4 broadcasts) and writes nothing there, the next
-//     working column is selected from the registers during the update, and
-//     the pivot thread stages its row.  The right-hand sides stay in shared
-//     memory (R is a run-time value).  The step loop runs at run time:
-//     unrolling it too (NP^2 straight-line multiply-adds per instance, as
-//     the TPU kernel unrolls its step loop at trace time) did not build
+// What bounds them on this card.  Operands are lane-major, (n, n, B) with the
+// batch last, so a system's n*n entries are strided by B in device memory
+// and each is read once (604 MB at n=96, B=16384: 0.18 ms at 3.35 TB/s).  The
+// live-column elimination does n^2 (n/2 + R) multiply-adds per system, 0.2 ms
+// at the float32 peak for that batch.  What bounds them is latency: n
+// dependent steps per system, each an argmax over the rows, a barrier and a
+// broadcast of the pivot row, with as many systems in flight as the
+// registers that hold their rows allow.  The load is the other cost: a
+// thread reads its own row, so every 4 bytes touch a 32-byte sector, and the
+// neighbouring systems that share the sector run in other blocks.
+//
+// What the design does about it (gj_panel.cu's design for one panel, applied
+// to the whole system).  A row of [A | b] lives in registers, in WP slots (a
+// template constant).  The step loop runs at run time, so the slots rotate:
+// at step k slot j holds column k + j, the update writes each result one slot
+// down, and the working column is always slot 0; no index depends on k.  The
+// live slots are those below W - k (W = n + R, or n with b in shared memory),
+// and the update skips each group of four dead slots with a branch that the
+// whole block takes alike.  The pivot is a warp-wide max over order-
+// preserving keys and a ballot for the lowest row; the row that wins stages
+// its live slots as float4 stores in a double-buffered stage, and every row
+// reads it as float4 broadcasts, so a step needs one barrier.  The update
+// does the group holding the next working column first and then starts the
+// next step's max and ballot, whose latency the other groups' multiply-adds
+// cover.  After n steps slots 0..R-1 hold the row's b, which goes to x at the
+// step the row was pivot.  Where n + R exceeds the widest instantiation, the
+// slots hold A and b lies in dynamic shared memory at an odd leading
+// dimension (K2u's layout).
+//   gj_kernel (n < 64): one warp per system, a lane keeping rows lane and
+//     lane + 32 (ROWS = 2 for n > 32); 8 / ROWS consecutive systems a block,
+//     so a block's loads use 32 or 16 bytes of each sector.  The column
+//     max-abs is one warp-wide max per column; a step needs only __syncwarp,
+//     and every lane takes the pivot by a shuffle while the pivot lane stages
+//     its row.
+//   gj_kernel_carried (64 <= n <= 192): one block per system, a thread per
+//     row (n padded to warps), or two for the widest rows (T = 2: lanes i and
+//     i + 16 hold the two halves, and a shuffle carries the column that
+//     crosses between them), so that no instantiation spills.  The warps'
+//     column maxima meet in shared memory.  Each warp's best row also writes
+//     its key, index and 1/pivot, so after the one barrier a thread finds the
+//     pivot with a few shared loads and compares.  Several systems a block,
+//     loaded through a shared tile so that a warp's loads cover whole
+//     sectors, was slower at every path shape: one barrier a step then holds
+//     all of the block's systems, and no other block hides it.
+//   gj_kernel_unrolled: one block per system, the row of A in registers with
+//     the column loop of the update unrolled at compile time, instantiated
+//     for padded dims NP = 64, 96, 128, 160, 192 (pad rows and columns are
+//     zero, pad rows start used); b in shared memory; two barriers a step;
+//     x summed over an NP x NP shared copy of A.  Its step loop runs at run
+//     time: unrolling it too (NP^2 straight-line multiply-adds per instance,
+//     as the TPU kernel unrolls its step loop at trace time) did not build
 //     within 600 s on the card's host.
-// The strided loads are accepted as they are: neighbouring blocks read
-// neighbouring addresses and meet in L2.  A tensor-core or TMA design is for
-// later work.
+// The launch plan of gj_kernel and gj_kernel_carried (instantiation, threads,
+// systems a block, dynamic shared memory) is computed by the caller
+// (launch_plan in hpfx_torch/ops/batched_solve.py) and checked here.
 
 #include "gj_common.cuh"
 
 namespace {
 
+using hpfx::abs_bits;
 using hpfx::allow_smem;
+using hpfx::inv_scale;
+using hpfx::kFullMask;
 using hpfx::max_dynamic_smem;
+using hpfx::pivot_key;
 using hpfx::pivot_score;
 using hpfx::Strides;
 using hpfx::take_max;
 using hpfx::warp_argmax;
+using hpfx::warp_best;
 
-constexpr int kWarpsPerBlock = 4;   // gj_kernel: systems per block
-constexpr int kRowsPerLane = 2;     // gj_kernel: n < 64 rows over 32 lanes
+constexpr int kMaxSystemsK1 = 8;   // gj_kernel: at most 8 systems (warps) a block
 
-// load one system's [A | b] (n rows of w = n + R) into S at leading dim ld
-__device__ __forceinline__ void load_system(float* S, const float* A,
-                                            const float* b, int n, int w,
-                                            int ld, Strides sa, Strides sb,
-                                            long long sys, int t0, int dt) {
-  const float* As = A + sys * sa.s;
-  const float* bs = b + sys * sb.s;
-  for (int e = t0; e < n * w; e += dt) {
-    const int r = e / w;
-    const int c = e - r * w;
-    S[r * ld + c] = c < n ? As[r * sa.r + c * sa.c]
-                          : bs[r * sb.r + (c - n) * sb.c];
-  }
-}
-
-// x[i, q] = sum_r S[r, i] * S[r, n + q]
-__device__ __forceinline__ void store_solution(float* x, const float* S,
-                                               int n, int R, int ld,
-                                               Strides sx, long long sys,
-                                               int t0, int dt) {
-  for (int e = t0; e < n * R; e += dt) {
-    const int i = e / R;
-    const int q = e - i * R;
-    float acc = 0.0f;
-    for (int r = 0; r < n; ++r) acc += S[r * ld + i] * S[r * ld + n + q];
-    x[sys * sx.s + i * sx.r + q * sx.c] = acc;
-  }
-}
-
-__global__ void gj_kernel(const float* __restrict__ A,
-                          const float* __restrict__ b, float* __restrict__ x,
-                          int n, int R, long long B, Strides sa, Strides sb,
-                          Strides sx) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long sys = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (sys >= B) return;   // no block barrier below: a warp may leave
-  const int w = n + R;
-  const int ld = w | 1;
-  float* S = smem + (size_t)warp * (n + 1) * ld;   // n rows of [A | b]
-  float* prow = S + (size_t)n * ld;                // the staged pivot row
-
-  load_system(S, A, b, n, w, ld, sa, sb, sys, lane, 32);
-  __syncwarp();
-
-  float col[kRowsPerLane];
-  bool used[kRowsPerLane];
+// a row's slots from [A | b]: slot c holds column g0 + c (g0 > 0 for the
+// second half of a row split over two threads), A's columns and then b's
+// (unless b lies in shared memory), zeros past them and on a row past the
+// last
+template <int WP, bool BSMEM>
+__device__ __forceinline__ void load_row(float (&s)[WP], const float* a,
+                                         const float* b, int n, int R,
+                                         bool own, int g0, long long ca,
+                                         long long cb) {
 #pragma unroll
-  for (int t = 0; t < kRowsPerLane; ++t) {
-    const int r = lane + 32 * t;
-    used[t] = false;
-    col[t] = r < n ? S[r * ld] : 0.0f;
-  }
-  for (int k = 0; k < n; ++k) {
-    float v = -2.0f;
-    int p = INT_MAX;
-#pragma unroll
-    for (int t = 0; t < kRowsPerLane; ++t) {
-      const int r = lane + 32 * t;
-      if (r < n) take_max(v, p, pivot_score(col[t], used[t]), r);
+  for (int c = 0; c < WP; ++c) {
+    const int g = g0 + c;
+    float v = 0.0f;
+    if (own) {
+      if (g < n)
+        v = a[g * ca];
+      else if (!BSMEM && g < n + R)
+        v = b[(g - n) * cb];
     }
-    warp_argmax(v, p);
-    for (int c = lane; c < w; c += 32) prow[c] = S[p * ld + c];
-    __syncwarp();
-    const float inv_piv = 1.0f / prow[k];
+    s[c] = v;
+  }
+}
+
+// the largest |A| among the slots (as abs_bits), those below `na`
+template <int WP>
+__device__ __forceinline__ unsigned row_max_bits(const float (&s)[WP],
+                                                 int na) {
+  unsigned m = 0u;
 #pragma unroll
-    for (int t = 0; t < kRowsPerLane; ++t) {
-      const int r = lane + 32 * t;
-      if (r < n) {
-        const float wr = r == p ? 1.0f - inv_piv : col[t] * inv_piv;
-        float* row = S + r * ld;
-        for (int c = 0; c < w; ++c) row[c] -= wr * prow[c];
-        col[t] = k + 1 < n ? row[k + 1] : 0.0f;
-        used[t] = used[t] || r == p;
+  for (int c = 0; c < WP; ++c) {
+    const unsigned v = abs_bits(s[c]);
+    if (c < na && v > m) m = v;
+  }
+  return m;
+}
+
+// the slots below `nw` times the row scale r (As = A r, and b r where b is
+// in the slots)
+template <int WP>
+__device__ __forceinline__ void scale_slots(float (&s)[WP], int nw, float r) {
+#pragma unroll
+  for (int c = 0; c < WP; ++c)
+    if (c < nw) s[c] *= r;
+}
+
+// the live slots (those below `live`) of a row, as float4 stores
+template <int WP>
+__device__ __forceinline__ void stage_row(float* dst, const float (&s)[WP],
+                                          int live) {
+#pragma unroll
+  for (int c = 0; c < WP; c += 4)
+    if (c < live)
+      *reinterpret_cast<float4*>(dst + c) =
+          make_float4(s[c], s[c + 1], s[c + 2], s[c + 3]);
+}
+
+// one step's update of the live slots of ROWS rows against the staged pivot
+// row, each result written one slot down: s[c-1] = s[c] - w prow[c], so the
+// next working column lands in slot 0.  A group of four slots at or past
+// `live` (the same for every row of the system) is skipped.  The groups
+// C0..C1-1 only: the caller updates group 0 (the next working column) first
+// and starts the next argmax before the rest
+template <int ROWS, int WP, int C0, int C1>
+__device__ __forceinline__ void update_rows(float (&s)[ROWS][WP],
+                                            const float (&w)[ROWS],
+                                            const float* prow, int live) {
+  static_assert(WP % 4 == 0 && C0 % 4 == 0, "the staged row is read as float4");
+  const float4* p4 = reinterpret_cast<const float4*>(prow);
+#pragma unroll
+  for (int c = C0; c < C1; c += 4) {
+    if (c < live) {
+      const float4 q = p4[c / 4];
+#pragma unroll
+      for (int t = 0; t < ROWS; ++t) {
+        if (c > 0) s[t][c - 1] = s[t][c] - w[t] * q.x;
+        s[t][c] = s[t][c + 1] - w[t] * q.y;
+        s[t][c + 1] = s[t][c + 2] - w[t] * q.z;
+        s[t][c + 2] = s[t][c + 3] - w[t] * q.w;
       }
     }
-    __syncwarp();
   }
-  store_solution(x, S, n, R, ld, sx, sys, lane, 32);
 }
 
-__global__ void gj_kernel_carried(const float* __restrict__ A,
-                                  const float* __restrict__ b,
-                                  float* __restrict__ x, int n, int R,
-                                  Strides sa, Strides sb, Strides sx) {
-  extern __shared__ float smem[];
-  __shared__ float warp_v[32];
-  __shared__ int warp_p[32];
-  const long long sys = blockIdx.x;
-  const int r = threadIdx.x;   // the row this thread owns
-  const int lane = r & 31;
-  const int warp = r >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int w = n + R;
-  const int ld = w | 1;
-  float* S = smem;
-  float* prow = S + (size_t)n * ld;
+// x[k, q] = b[q] of the row that was the pivot of column k, times the column
+// scale c[k] when equilibrating: the slots holding columns n..n+R-1 at the
+// end (global slots 0..R-1, slot c holding g0 + c), or the row's b in
+// shared memory (stored by the thread with g0 = 0)
+template <int WP, bool BSMEM>
+__device__ __forceinline__ void store_row(float* x, const float (&s)[WP],
+                                          const float* sb, int R, int g0,
+                                          int k, bool equil, float cs,
+                                          Strides sx, long long sys) {
+  float* xk = x + sys * sx.s + k * sx.r;
+  if (BSMEM) {
+    if (g0 == 0)
+      for (int q = 0; q < R; ++q) xk[q * sx.c] = equil ? sb[q] * cs : sb[q];
+  } else {
+#pragma unroll
+    for (int c = 0; c < WP; ++c)
+      if (g0 + c < R) xk[(g0 + c) * sx.c] = equil ? s[c] * cs : s[c];
+  }
+}
 
-  load_system(S, A, b, n, w, ld, sa, sb, sys, threadIdx.x, blockDim.x);
-  __syncthreads();
+// the warp's pivot: the lowest unused row with the largest key in slot 0,
+// over a lane's ROWS rows (rows 0..31 before rows 32..63)
+template <int ROWS, int WP>
+__device__ __forceinline__ int warp_pivot(const float (&s)[ROWS][WP],
+                                          const bool (&used)[ROWS]) {
+  unsigned key[ROWS];
+  unsigned best = 0u;
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    key[t] = pivot_key(s[t][0], used[t]);
+    if (key[t] > best) best = key[t];
+  }
+  best = __reduce_max_sync(kFullMask, best);
+  const unsigned lo = __ballot_sync(kFullMask, key[0] == best);
+  return lo ? __ffs(lo) - 1
+            : 32 + __ffs(__ballot_sync(kFullMask, key[ROWS - 1] == best)) - 1;
+}
 
-  float col = r < n ? S[r * ld] : 0.0f;
-  bool used = false;
-  for (int k = 0; k < n; ++k) {
-    float v = r < n ? pivot_score(col, used) : -2.0f;
-    int p = r < n ? r : INT_MAX;
-    warp_argmax(v, p);
-    if (lane == 0) {
-      warp_v[warp] = v;
-      warp_p[warp] = p;
+template <int ROWS, int WP, bool BSMEM>
+__global__ void __launch_bounds__(32 * kMaxSystemsK1 / ROWS)
+    gj_kernel(const float* __restrict__ A, const float* __restrict__ b,
+              float* __restrict__ x, int n, int R, long long B, int equil,
+              Strides sa, Strides sb, Strides sx) {
+  constexpr int NR = 32 * ROWS;              // the system's rows, padded
+  constexpr int S = kMaxSystemsK1 / ROWS;    // systems (warps) a block
+  __shared__ __align__(16) float stage[S][2][WP];
+  __shared__ float cscale[S][NR];
+  // BSMEM: each warp's b rows at an odd leading dimension, then its staged
+  // pivot b, two buffers of R
+  extern __shared__ float dyn[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long sys = (long long)blockIdx.x * S + warp;
+  const int W = BSMEM ? n : n + R;   // the slots in use
+  const int ldb = R | 1;
+  float* Sb = dyn + (size_t)warp * (NR * ldb + 2 * R);
+  float* pb = Sb + NR * ldb;
+
+  float s[ROWS][WP];
+  if (sys >= B) return;   // no block barrier below: a warp may leave
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t)
+    load_row<WP, BSMEM>(s[t], A + sys * sa.s + (lane + 32 * t) * sa.r,
+                        b + sys * sb.s + (lane + 32 * t) * sb.r, n, R,
+                        lane + 32 * t < n, 0, sa.c, sb.c);
+  bool used[ROWS];
+  int step[ROWS];   // the step at which the row was pivot
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    const int r = lane + 32 * t;
+    const bool own = r < n;
+    if (BSMEM)
+      for (int q = 0; q < R; ++q)
+        Sb[r * ldb + q] = own ? b[sys * sb.s + r * sb.r + q * sb.c] : 0.0f;
+    used[t] = !own;   // pad rows are never pivots
+    step[t] = 0;
+  }
+
+  if (equil) {
+#pragma unroll
+    for (int t = 0; t < ROWS; ++t) {
+      const float rs = inv_scale(row_max_bits(s[t], n));
+      scale_slots(s[t], W, rs);
+      if (BSMEM)
+        for (int q = 0; q < R; ++q) Sb[(lane + 32 * t) * ldb + q] *= rs;
     }
-    __syncthreads();   // warp results written; every row of step k-1 done
-    v = warp_v[0];
-    p = warp_p[0];
-    for (int j = 1; j < nwarps; ++j) take_max(v, p, warp_v[j], warp_p[j]);
-    for (int c = threadIdx.x; c < w; c += blockDim.x) prow[c] = S[p * ld + c];
-    __syncthreads();   // pivot row staged; warp_v/warp_p reads done
-    if (r < n) {
-      const float inv_piv = 1.0f / prow[k];
-      const float wr = r == p ? 1.0f - inv_piv : col * inv_piv;
-      float* row = S + r * ld;
-      for (int c = 0; c < w; ++c) row[c] -= wr * prow[c];
-      col = k + 1 < n ? row[k + 1] : 0.0f;
-      used = used || r == p;
+    // the column scales: a warp-wide max over the rows, column by column
+#pragma unroll
+    for (int c = 0; c < WP; ++c) {
+      if (c < n) {
+        unsigned m = abs_bits(s[0][c]);
+#pragma unroll
+        for (int t = 1; t < ROWS; ++t) {
+          const unsigned v = abs_bits(s[t][c]);
+          if (v > m) m = v;
+        }
+        const float cs = inv_scale(__reduce_max_sync(kFullMask, m));
+#pragma unroll
+        for (int t = 0; t < ROWS; ++t) s[t][c] *= cs;
+        if (lane == (c & 31)) cscale[warp][c] = cs;
+      }
     }
   }
-  __syncthreads();
-  store_solution(x, S, n, R, ld, sx, sys, threadIdx.x, blockDim.x);
+
+  int live = W;   // W - k at step k
+  int p = warp_pivot(s, used);   // step 0's pivot
+#pragma unroll 1
+  for (int k = 0; k < n; ++k, --live) {
+    const int buf = k & 1;
+    // every lane takes the pivot from its lane (a shuffle, beside the stage)
+    const float piv = __shfl_sync(
+        kFullMask, p < 32 ? s[0][0] : s[ROWS - 1][0], p & 31);
+    float* prow = stage[warp][buf];
+    if (lane == (p & 31)) {
+      if (p < 32)
+        stage_row(prow, s[0], live);
+      else
+        stage_row(prow, s[ROWS - 1], live);
+      if (BSMEM)
+        for (int q = 0; q < R; ++q) pb[buf * R + q] = Sb[p * ldb + q];
+    }
+    const float inv_piv = __frcp_rn(piv);   // 1/piv, rounded as 1.0f / piv
+    // the stage is double-buffered: step k+2 rewrites this buffer only after
+    // every lane has passed step k+1's __syncwarp, after its reads of step k
+    __syncwarp();
+    float w[ROWS];
+#pragma unroll
+    for (int t = 0; t < ROWS; ++t) {
+      const int r = lane + 32 * t;
+      w[t] = r == p ? 1.0f - inv_piv : s[t][0] * inv_piv;
+      if (r == p) step[t] = k;
+      used[t] = used[t] || r == p;
+    }
+    // the next working column first, then the next pivot's max and ballot
+    // in flight while the other groups are updated
+    update_rows<ROWS, WP, 0, 4>(s, w, prow, live);
+    const int p_next = warp_pivot(s, used);
+    update_rows<ROWS, WP, 4, WP>(s, w, prow, live);
+    if (BSMEM) {
+#pragma unroll
+      for (int t = 0; t < ROWS; ++t) {
+        float* row = Sb + (lane + 32 * t) * ldb;
+        for (int q = 0; q < R; ++q) row[q] -= w[t] * pb[buf * R + q];
+      }
+    }
+    p = p_next;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    const int r = lane + 32 * t;
+    if (r < n)
+      store_row<WP, BSMEM>(x, s[t], Sb + r * ldb, R, 0, step[t], equil,
+                           equil ? cscale[warp][step[t]] : 1.0f, sx, sys);
+  }
+}
+
+// the largest of v over the lanes of this thread's half of the warp (all 32
+// lanes when a row has one thread): a row split over two threads keeps its
+// halves in lanes i and i + 16, so the halves hold different columns
+template <int T>
+__device__ __forceinline__ unsigned half_warp_max(unsigned v) {
+  if constexpr (T == 1) {
+    return __reduce_max_sync(kFullMask, v);
+  } else {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const unsigned o = __shfl_xor_sync(kFullMask, v, off);
+      if (o > v) v = o;
+    }
+    return v;
+  }
+}
+
+template <int NP, int WP, bool BSMEM, int T>
+__global__ void __launch_bounds__(NP * T)
+    gj_kernel_carried(const float* __restrict__ A,
+                      const float* __restrict__ b, float* __restrict__ x,
+                      int n, int R, int equil, Strides sa, Strides sb,
+                      Strides sx) {
+  static_assert(NP % 32 == 0 && WP >= NP && (T == 1 || T == 2) &&
+                    WP % (4 * T) == 0,
+                "whole warps; a row's slots split into float4 groups");
+  constexpr int NW = NP * T / 32;   // warps
+  constexpr int RW = 32 / T;        // rows a warp
+  constexpr int H = WP / T;         // slots a thread
+  __shared__ __align__(16) float stage[2][NW][WP];   // each warp's best row
+  __shared__ unsigned warp_k[2][NW];                 // its key
+  __shared__ int warp_p[2][NW];                      // its index
+  __shared__ float warp_i[2][NW];                    // 1 / its pivot
+  __shared__ float cscale[NP];                       // the column scales
+  // BSMEM: the b rows at an odd leading dimension, then each warp's best
+  // row's b, two buffers of NW x R
+  extern __shared__ float dyn[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sys = blockIdx.x;
+  const int i = lane % RW;          // the row within the warp
+  const int r = warp * RW + i;      // the row this thread holds (a half of)
+  const int g0 = (lane / RW) * H;   // the column of its slot 0
+  const bool own = r < n;
+  const int W = BSMEM ? n : n + R;  // the slots in use
+  const int ldb = R | 1;
+  float* Sb = dyn + r * ldb;        // this row's b
+  float* pbs = dyn + NP * ldb;
+
+  float s[1][H];
+  const float* br = b + sys * sb.s + r * sb.r;
+  load_row<H, BSMEM>(s[0], A + sys * sa.s + r * sa.r, br, n, R, own, g0,
+                     sa.c, sb.c);
+  if (BSMEM && g0 == 0)
+    for (int q = 0; q < R; ++q) Sb[q] = own ? br[q * sb.c] : 0.0f;
+  bool used = !own;   // pad rows are never pivots
+  int step = 0;       // the step at which this row was pivot
+
+  if (equil) {
+    unsigned m = row_max_bits(s[0], n - g0);
+    if (T == 2) {
+      const unsigned o = __shfl_xor_sync(kFullMask, m, RW);   // other half
+      if (o > m) m = o;
+    }
+    const float rs = inv_scale(m);
+    scale_slots(s[0], W - g0, rs);
+    if (BSMEM && g0 == 0)
+      for (int q = 0; q < R; ++q) Sb[q] *= rs;
+    // the column scales: a max over the warp's rows per column, one word
+    // per warp and column (in the stage, not in use yet), then a max over
+    // the warps
+    unsigned* cmax = reinterpret_cast<unsigned*>(&stage[0][0][0]);
+#pragma unroll
+    for (int c = 0; c < H; ++c) {
+      const int g = g0 + c;
+      const unsigned v = half_warp_max<T>(g < n ? abs_bits(s[0][c]) : 0u);
+      if (g < n && i == c % RW) cmax[warp * WP + g] = v;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+      unsigned mc = 0u;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const unsigned v = cmax[j * WP + threadIdx.x];
+        if (v > mc) mc = v;
+      }
+      cscale[threadIdx.x] = inv_scale(mc);
+    }
+    __syncthreads();   // scales written; the words read before step 0
+#pragma unroll
+    for (int c = 0; c < H; ++c)
+      if (g0 + c < n) s[0][c] *= cscale[g0 + c];
+  }
+
+  int live = W;   // W - k at step k
+  unsigned best;
+  // step 0's best row of this warp (keys from the first half of each row)
+  int lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
+#pragma unroll 1
+  for (int k = 0; k < n; ++k, --live) {
+    const int buf = k & 1;
+    if (i == lb) {
+      // this warp's best row (the lowest lane wins a tie), both halves
+      stage_row(stage[buf][warp] + g0, s[0], live - g0);
+      if (g0 == 0) {
+        if (BSMEM)
+          for (int q = 0; q < R; ++q) pbs[(buf * NW + warp) * R + q] = Sb[q];
+        warp_k[buf][warp] = best;
+        warp_p[buf][warp] = r;
+        warp_i[buf][warp] = __frcp_rn(s[0][0]);   // rounded as 1.0f / piv
+      }
+    }
+    __syncthreads();   // warp words written; step k-1's reads of them done
+    // the lowest of the warps with the largest key holds the pivot
+    unsigned bk = warp_k[buf][0];
+    int wb = 0;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      const unsigned kj = warp_k[buf][j];
+      if (kj > bk) {
+        bk = kj;
+        wb = j;
+      }
+    }
+    const int p = warp_p[buf][wb];
+    const float inv_piv = warp_i[buf][wb];
+    const float* prow = stage[buf][wb];   // row p, in slot order
+    // the row's working column, and the column after this thread's last
+    // slot (the other half's slot 0), before the update moves them
+    float col = s[0][0], next = 0.0f;
+    if (T == 2) {
+      col = __shfl_sync(kFullMask, s[0][0], i);
+      next = __shfl_sync(kFullMask, s[0][0], i + RW);
+    }
+    float w[1];
+    w[0] = r == p ? 1.0f - inv_piv : col * inv_piv;
+    if (r == p) step = k;
+    used = used || r == p;
+    // the next working column first, then the next step's warp argmax in
+    // flight while the other groups are updated
+    update_rows<1, H, 0, 4>(s, w, prow + g0, live - g0);
+    lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
+    update_rows<1, H, 4, H>(s, w, prow + g0, live - g0);
+    if (T == 2 && g0 == 0 && H < live) s[0][H - 1] = next - w[0] * prow[H];
+    if (BSMEM && g0 == 0) {
+      const float* pb = pbs + (buf * NW + wb) * R;
+      for (int q = 0; q < R; ++q) Sb[q] -= w[0] * pb[q];
+    }
+  }
+  if (own)
+    store_row<H, BSMEM>(x, s[0], Sb, R, g0, step, equil,
+                        equil ? cscale[step] : 1.0f, sx, sys);
+}
+
+using K1Fn = void (*)(const float*, const float*, float*, int, int,
+                      long long, int, Strides, Strides, Strides);
+using K2Fn = void (*)(const float*, const float*, float*, int, int, int,
+                      Strides, Strides, Strides);
+
+// gj_kernel's instantiations: (rows a lane keeps, slots a row, b in shared
+// memory); launch_plan in ops/batched_solve.py holds the same table
+K1Fn k1_instance(int rows, int slots, int b_smem) {
+#define HPFX_K1(RO, WP, BS) \
+  if (rows == RO && slots == WP && b_smem == BS) return gj_kernel<RO, WP, (BS) != 0>;
+  HPFX_K1(1, 32, 0)
+  HPFX_K1(1, 96, 0)
+  HPFX_K1(1, 32, 1)
+  HPFX_K1(2, 40, 0)
+  HPFX_K1(2, 56, 0)
+  HPFX_K1(2, 64, 0)
+  HPFX_K1(2, 64, 1)
+#undef HPFX_K1
+  return nullptr;
+}
+
+// gj_kernel_carried's instantiations: (padded rows, slots a row, b in shared
+// memory, threads a row)
+K2Fn k2_instance(int np, int slots, int b_smem, int threads) {
+#define HPFX_K2(NP, WP, BS, T)                                       \
+  if (np == NP && slots == WP && b_smem == BS && threads == NP * T) \
+    return gj_kernel_carried<NP, WP, (BS) != 0, T>;
+  HPFX_K2(64, 80, 0, 1)
+  HPFX_K2(64, 64, 1, 1)
+  HPFX_K2(96, 112, 0, 1)
+  HPFX_K2(96, 96, 1, 1)
+  HPFX_K2(128, 144, 0, 1)
+  HPFX_K2(128, 128, 1, 2)
+  HPFX_K2(160, 176, 0, 2)
+  HPFX_K2(160, 160, 1, 2)
+  HPFX_K2(192, 192, 1, 2)
+#undef HPFX_K2
+  return nullptr;
+}
+
+// let `kernel` take `smem` bytes of dynamic shared memory: with its static
+// shared words they may pass the 48 KB a block gets without asking
+template <typename Kernel>
+cudaError_t set_dynamic_smem(Kernel kernel, int smem) {
+  if (smem == 0) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// dynamic shared memory of one block (bytes): only where b lies there
+int k1_smem(int rows, int R, int b_smem, int systems) {
+  return b_smem ? systems * (32 * rows * (R | 1) + 2 * R) * (int)sizeof(float)
+                : 0;
+}
+
+int k2_smem(int np, int R, int b_smem, int threads) {
+  return b_smem ? (np * (R | 1) + 2 * (threads / 32) * R) * (int)sizeof(float)
+                : 0;
 }
 
 template <int NP>
@@ -305,36 +671,37 @@ int launch_unrolled(const float* A, const float* b, float* x, int n, int R,
   return (int)cudaGetLastError();
 }
 
-int smem_bytes(int n, int R, int systems_per_block) {
-  const int ld = (n + R) | 1;
-  return systems_per_block * (n + 1) * ld * (int)sizeof(float);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches on `stream`, does not synchronize, and returns
-// cudaGetLastError() after the launch (0 = launched).  Where it takes `smem`,
-// that is the dynamic shared memory the caller computed; it is checked
-// against the kernel's need.  The unrolled kernel sizes its own.
+// cudaGetLastError() after the launch (0 = launched).  gj_kernel and
+// gj_kernel_carried take the caller's launch plan (instantiation, systems a
+// block, dynamic shared memory `smem`), checked against the kernel's need;
+// `equil` != 0 runs the equilibration inside.  The unrolled kernel sizes its
+// own shared memory.
 
 int hpfx_gj_kernel(const float* A, const float* b, float* x, int n, int R,
                    long long B, long long sa_r, long long sa_c,
                    long long sa_s, long long sb_r, long long sb_c,
                    long long sb_s, long long sx_r, long long sx_c,
-                   long long sx_s, int smem, void* stream) {
-  if (n < 1 || n >= 64 || R < 1 || B < 1 ||
-      smem < smem_bytes(n, R, kWarpsPerBlock))
+                   long long sx_s, int rows, int slots, int b_smem,
+                   int threads, int systems, int equil, int smem,
+                   void* stream) {
+  const K1Fn fn = k1_instance(rows, slots, b_smem);
+  if (fn == nullptr || n < 1 || n > 32 * rows || R < 1 || B < 1 ||
+      systems != kMaxSystemsK1 / rows || threads != 32 * systems ||
+      (b_smem ? n > slots : n + R > slots) ||
+      smem < k1_smem(rows, R, b_smem, systems))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(gj_kernel, smem);
+  const long long blocks = (B + systems - 1) / systems;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = set_dynamic_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  const long long blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gj_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
-              (cudaStream_t)stream>>>(A, b, x, n, R, B,
-                                      Strides{sa_r, sa_c, sa_s},
-                                      Strides{sb_r, sb_c, sb_s},
-                                      Strides{sx_r, sx_c, sx_s});
+  fn<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      A, b, x, n, R, B, equil, Strides{sa_r, sa_c, sa_s},
+      Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s});
   return (int)cudaGetLastError();
 }
 
@@ -342,18 +709,37 @@ int hpfx_gj_kernel_carried(const float* A, const float* b, float* x, int n,
                            int R, long long B, long long sa_r,
                            long long sa_c, long long sa_s, long long sb_r,
                            long long sb_c, long long sb_s, long long sx_r,
-                           long long sx_c, long long sx_s, int smem,
-                           void* stream) {
-  if (n < 1 || n > 1024 || R < 1 || B < 1 || B > INT_MAX ||
-      smem < smem_bytes(n, R, 1))
+                           long long sx_c, long long sx_s, int rows,
+                           int slots, int b_smem, int threads, int systems,
+                           int equil, int smem, void* stream) {
+  const K2Fn fn = k2_instance(rows, slots, b_smem, threads);
+  if (fn == nullptr || n < 1 || n > rows || R < 1 || B < 1 || B > INT_MAX ||
+      systems != 1 || (b_smem ? n > slots : n + R > slots) ||
+      smem < k2_smem(rows, R, b_smem, threads))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(gj_kernel_carried, smem);
+  const cudaError_t e = set_dynamic_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  const int threads = (n + 31) / 32 * 32;
-  gj_kernel_carried<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      A, b, x, n, R, Strides{sa_r, sa_c, sa_s}, Strides{sb_r, sb_c, sb_s},
-      Strides{sx_r, sx_c, sx_s});
+  fn<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+      A, b, x, n, R, equil, Strides{sa_r, sa_c, sa_s},
+      Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s});
   return (int)cudaGetLastError();
+}
+
+// Blocks of one instantiation that fit one SM at `threads` a block and
+// `smem` bytes of dynamic shared memory (the occupancy calculator), into
+// *blocks; `carried` picks gj_kernel_carried's table.  Returns a cudaError.
+int hpfx_gj_blocks_per_sm(int carried, int rows, int slots, int b_smem,
+                          int threads, int smem, int* blocks) {
+  const void* fn =
+      carried ? reinterpret_cast<const void*>(
+                    k2_instance(rows, slots, b_smem, threads))
+              : reinterpret_cast<const void*>(k1_instance(rows, slots, b_smem));
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_dynamic_smem(fn, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                      smem);
+  return (int)e;
 }
 
 int hpfx_gj_kernel_unrolled(const float* A, const float* b, float* x, int n,

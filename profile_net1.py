@@ -184,8 +184,10 @@ def main():
         by_kernel[e.name] += e.time_range.end - e.time_range.start
     for k, t in by_kernel.most_common(12):
         cs.log(f"[p] {t / 1e3:9.3f} ms {t / busy:.4f} of busy  {k[:100]}")
-    k4 = sum(t for k, t in by_kernel.items() if "gj_panel_kernel" in k)
-    cs.log(f"[p] gj_panel_kernel {k4 / 1e3:.3f} ms, {k4 / busy:.4f} of busy")
+    for name in ("gj_kernel", "gj_kernel_carried", "gj_panel_kernel"):
+        # the demangled template name, e.g. "...::gj_kernel<2, 56, false>(..."
+        t = sum(tk for k, tk in by_kernel.items() if f"{name}<" in k)
+        cs.log(f"[p] {name} {t / 1e3:.3f} ms, {t / busy:.4f} of busy")
     print(smi)
 
 

@@ -150,6 +150,104 @@ def test_unrolled_flag_routes_large_dims(monkeypatch, unrolled):
     assert not any(tbs.LAUNCHES.values())
 
 
+def _plan_ok(n, R):
+    """launch_plan(n, R) checked against the instantiation tables: the
+    kernel kernel_for names without GJ_UNROLLED, the narrowest
+    instantiation whose slots hold [A | b] (or A, with b in shared memory
+    where none does), the threads and systems a block and the dynamic
+    shared memory of csrc/gj_solve.cu's layout."""
+    p = tbs.launch_plan(n, R)
+    if n < tbs.KERNEL_SWITCH_DIM:
+        assert p.kernel == "gj_kernel"
+        assert p.rows == (1 if n <= 32 else 2)
+        assert p.systems == 8 // p.rows and p.threads == 32 * p.systems
+        reg, smem = tbs.K1_INSTANCES, tbs.K1_SMEM_INSTANCES
+    else:
+        assert p.kernel == "gj_kernel_carried"
+        assert p.rows == -(-n // 32) * 32
+        assert p.systems == 1
+        assert p.threads == p.rows * tbs.K2_THREADS_PER_ROW.get(
+            (p.rows, p.slots), 1)
+        reg, smem = tbs.K2_INSTANCES, tbs.K2_SMEM_INSTANCES
+    fits = sorted(w for r, w in reg if r == p.rows and w >= n + R)
+    if fits:
+        assert not p.b_in_smem and p.slots == fits[0] and p.smem == 0
+    else:
+        fits = sorted(w for r, w in smem if r == p.rows and w >= n)
+        assert p.b_in_smem and p.slots == fits[0]
+        rows = 32 * p.rows if p.kernel == "gj_kernel" else p.rows
+        per = rows * (R | 1) + 2 * R * (p.threads // 32 if p.kernel ==
+                                        "gj_kernel_carried" else 1)
+        assert p.smem == 4 * per * (p.systems if p.kernel == "gj_kernel"
+                                    else 1)
+    return p
+
+
+@pytest.mark.parametrize("lo,hi", [(17, 63), (64, 192)],
+                         ids=["gj_kernel", "gj_kernel_carried"])
+def test_launch_plan_takes_every_dispatched_shape(lo, hi):
+    """Every (n, R) the dispatcher can send to a direct kernel, 17 <= n <=
+    192 and 1 <= R <= 63 (the arrow blocks send R = 1 + 2·n_nl), has an
+    instantiation on the card, or raises ValueError naming the limit; the
+    net2 and net1 path shapes keep [A | b] in registers."""
+    planned = set()
+    for n in range(lo, hi + 1):
+        for R in range(1, 64):
+            try:
+                p = _plan_ok(n, R)
+            except ValueError as e:
+                assert "bytes of shared memory" in str(e)
+                continue
+            planned.add((p.rows, p.slots, p.b_in_smem))
+    tables = ((tbs.K1_INSTANCES, tbs.K1_SMEM_INSTANCES) if lo < 64 else
+              (tbs.K2_INSTANCES, tbs.K2_SMEM_INSTANCES))
+    every = {(r, w, m) for m, t in zip((False, True), tables) for r, w in t}
+    # a lane's single row holds up to 95 columns in slots, so the smem
+    # form of one row a lane takes only R > 63
+    assert planned == every - {(1, 32, True)}
+    assert _plan_ok(30, 80).b_in_smem
+    for n, R in ((26, 1), (38, 1), (40, 15), (96, 1), (126, 1), (128, 15)):
+        assert not tbs.launch_plan(n, R).b_in_smem
+    with pytest.raises(ValueError, match="exceeds"):
+        tbs.launch_plan(193, 1)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tbs.launch_plan(hi, 4096)
+
+
+@pytest.mark.parametrize("n,R", [(26, 1), (40, 15), (96, 1)])
+def test_cpu_solve_bit_identical_badly_scaled(n, R):
+    """On CPU tensors batched_solve_lanes, and the fused route it takes on
+    the card, are equilibrated_lanes around the plain twin bit for bit, on
+    systems whose rows and columns span 1e-3..1e3."""
+    A, b = _systems(n, R, 7, seed=40 + n)
+    rng = np.random.default_rng(n)
+    A = (A * 10.0 ** rng.uniform(-3, 3, (n, 1, 7))
+         * 10.0 ** rng.uniform(-3, 3, (1, n, 7))).astype(np.float32)
+    At, bt = torch.tensor(A), torch.tensor(b)
+    want = tbs.equilibrated_lanes(tbs.gj_solve_lanes_ref)(At, bt)
+    for x in (tbs.batched_solve_lanes(At, bt),
+              tbs.equilibrated_gauss_solve_lanes(At, bt)):
+        assert torch.equal(x.view(torch.int32), want.view(torch.int32))
+    ref = _np_solve(A, b)
+    np.testing.assert_allclose(want.numpy(), ref, rtol=0,
+                               atol=F32_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("unrolled", [False, True], ids=["carried",
+                                                         "unrolled"])
+def test_kernel_route_and_equilibration(monkeypatch, unrolled):
+    """kernel_for names the same kernels as before the equilibration moved
+    into them; gj_kernel and gj_kernel_carried run it inside, the
+    GJ_UNROLLED route keeps it around gj_kernel_unrolled."""
+    monkeypatch.setattr(tbs, "GJ_UNROLLED", unrolled)
+    dims = (17, 26, 40, 63, 64, 96, 128, 182, 192)
+    names = [tbs.kernel_for(n) for n in dims]
+    big = "gj_kernel_unrolled" if unrolled else "gj_kernel_carried"
+    assert names == ["gj_kernel"] * 4 + [big] * 5
+    assert [tbs.fuses_equilibration(n) for n in dims] == \
+        [True] * 4 + [not unrolled] * 5
+
+
 def test_f64_goes_to_linalg_solve():
     A, b = _systems(26, 2, 6, seed=6, dtype=np.float64)
     At, bt = torch.tensor(A), torch.tensor(b)
