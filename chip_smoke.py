@@ -8,26 +8,30 @@ kernels, and checks them:
   0. versions, card name and power limit; fails without CUDA, and if
      anything of JAX or of the JAX package was imported;
   1. builds the kernels from the sources in this checkout and prints
-     ptxas's registers and spills; fails if the report of the panel kernel
-     or of any instantiation of gj_kernel and gj_kernel_carried in the
-     launch plan's tables is missing or shows a spill; prints the launch
+     ptxas's registers and spills; fails if the report of any
+     instantiation is missing or shows a spill: the panel kernel at each
+     of its (rows a thread, width) pairs, gj_kernel, gj_kernel_carried and
+     gj_kernel_unrolled at each entry of the launch plan's tables, and the
+     fused trip at one and two capacitance rows a lane; prints the launch
      plan, registers and blocks per SM of the direct kernels at the paths'
-     shapes;
-  2. runs every instantiation of gj_kernel and gj_kernel_carried against
-     the plain twin at a small batch, with and without the equilibration
-     inside; holds each kernel against its plain PyTorch version at its
-     paths' shapes (max |x_kernel - x_plain| <= 1e-4 * max |x_plain|; the
-     direct kernels also with the equilibration inside, as
-     batched_solve_lanes runs them, on systems whose rows are scaled over
-     1e-3..1e3, against equilibrated_lanes around the twin, timed beside
-     equilibrated_lanes around the kernel; the panel
+     shapes, and the fused trip's blocks per SM at net2 H<=25 and H<=63;
+  2. runs every instantiation of gj_kernel, gj_kernel_carried and
+     gj_kernel_unrolled against the plain twin at a small batch, with and
+     without the equilibration inside; holds each kernel against its plain
+     PyTorch version at its paths' shapes (max |x_kernel - x_plain| <=
+     1e-4 * max |x_plain|; the direct kernels also with the equilibration
+     inside, as batched_solve_lanes runs them, on systems whose rows are
+     scaled over 1e-3..1e3, against equilibrated_lanes around the twin,
+     timed beside equilibrated_lanes around the kernel; the panel
      kernel's pivot rows and mask exactly and its Z to 1e-4 of each
-     system's scale, from a lane-major and a batch-major panel) and times
+     system's scale, from a lane-major and a batch-major panel, at the
+     full width and at the narrower widths past 1024 rows) and times
      both with CUDA events; the blocked panel solve is held against
      itself with the plain panel twin, and against float64 LU, to 1e-4 of
-     the solution's scale, and timed beside torch.linalg.solve and, where
-     a direct kernel takes the dim, gj_kernel_unrolled and
-     gj_kernel_carried on the same systems;
+     the solution's scale (past 1024 rows also as batched_solve_lanes
+     runs it), and timed beside torch.linalg.solve and, where a direct
+     kernel takes the dim, gj_kernel_unrolled and gj_kernel_carried on the
+     same systems;
   3. the net2 main path: the H<=25 B=16384 float32 device-side sweep
      with the exact-linear seed (one warm-up, three timed reps with
      distinct scenario sets, one logged rep for the per-phase breakdown);
@@ -60,9 +64,11 @@ kernels, and checks them:
 
 Phase 2 also holds gj_kernel_unrolled (K2u) against its plain version at
 its paths' shapes, beside gj_kernel_carried at the same shapes, and the
-fused trip (K5) against its plain version on the card at net2 B=16384 and
-net3 B=4096 (coupled, stable mismatch) and net2 B=4096 (uncoupled, dense
-mismatch), at the cold start and after 3 unfused trips, with act mixed
+fused trip (K5) against its plain version on the card at net2 H<=25
+B=16384, net3 H<=25 B=4096 and net2 H<=63 B=1024 (coupled, stable
+mismatch; H<=63 has 64 capacitance rows, two a lane) and net2 H<=25
+B=4096 (uncoupled, dense mismatch), at the cold start and after 3
+unfused trips, with act mixed
 (act = 0 lanes must come out bit for bit; the others held to the plain
 float32 version's distances from the float64 trip, see TRIP_TAME),
 timing the unfused trip beside it.  Beside every kernel it times
@@ -130,16 +136,20 @@ KERNELS = {
                            "hpfx_torch/ops/csrc/gj_solve.cu",
                            [(96, 1, B), (128, 15, 13 * 256),
                             (182, 1, 2048)]),
+    # the panels of the net1-class blocked solves, and at the narrower
+    # widths past 1024 rows (1100 and 1960 padded at width 16, 3072 at 8)
     "gj_panel_kernel": ("hpfx/ops/batched_solve.py:452",
                         "hpfx_torch/ops/csrc/gj_panel.cu",
                         [(192, 32, 2048), (384, 32, 256), (704, 32, 64),
-                         (800, 32, 128)]),
-    # (network, B, coupled, stable mismatch) of one trip, each at the
-    # cold start and after 3 trips
+                         (800, 32, 128), (1120, 16, 128), (3072, 8, 32)]),
+    # (network, B, coupled, stable mismatch, H max) of one trip, each at
+    # the cold start and after 3 trips
     "fused_trip_kernel": ("validation/fused_trip.py:483",
                           "hpfx_torch/ops/csrc/fused_trip.cu",
-                          [("net2", B, True, True), ("net3", 4096, True, True),
-                           ("net2", 4096, False, False)]),
+                          [("net2", B, True, True, H_MAX),
+                           ("net3", 4096, True, True, H_MAX),
+                           ("net2", 4096, False, False, H_MAX),
+                           ("net2", 1024, True, True, 63)]),
 }
 #: the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 #: bytes/s and float32 FLOP/s outside the tensor cores
@@ -179,9 +189,12 @@ TRIP_FLOOR = 1e-6
 COLD_STALLS = 200
 COLD_RATE_GAP = 0.003
 #: the blocked solves the net1-class paths make (dim, B): the capacitance
-#: systems of net1 at H<=25/51/99 and of the 128-bus feeder; and dim 192,
-#: the size dim 182 is padded to, for what the pad costs
-PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128), (192, 2048)]
+#: systems of net1 at H<=25/51/99 and of the 128-bus feeder; dim 192, the
+#: size dim 182 is padded to, for what the pad costs; and past the full
+#: width's 1024 rows, the exact-linear seed's dims 2(H-1)n of net1 H<=99
+#: (1960) and the 128-bus feeder (3072), and 1100
+PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128), (192, 2048),
+                (1100, 16), (1960, 64), (3072, 8)]
 #: bench.py's deeper net1-class stages: (name, network, H max, B,
 #: scenario spread (p_lo, p_hi, inj_lo, inj_hi), kernels the path runs)
 DEEP_STAGES = [
@@ -302,29 +315,58 @@ OCCUPANCY_SHAPES = [(26, 1), (38, 1), (40, 15), (96, 1), (126, 1), (128, 15),
 
 def instances(report):
     """{(kernel, rows, slots, b in shared memory): (registers, spill
-    stores, spill loads)} of gj_kernel's and gj_kernel_carried's
-    instantiations in a ptxas report (their mangled template names)."""
+    stores, spill loads)} of gj_kernel's, gj_kernel_carried's and
+    gj_kernel_unrolled's instantiations in a ptxas report (their mangled
+    template names)."""
     out = {}
     for sym, v in report.items():
-        m = re.search(r"\d+(gj_kernel(?:_carried)?)ILi(\d+)ELi(\d+)ELb([01])E",
-                      sym)
+        m = re.search(r"\d+(gj_kernel(?:_carried|_unrolled)?)ILi(\d+)ELi(\d+)"
+                      r"ELb([01])E", sym)
         if m:
             out[(m.group(1), int(m.group(2)), int(m.group(3)),
                  m.group(4) == "1")] = tuple(v)
     return out
 
 
-def blocks_per_sm(plan):
-    """Blocks of a launch plan's instantiation that fit one SM (the CUDA
-    occupancy calculator)."""
+def templated(report, kernel):
+    """{template arguments (ints): (registers, spill stores, spill loads)}
+    of a kernel whose template parameters are all ints."""
+    out = {}
+    for sym, v in report.items():
+        m = re.search(r"\d+" + kernel + r"I((?:Li\d+E)+)E", sym)
+        if m:
+            out[tuple(int(a) for a in re.findall(r"Li(\d+)E", m.group(1)))] \
+                = tuple(v)
+    return out
+
+
+#: blocks_per_sm's kernel numbers (hpfx_gj_blocks_per_sm)
+_KERNEL_NO = {"gj_kernel": 0, "gj_kernel_carried": 1, "gj_kernel_unrolled": 2}
+
+
+def blocks_per_sm(plan, kernel=None):
+    """Blocks of a launch plan's instantiation of ``kernel`` (by default
+    the plan's) that fit one SM (the CUDA occupancy calculator)."""
     lib = _build.load_library()
     out = ctypes.c_int(0)
-    err = lib.hpfx_gj_blocks_per_sm(int(plan.kernel == "gj_kernel_carried"),
+    err = lib.hpfx_gj_blocks_per_sm(_KERNEL_NO[kernel or plan.kernel],
                                     plan.rows, plan.slots,
                                     int(plan.b_in_smem), plan.threads,
                                     plan.smem, ctypes.byref(out))
     check(err == 0, f"occupancy of {plan}: cudaError {err}")
     return out.value
+
+
+def trip_occupancy(dims, nconst):
+    """(scenarios a block, shared memory a block, blocks per SM) of the
+    fused trip's launch."""
+    lib = _build.load_library()
+    w, sm, bl = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.hpfx_fused_trip_occupancy(
+        dims.H, dims.n, dims.m, dims.c, dims.L, int(dims.coupled), nconst,
+        ctypes.byref(w), ctypes.byref(sm), ctypes.byref(bl))
+    check(err == 0, f"fused trip occupancy at {dims}: cudaError {err}")
+    return w.value, sm.value, bl.value
 
 
 def phase1():
@@ -335,19 +377,26 @@ def phase1():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"    ptxas: {line.strip()}")
     report = ptxas_report(_build.build_log)
-    panel = [v for sym, v in report.items() if "gj_panel_kernel" in sym]
-    check(len(panel) == 1, f"{len(panel)} ptxas reports of gj_panel_kernel")
-    regs, st, ld = panel[0]
-    log(f"[1] gj_panel_kernel<{bs.PANEL_WIDTH}>: {regs} registers, spill "
-        f"stores {st} B, spill loads {ld} B")
-    check(st == 0 and ld == 0, "gj_panel_kernel spills")
+    # the panel kernel at each (rows a thread, width), the fused trip at
+    # one and two capacitance rows a lane (n = 4, n_nl = 1)
+    for kernel, want in (("gj_panel_kernel",
+                          {(32 // w, w) for w, _ in bs.PANEL_LIMITS}),
+                         ("fused_trip_kernel", {(4, 1, 1), (4, 1, 2)})):
+        got = templated(report, kernel)
+        check(set(got) == want, f"ptxas reports {kernel}<{sorted(got)}>, "
+              f"expected {sorted(want)}")
+        for args, (regs, st, ld) in sorted(got.items()):
+            log(f"[1] {kernel}<{', '.join(map(str, args))}>: {regs} "
+                f"registers, spill stores {st} B, spill loads {ld} B")
+            check(st == 0 and ld == 0, f"{kernel}<{args}> spills")
     # every instantiation of the direct kernels, and no spill in any
     want = {("gj_kernel", r, w, m) for m, table in
             ((False, bs.K1_INSTANCES), (True, bs.K1_SMEM_INSTANCES))
             for r, w in table}
-    want |= {("gj_kernel_carried", r, w, m) for m, table in
+    want |= {(k, r, w, m) for m, table in
              ((False, bs.K2_INSTANCES), (True, bs.K2_SMEM_INSTANCES))
-             for r, w in table}
+             for r, w in table
+             for k in ("gj_kernel_carried", "gj_kernel_unrolled")}
     got = instances(report)
     check(set(got) == want, f"ptxas reports {sorted(got)}, the launch plan's "
           f"tables {sorted(want)}")
@@ -357,11 +406,18 @@ def phase1():
         check(st == 0 and ld == 0, f"{name}<{rows}, {slots}, {smem}> spills")
     for n, R in OCCUPANCY_SHAPES:
         p = bs.launch_plan(n, R)
-        regs = got[(p.kernel, p.rows, p.slots, p.b_in_smem)][0]
-        log(f"[1] {n}x{R}: {p.kernel}<{p.rows}, {p.slots}, {int(p.b_in_smem)}>"
-            f", {p.threads} threads and {p.systems} systems a block, "
-            f"{p.smem} B dynamic shared memory, {regs} registers, "
-            f"{blocks_per_sm(p)} blocks per SM")
+        for k in (p.kernel,) + (("gj_kernel_unrolled",)
+                                if p.kernel == "gj_kernel_carried" else ()):
+            regs = got[(k, p.rows, p.slots, p.b_in_smem)][0]
+            log(f"[1] {n}x{R}: {k}<{p.rows}, {p.slots}, {int(p.b_in_smem)}>"
+                f", {p.threads} threads and {p.systems} systems a block, "
+                f"{p.smem} B dynamic shared memory, {regs} registers, "
+                f"{blocks_per_sm(p, k)} blocks per SM")
+    for h_max in (H_MAX, 63):
+        dims, k, *_ = trip_case("net2", 32, True, True, 0, h_max)
+        w, sm, bl = trip_occupancy(dims, k.packed.numel())
+        log(f"[1] fused_trip_kernel at net2 H<={h_max} (r = {dims.r}): {w} "
+            f"scenarios and {sm} B shared memory a block, {bl} blocks per SM")
 
 
 def systems(n, R, Bt, gen, pivot_case):
@@ -397,9 +453,10 @@ def scaled_systems(n, R, Bt, gen):
 
 def check_equilibrated(n, R, Bt, gen):
     """The solve as batched_solve_lanes runs it on the card (the
-    equilibration inside the kernel) against equilibrated_lanes around the
-    plain twin, on badly scaled systems; timed beside equilibrated_lanes
-    around the kernel.  Returns (max err, fused ms, wrapped ms)."""
+    equilibration inside the kernel kernel_for names) against
+    equilibrated_lanes around the plain twin, on badly scaled systems;
+    timed beside equilibrated_lanes around the kernel.  Returns (max err,
+    fused ms, wrapped ms)."""
     A, b = scaled_systems(n, R, Bt, gen)
     x = ht.batched_solve_lanes(A, b)
     x_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(A, b)
@@ -431,38 +488,45 @@ def instance_cases():
 
 
 def check_instances(gen):
-    """Every instantiation of the direct kernels against the plain twin at
-    a small batch, with and without the equilibration inside."""
+    """Every instantiation of the direct kernels (gj_kernel_unrolled's
+    with GJ_UNROLLED set) against the plain twin at a small batch, with
+    and without the equilibration inside."""
     seen = set()
     for n, R in instance_cases():
         p = bs.launch_plan(n, R)
-        seen.add((p.kernel, p.rows, p.slots, p.b_in_smem))
-        A, b = systems(n, R, 512, gen, pivot_case=True)
-        x = ht.gauss_solve_lanes(A, b)
-        x_ref = ht.gj_solve_lanes_ref(A, b)
-        err = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
-        A, b = scaled_systems(n, R, 512, gen)
-        x = bs.equilibrated_gauss_solve_lanes(A, b)
-        x_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(A, b)
-        err_e = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
-        log(f"[2] {p.kernel}<{p.rows}, {p.slots}, {int(p.b_in_smem)}> at "
-            f"n={n} R={R} B=512: max|dx| / scale {err:.3e}, equilibrated "
-            f"inside {err_e:.3e}")
-        check(np.isfinite(err) and err <= KERNEL_TOL
-              and np.isfinite(err_e) and err_e <= KERNEL_TOL,
-              f"{p.kernel} instantiation {p} disagrees with the twin")
-    n_inst = sum(len(t) for t in (bs.K1_INSTANCES, bs.K1_SMEM_INSTANCES,
-                                  bs.K2_INSTANCES, bs.K2_SMEM_INSTANCES))
+        for unrolled in (False, True) if n >= bs.KERNEL_SWITCH_DIM \
+                else (False,):
+            bs.GJ_UNROLLED = unrolled
+            try:
+                kernel = bs.kernel_for(n)
+                seen.add((kernel, p.rows, p.slots, p.b_in_smem))
+                A, b = systems(n, R, 512, gen, pivot_case=True)
+                x = ht.gauss_solve_lanes(A, b)
+                x_ref = ht.gj_solve_lanes_ref(A, b)
+                err = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                A, b = scaled_systems(n, R, 512, gen)
+                x = bs.equilibrated_gauss_solve_lanes(A, b)
+            finally:
+                bs.GJ_UNROLLED = False
+            x_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(A, b)
+            err_e = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+            log(f"[2] {kernel}<{p.rows}, {p.slots}, {int(p.b_in_smem)}> at "
+                f"n={n} R={R} B=512: max|dx| / scale {err:.3e}, "
+                f"equilibrated inside {err_e:.3e}")
+            check(np.isfinite(err) and err <= KERNEL_TOL
+                  and np.isfinite(err_e) and err_e <= KERNEL_TOL,
+                  f"{kernel} instantiation {p} disagrees with the twin")
+    n_inst = sum(len(t) for t in (bs.K1_INSTANCES, bs.K1_SMEM_INSTANCES)) \
+        + 2 * sum(len(t) for t in (bs.K2_INSTANCES, bs.K2_SMEM_INSTANCES))
     check(len(seen) == n_inst, f"{len(seen)} of {n_inst} instantiations run")
 
 
 def check_solve_kernel(name, gen):
     """gj_kernel / gj_kernel_carried / gj_kernel_unrolled against the plain
     twin; the unrolled kernel runs with GJ_UNROLLED set, beside
-    gj_kernel_carried at the same shape.  gj_kernel and gj_kernel_carried
-    are also held, with the equilibration inside, against
-    equilibrated_lanes around the twin.  Returns (max errors, one dict per
-    shape)."""
+    gj_kernel_carried at the same shape.  Each is also held, with the
+    equilibration inside, against equilibrated_lanes around the twin.
+    Returns (max errors, one dict per shape)."""
     errs, shapes = [], []
     unrolled = name == "gj_kernel_unrolled"
     for (n, R, Bt) in KERNELS[name][2]:
@@ -509,13 +573,16 @@ def check_solve_kernel(name, gen):
         log(f"{msg}, torch.linalg.solve {lib_ms:.4f} ms, bound {b_ms:.4f} "
             f"ms ({b_by})")
         del A, b, x, x_ref
-        if not unrolled:
+        bs.GJ_UNROLLED = unrolled
+        try:
             e_err, f_ms, w_ms = check_equilibrated(n, R, Bt, gen)
-            log(f"[2] {name} n={n} R={R} B={Bt}, rows scaled over 1e-3..1e3: "
-                f"the equilibration inside the kernel (batched_solve_lanes) "
-                f"{f_ms:.4f} ms, equilibrated_lanes around the kernel "
-                f"{w_ms:.4f} ms; max|dx| {e_err:.3e} from "
-                f"equilibrated_lanes around the twin")
+        finally:
+            bs.GJ_UNROLLED = False
+        log(f"[2] {name} n={n} R={R} B={Bt}, rows scaled over 1e-3..1e3: "
+            f"the equilibration inside the kernel (batched_solve_lanes) "
+            f"{f_ms:.4f} ms, equilibrated_lanes around the kernel "
+            f"{w_ms:.4f} ms; max|dx| {e_err:.3e} from "
+            f"equilibrated_lanes around the twin")
         errs.append(err)
         shapes.append(dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -606,6 +673,16 @@ def check_panel_kernel(gen):
               f"{KERNEL_TOL} * {scale}")
         check(err64 <= KERNEL_TOL * scale,
               f"panel solve at {(n, Bt)}: {err64} from float64 LU")
+        if n > bs.PANEL_LIMITS[0][1]:
+            # past the full width: the dispatcher narrows the panel
+            xd = ht.batched_solve_lanes(A, b)
+            errd = (xd.double() - x64).abs().max().item()
+            check(errd <= KERNEL_TOL * scale,
+                  f"batched_solve_lanes at {(n, Bt)}: {errd} from float64 LU")
+            log(f"[2] batched_solve_lanes n={n} B={Bt} (panel width "
+                f"{bs.panel_width_for(n)}): max|dx| {errd:.3e} from float64 "
+                "LU")
+            del xd
         lib_ms = library_solve_ms(A, b)
         direct = ""
         if n <= bs.MAX_KERNEL_DIM:
@@ -654,11 +731,11 @@ def trip_bytes(d, Bt):
     return 4 * Bt * ((2 * HN + d.dim + 2 * d.n + 3) + (2 * HN + d.dim + 1))
 
 
-def trip_case(net, Bt, coupled, stable, trips):
-    """One trip's operands at net H<=25: the cold start of the sweep, or
+def trip_case(net, Bt, coupled, stable, trips, h_max=H_MAX):
+    """One trip's operands at net H<=h_max: the cold start of the sweep, or
     the state after ``trips`` unfused trips; act = 0 on every 4th lane.
     Returns (dims, consts, fused_trip arguments, the unfused trip)."""
-    s = settings(H_MAX).with_(coupled=coupled, stable_mismatch=stable)
+    s = settings(h_max).with_(coupled=coupled, stable_mismatch=stable)
     tn = ht.load_network(os.path.join(DATA, f"{net}_buses.csv"),
                          os.path.join(DATA, f"{net}_lines.csv"), s,
                          device=DEV)
@@ -707,11 +784,12 @@ def check_trip_kernel():
     unfused trip."""
     name = "fused_trip_kernel"
     errs, shapes = [], []
-    for net, Bt, coupled, stable in KERNELS[name][2]:
+    for net, Bt, coupled, stable, h_max in KERNELS[name][2]:
         for trips in (0, 3):
             dims, k, args, unfused = trip_case(net, Bt, coupled, stable,
-                                               trips)
-            tag = (f"{name} {net} {'coupled' if coupled else 'uncoupled'} "
+                                               trips, h_max)
+            tag = (f"{name} {net} H<={h_max} "
+                   f"{'coupled' if coupled else 'uncoupled'} "
                    f"{'stable' if stable else 'dense'} B={Bt} after {trips} "
                    "trips")
             check(ft.supports_fused(dims), f"{tag}: not supported")
@@ -784,8 +862,9 @@ def check_trip_kernel():
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, unfused trip "
                 f"{u_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             errs.append(dvm)
-            shapes.append(dict(shape=[net, Bt, "coupled" if coupled
-                                      else "uncoupled", f"{trips} trips"],
+            shapes.append(dict(shape=[net, f"H<={h_max}", Bt,
+                                      "coupled" if coupled else "uncoupled",
+                                      f"{trips} trips"],
                                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None,
                                max_abs_err=dvm))

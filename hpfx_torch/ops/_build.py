@@ -44,14 +44,14 @@ def _declare(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3), the
     # launch plan (rows, slots, b in shared memory, threads and systems a
-    # block), equilibrate, shared-memory bytes, stream; the unrolled kernel
-    # takes no plan (it sizes its own shared memory)
+    # block), equilibrate, shared-memory bytes, stream
     head = [vp, vp, vp, i, i, ll] + [ll] * 9
-    for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried"):
+    for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
+                 "hpfx_gj_kernel_unrolled"):
         getattr(lib, name).argtypes = head + [i] * 7 + [vp]
-    lib.hpfx_gj_kernel_unrolled.argtypes = head + [vp]
-    # carried?, the launch plan (rows, slots, b in shared memory, threads,
-    # smem), out: blocks
+    # the kernel (0 gj_kernel, 1 gj_kernel_carried, 2 gj_kernel_unrolled),
+    # the launch plan (rows, slots, b in shared memory, threads, smem), out:
+    # blocks
     lib.hpfx_gj_blocks_per_sm.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
                  "hpfx_gj_kernel_unrolled", "hpfx_gj_blocks_per_sm"):
@@ -66,6 +66,10 @@ def _declare(lib):
     # outputs, H, n, m, c, L, coupled, constant count, B, stream
     lib.hpfx_fused_trip.argtypes = [vp] * 14 + [i] * 7 + [ll, vp]
     lib.hpfx_fused_trip.restype = i
+    # H, n, m, c, L, coupled, constant count; out: scenarios a block,
+    # shared-memory bytes, blocks per SM
+    lib.hpfx_fused_trip_occupancy.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
+    lib.hpfx_fused_trip_occupancy.restype = i
     lib.hpfx_error_string.argtypes = [i]
     lib.hpfx_error_string.restype = ctypes.c_char_p
 

@@ -21,7 +21,7 @@ takes, :func:`launch_plan` how it is launched, :data:`GJ_UNROLLED` picks
 the unrolled variant for dims >= 64); it runs the plain twin only for
 tensors that lie on the CPU.  :func:`equilibrated_gauss_solve_lanes` is
 ``equilibrated_lanes(gauss_solve_lanes)`` with the equilibration run
-inside ``gj_kernel`` and ``gj_kernel_carried`` on the card.
+inside the kernel on the card.
 
 Large dims take the blocked form of the same elimination
 (:func:`panel_gj_solve_lanes`): one panel of columns at a time is
@@ -55,8 +55,18 @@ MAX_KERNEL_DIM = 192
 SCHUR_MIN_DIM = 128
 #: panel width of the blocked solve (``PANEL_GJ_WIDTH`` in the JAX package)
 PANEL_WIDTH = 32
-#: largest padded dim of the panel kernel: one thread per row of a block
-MAX_PANEL_DIM = 1024
+#: the panel kernel's widths, each with the most padded rows it takes: a
+#: thread keeps 32 register slots, one row of width 32, two of 16 or four of
+#: 8, and a block has at most 1024 threads.  The blocked solve narrows its
+#: panel to fit, as the reference narrows its own to fit VMEM
+#: (``panel_gj_width_for``)
+PANEL_LIMITS = ((32, 1024), (16, 2048), (8, 4096))
+#: largest padded dim of the panel kernel.  Past it a float32 solve takes
+#: ``equilibrated_lanes(_lu_solve_lanes)``.  This is a limit of the port,
+#: where it departs from the reference: the reference keeps its panel
+#: kernel up to n ~ 30k (``panel_gj_width_for``) and takes LU only past
+#: that (``hpfx/ops/batched_solve.py:779-780``)
+MAX_PANEL_DIM = PANEL_LIMITS[-1][1]
 #: shared memory one block may use on Hopper, static and dynamic (bytes)
 _SMEM_PER_BLOCK = 232448
 #: ``gj_kernel``'s instantiations (``k1_instance`` in ``csrc/gj_solve.cu``):
@@ -77,10 +87,11 @@ K2_THREADS_PER_ROW = {(128, 128): 2, (160, 176): 2, (160, 160): 2,
 #: as many with two (``kMaxSystemsK1``)
 _K1_SYSTEMS = 8
 
-#: route dims >= KERNEL_SWITCH_DIM to ``gj_kernel_unrolled`` (the column
-#: loop unrolled at compile time) instead of ``gj_kernel_carried``.  Read
-#: once at import from HPFX_GJ_UNROLLED=1, as the JAX package reads it
-#: (``hpfx/ops/batched_solve.py:204``); off by default
+#: route dims >= KERNEL_SWITCH_DIM to ``gj_kernel_unrolled`` (the step
+#: loop unrolled at compile time, a group of steps at a time) instead of
+#: ``gj_kernel_carried``.  Read once at import from HPFX_GJ_UNROLLED=1, as
+#: the JAX package reads it (``hpfx/ops/batched_solve.py:204``); off by
+#: default
 GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
 
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
@@ -146,7 +157,8 @@ def launch_plan(n: int, R: int) -> LaunchPlan:
       (n <= 32) or two; 8 or 4 consecutive systems a block;
     * ``gj_kernel_carried`` (64 <= n <= 192): one system a block, a
       thread per row (two for the widest, :data:`K2_THREADS_PER_ROW`), n
-      padded to whole warps;
+      padded to whole warps; ``gj_kernel_unrolled`` (:data:`GJ_UNROLLED`)
+      takes the same plan;
 
     each with [A | b]'s row in the narrowest instantiation's slots that
     holds it, or with A in the slots and b in shared memory where none
@@ -201,9 +213,9 @@ def kernel_for(n: int) -> str:
 
 def fuses_equilibration(n: int) -> bool:
     """Whether the card's kernel for a dim-n solve runs the equilibration
-    inside (``gj_kernel``, ``gj_kernel_carried``), or it stays around the
-    kernel (``gj_kernel_unrolled``)."""
-    return kernel_for(n) != "gj_kernel_unrolled"
+    inside: every direct kernel does (``gj_kernel``, ``gj_kernel_carried``
+    and ``gj_kernel_unrolled``)."""
+    return 0 < n <= MAX_KERNEL_DIM
 
 
 def _check_operands(A, b):
@@ -249,15 +261,12 @@ def equilibrated_gauss_solve_lanes(A, b):
     column equilibration inside the kernel: the same float operations in
     the same order, and no scaled copy of A.
 
-    A CUDA tensor launches ``gj_kernel`` or ``gj_kernel_carried`` with the
-    equilibration on (``gj_kernel_unrolled``, chosen by
-    :data:`GJ_UNROLLED`, has none: there the equilibration stays around
-    it); a CPU tensor runs ``equilibrated_lanes(gj_solve_lanes_ref)``."""
+    A CUDA tensor launches the kernel :func:`kernel_for` names with the
+    equilibration on; a CPU tensor runs
+    ``equilibrated_lanes(gj_solve_lanes_ref)``."""
     _check_operands(A, b)
     if A.device.type == "cpu":
         return equilibrated_lanes(gj_solve_lanes_ref)(A, b)
-    if not fuses_equilibration(A.shape[0]):
-        return equilibrated_lanes(gauss_solve_lanes)(A, b)
     x = torch.empty_like(b)
     _launch(A, b, x, equilibrate=True)
     return x
@@ -265,21 +274,17 @@ def equilibrated_gauss_solve_lanes(A, b):
 
 def _launch(A, b, x, equilibrate: bool = False):
     """Launch the kernel for ``n`` on the current stream, with the
-    equilibration inside when ``equilibrate`` (not for the unrolled
-    kernel).  Operands may have any element strides (the kernels index
-    with them)."""
+    equilibration inside when ``equilibrate``.  Operands may have any
+    element strides (the kernels index with them)."""
     from ._build import load_library
     n, _, B = A.shape
     R = b.shape[1]
     if B == 0:
         return
     name = kernel_for(n)
-    if name == "gj_kernel_unrolled":
-        plan = []   # the unrolled kernel sizes its own shared memory
-    else:
-        p = launch_plan(n, R)
-        plan = [p.rows, p.slots, int(p.b_in_smem), p.threads, p.systems]
-        plan = [ctypes.c_int(v) for v in plan + [int(equilibrate), p.smem]]
+    p = launch_plan(n, R)
+    plan = [p.rows, p.slots, int(p.b_in_smem), p.threads, p.systems]
+    plan = [ctypes.c_int(v) for v in plan + [int(equilibrate), p.smem]]
     lib = load_library()
     fn = getattr(lib, f"hpfx_{name}")
     st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
@@ -377,14 +382,15 @@ _FILL_BYTES = 64 << 20
 
 
 def panel_width_for(n: int, panel: int = PANEL_WIDTH) -> int:
-    """The panel width of a dim-``n`` blocked solve: ``panel`` (the card's
-    kernel takes :data:`PANEL_WIDTH` only, and every dim up to
-    :data:`MAX_PANEL_DIM` padded rows at that width; the plain twin takes
-    any).  Raises ``ValueError`` for a dim the panel kernel cannot take."""
-    if -(-n // panel) * panel > MAX_PANEL_DIM:
-        raise ValueError(f"system dim {n} exceeds the panel kernel (at most "
-                         f"{MAX_PANEL_DIM} padded rows at width {panel})")
-    return panel
+    """The panel width of a dim-``n`` blocked solve: the widest of the
+    kernel's widths (:data:`PANEL_LIMITS`), no wider than ``panel``, at
+    which n padded to whole panels fits the kernel; 0 past
+    :data:`MAX_PANEL_DIM` padded rows (callers then take LU).  The plain
+    twin takes the same width, so both devices follow one route."""
+    for w, rows in PANEL_LIMITS:
+        if w <= panel and -(-n // w) * w <= rows:
+            return w
+    return 0
 
 
 def _lanes_view(shape, batch_major: bool, dtype, device):
@@ -404,8 +410,8 @@ def gj_panel_lanes(panel, used):
     largest), lane-major otherwise.
 
     A CUDA tensor launches ``gj_panel_kernel`` (``csrc/gj_panel.cu``,
-    one block per system, Pw = :data:`PANEL_WIDTH`) or raises; a CPU
-    tensor runs :func:`gj_panel_ref`, at any width."""
+    one block per system, (Pw, most rows) in :data:`PANEL_LIMITS`) or
+    raises; a CPU tensor runs :func:`gj_panel_ref`, at any width."""
     if panel.dim() != 3 or used.dim() != 2 or used.shape[0] != panel.shape[0] \
             or used.shape[1] != panel.shape[2]:
         raise ValueError(f"expected panel (N, Pw, B) and used (N, B), got "
@@ -420,9 +426,9 @@ def gj_panel_lanes(panel, used):
     if panel.device.type != "cuda":
         raise ValueError(f"no panel kernel for device {panel.device}")
     N, Pw, B = panel.shape
-    if N > MAX_PANEL_DIM or Pw != PANEL_WIDTH or Pw > N:
-        raise ValueError(f"panel ({N}, {Pw}): the kernel takes at most "
-                         f"{MAX_PANEL_DIM} rows and width {PANEL_WIDTH}")
+    if N > dict(PANEL_LIMITS).get(Pw, 0) or Pw > N:
+        raise ValueError(f"panel ({N}, {Pw}): the kernel takes (width, most "
+                         f"rows) {PANEL_LIMITS}")
     bm = panel.stride(2) > panel.stride(0)
     dv = panel.device
     Z = _lanes_view((N, Pw, B), bm, torch.float32, dv)
@@ -460,7 +466,8 @@ def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
     (``hpfx/ops/batched_solve.py:575-642``).
 
     [A | b] is copied once, batch-major, into one buffer (B, Np, W),
-    padded to Np, a multiple of the panel width (:func:`panel_width_for`):
+    padded to Np, a multiple of the panel width (:func:`panel_width_for`,
+    which narrows ``panel`` to fit the kernel; past its rows this raises):
     identity on the pad rows and columns, so each pad column picks its own
     pad row, and zero right-hand sides there.  The row pitch W >= Np + R
     is a multiple of 32 floats, zero past the right-hand sides, of which
@@ -476,6 +483,10 @@ def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
     n, _, Bt = A.shape
     R = b.shape[1]
     panel = panel_width_for(n, panel)
+    if panel == 0:
+        raise ValueError(f"system dim {n} exceeds the panel kernel's "
+                         f"{MAX_PANEL_DIM} padded rows; batched_solve_lanes "
+                         "takes LU there")
     Np = -(-n // panel) * panel
     f32, dv = torch.float32, A.device
 
@@ -505,6 +516,11 @@ def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
     return x.permute(1, 2, 0).contiguous().to(A.dtype)
 
 
+class SchurNotPorted(NotImplementedError):
+    """``impl="schur"`` above :data:`SCHUR_MIN_DIM`: the panel-Schur solve
+    ``schur_solve_lanes`` is not part of the port."""
+
+
 def batched_solve_lanes(A, b, impl: str = "auto"):
     """Lane-major batched solve: A (n, n, B), b (n, R, B) -> x (n, R, B).
 
@@ -515,19 +531,23 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
     ``gj_kernel_carried`` for 64 <= n <= 128, up to 192 with ``impl``
     "auto" or "direct"; on the card the equilibration runs inside them).  Above
     192, and above 128 with ``impl="panel"``, it takes the blocked panel
-    solve (:func:`panel_gj_solve_lanes`).  ``impl="schur"`` above 128
-    raises ``NotImplementedError``: the panel-Schur solve
-    (``schur_solve_lanes``) is not part of the port."""
+    solve (:func:`panel_gj_solve_lanes`) up to :data:`MAX_PANEL_DIM`
+    padded rows, and LU past them (the reference keeps its panel kernel
+    to n ~ 30k).  ``impl="schur"`` above 128 raises
+    :class:`SchurNotPorted`: the panel-Schur solve (``schur_solve_lanes``)
+    is not part of the port."""
     n = A.shape[0]
     if A.dtype == torch.float64:
         return _lu_solve_lanes(A, b)
     if n <= XLA_GJ_MAX_DIM:
         return equilibrated_lanes(gj_solve_lanes_ref)(A, b)
     if impl == "schur" and n > SCHUR_MIN_DIM:
-        raise NotImplementedError(
+        raise SchurNotPorted(
             f"dim-{n} solve with impl='schur': the panel-Schur solve "
             "schur_solve_lanes is not ported (its panel-restricted pivoting "
             "breaks Newton convergence); use impl='panel'")
     if n > MAX_KERNEL_DIM or (impl == "panel" and n > SCHUR_MIN_DIM):
+        if panel_width_for(n) == 0:
+            return equilibrated_lanes(_lu_solve_lanes)(A, b)
         return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
     return equilibrated_gauss_solve_lanes(A.contiguous(), b.contiguous())

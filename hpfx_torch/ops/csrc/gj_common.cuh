@@ -1,7 +1,7 @@
 // Helpers of the Gauss-Jordan kernels (gj_solve.cu, gj_panel.cu,
-// fused_trip.cu): the pivot score, its total order, the warp-wide argmax,
-// the pivot keys and their warp-wide max, the equilibration's scale, element
-// strides and the dynamic shared-memory limits.
+// fused_trip.cu): the pivot keys, their warp-wide max and the warp's pivot,
+// the equilibration's scale, element strides and the dynamic shared-memory
+// limits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,35 +12,11 @@ namespace hpfx {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// a used row scores below every unused one; NaN ranks highest, as argmax does
-__device__ __forceinline__ float pivot_score(float a, bool used) {
-  if (used) return -1.0f;
-  return isnan(a) ? INFINITY : fabsf(a);
-}
-
-// keep the larger score, the lower row index on ties (a total order, so
-// every lane of a butterfly ends with the same pivot)
-__device__ __forceinline__ void take_max(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFullMask, v, off);
-    const int oi = __shfl_xor_sync(kFullMask, i, off);
-    take_max(v, i, ov, oi);
-  }
-}
-
 // A row's pivot key: 0 for a used row (and for a thread past the last row),
 // else the bits of |A[r,k]| plus one, NaN ranking as +inf.  The unsigned
 // order of the keys is the order of the scores, so one warp-wide max
 // instruction finds the best key and a ballot its lowest row: the argmax
-// with the lowest index on ties, as pivot_score and take_max give it.
+// with the lowest index on ties (NaN highest), as torch.argmax gives it.
 __device__ __forceinline__ unsigned pivot_key(float a, bool used) {
   return used ? 0u : __float_as_uint(isnan(a) ? INFINITY : fabsf(a)) + 1u;
 }
@@ -49,6 +25,24 @@ __device__ __forceinline__ unsigned pivot_key(float a, bool used) {
 __device__ __forceinline__ int warp_best(unsigned key, unsigned& best) {
   best = __reduce_max_sync(kFullMask, key);
   return __ffs(__ballot_sync(kFullMask, key == best)) - 1;
+}
+
+// the warp's pivot: the lowest unused row with the largest key in slot 0,
+// over a lane's ROWS rows (rows 0..31 before rows 32..63)
+template <int ROWS, int WP>
+__device__ __forceinline__ int warp_pivot(const float (&s)[ROWS][WP],
+                                          const bool (&used)[ROWS]) {
+  unsigned key[ROWS];
+  unsigned best = 0u;
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    key[t] = pivot_key(s[t][0], used[t]);
+    if (key[t] > best) best = key[t];
+  }
+  best = __reduce_max_sync(kFullMask, best);
+  const unsigned lo = __ballot_sync(kFullMask, key[0] == best);
+  return lo ? __ffs(lo) - 1
+            : 32 + __ffs(__ballot_sync(kFullMask, key[ROWS - 1] == best)) - 1;
 }
 
 // the bits of |a|: their unsigned order is the order of |a|, with NaN above

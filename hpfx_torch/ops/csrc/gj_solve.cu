@@ -68,7 +68,7 @@
 // cover.  After n steps slots 0..R-1 hold the row's b, which goes to x at the
 // step the row was pivot.  Where n + R exceeds the widest instantiation, the
 // slots hold A and b lies in dynamic shared memory at an odd leading
-// dimension (K2u's layout).
+// dimension.
 //   gj_kernel (n < 64): one warp per system, a lane keeping rows lane and
 //     lane + 32 (ROWS = 2 for n > 32); 8 / ROWS consecutive systems a block,
 //     so a block's loads use 32 or 16 bytes of each sector.  The column
@@ -85,35 +85,38 @@
 //     loaded through a shared tile so that a warp's loads cover whole
 //     sectors, was slower at every path shape: one barrier a step then holds
 //     all of the block's systems, and no other block hides it.
-//   gj_kernel_unrolled: one block per system, the row of A in registers with
-//     the column loop of the update unrolled at compile time, instantiated
-//     for padded dims NP = 64, 96, 128, 160, 192 (pad rows and columns are
-//     zero, pad rows start used); b in shared memory; two barriers a step;
-//     x summed over an NP x NP shared copy of A.  Its step loop runs at run
-//     time: unrolling it too (NP^2 straight-line multiply-adds per instance,
-//     as the TPU kernel unrolls its step loop at trace time) did not build
-//     within 600 s on the card's host.
-// The launch plan of gj_kernel and gj_kernel_carried (instantiation, threads,
-// systems a block, dynamic shared memory) is computed by the caller
-// (launch_plan in hpfx_torch/ops/batched_solve.py) and checked here.
+//   gj_kernel_unrolled: gj_kernel_carried with its step loop unrolled
+//     kUnrollGroup steps at a time, what the TPU kernel's trace-time unroll
+//     becomes here (unrolling all n steps, NP^2 straight-line multiply-adds,
+//     did not build within 600 s on the card's host).  Within a group slot j
+//     holds column k0 + j throughout: step g works on slot g, the live slots
+//     (the same through the group) are updated in place with static indices,
+//     and the group's last step writes each result kUnrollGroup slots down.
+//     The same instantiations, launch plans and equilibration as
+//     gj_kernel_carried.
+// The launch plan of each (instantiation, threads, systems a block, dynamic
+// shared memory) is computed by the caller (launch_plan in
+// hpfx_torch/ops/batched_solve.py) and checked here.
 
 #include "gj_common.cuh"
 
 namespace {
 
 using hpfx::abs_bits;
-using hpfx::allow_smem;
 using hpfx::inv_scale;
 using hpfx::kFullMask;
-using hpfx::max_dynamic_smem;
 using hpfx::pivot_key;
-using hpfx::pivot_score;
 using hpfx::Strides;
-using hpfx::take_max;
-using hpfx::warp_argmax;
 using hpfx::warp_best;
+using hpfx::warp_pivot;
 
 constexpr int kMaxSystemsK1 = 8;   // gj_kernel: at most 8 systems (warps) a block
+
+// gj_kernel_unrolled: steps unrolled a group.  Groups of 4, 8 and 16 were
+// measured on the H100: the kernel's time grew with the group at dims 96
+// and 128 (its code, 8 or 16 steps of unrolled updates, and at 128 its
+// registers grew with it), and 4 was the fastest at every path shape
+constexpr int kUnrollGroup = 4;
 
 // a row's slots from [A | b]: slot c holds column g0 + c (g0 > 0 for the
 // second half of a row split over two threads), A's columns and then b's
@@ -200,12 +203,12 @@ __device__ __forceinline__ void update_rows(float (&s)[ROWS][WP],
 
 // x[k, q] = b[q] of the row that was the pivot of column k, times the column
 // scale c[k] when equilibrating: the slots holding columns n..n+R-1 at the
-// end (global slots 0..R-1, slot c holding g0 + c), or the row's b in
+// end (global slots o..o+R-1, slot c holding g0 + c), or the row's b in
 // shared memory (stored by the thread with g0 = 0)
 template <int WP, bool BSMEM>
 __device__ __forceinline__ void store_row(float* x, const float (&s)[WP],
                                           const float* sb, int R, int g0,
-                                          int k, bool equil, float cs,
+                                          int o, int k, bool equil, float cs,
                                           Strides sx, long long sys) {
   float* xk = x + sys * sx.s + k * sx.r;
   if (BSMEM) {
@@ -213,27 +216,11 @@ __device__ __forceinline__ void store_row(float* x, const float (&s)[WP],
       for (int q = 0; q < R; ++q) xk[q * sx.c] = equil ? sb[q] * cs : sb[q];
   } else {
 #pragma unroll
-    for (int c = 0; c < WP; ++c)
-      if (g0 + c < R) xk[(g0 + c) * sx.c] = equil ? s[c] * cs : s[c];
+    for (int c = 0; c < WP; ++c) {
+      const int q = g0 + c - o;
+      if (q >= 0 && q < R) xk[q * sx.c] = equil ? s[c] * cs : s[c];
+    }
   }
-}
-
-// the warp's pivot: the lowest unused row with the largest key in slot 0,
-// over a lane's ROWS rows (rows 0..31 before rows 32..63)
-template <int ROWS, int WP>
-__device__ __forceinline__ int warp_pivot(const float (&s)[ROWS][WP],
-                                          const bool (&used)[ROWS]) {
-  unsigned key[ROWS];
-  unsigned best = 0u;
-#pragma unroll
-  for (int t = 0; t < ROWS; ++t) {
-    key[t] = pivot_key(s[t][0], used[t]);
-    if (key[t] > best) best = key[t];
-  }
-  best = __reduce_max_sync(kFullMask, best);
-  const unsigned lo = __ballot_sync(kFullMask, key[0] == best);
-  return lo ? __ffs(lo) - 1
-            : 32 + __ffs(__ballot_sync(kFullMask, key[ROWS - 1] == best)) - 1;
 }
 
 template <int ROWS, int WP, bool BSMEM>
@@ -350,7 +337,7 @@ __global__ void __launch_bounds__(32 * kMaxSystemsK1 / ROWS)
   for (int t = 0; t < ROWS; ++t) {
     const int r = lane + 32 * t;
     if (r < n)
-      store_row<WP, BSMEM>(x, s[t], Sb + r * ldb, R, 0, step[t], equil,
+      store_row<WP, BSMEM>(x, s[t], Sb + r * ldb, R, 0, 0, step[t], equil,
                            equil ? cscale[warp][step[t]] : 1.0f, sx, sys);
   }
 }
@@ -372,18 +359,80 @@ __device__ __forceinline__ unsigned half_warp_max(unsigned v) {
   }
 }
 
-template <int NP, int WP, bool BSMEM, int T>
-__global__ void __launch_bounds__(NP * T)
-    gj_kernel_carried(const float* __restrict__ A,
-                      const float* __restrict__ b, float* __restrict__ x,
-                      int n, int R, int equil, Strides sa, Strides sb,
-                      Strides sx) {
+// one step's in-place update of the live slots C0..C1-1 (float4 groups) of a
+// row against the staged pivot row: s[c] -= w prow[c]
+template <int WP, int C0, int C1>
+__device__ __forceinline__ void update_in_place(float (&s)[WP], float w,
+                                                const float* prow, int live) {
+  const float4* p4 = reinterpret_cast<const float4*>(prow);
+#pragma unroll
+  for (int c = C0; c < C1; c += 4) {
+    if (c < live) {
+      const float4 q = p4[c / 4];
+      s[c] -= w * q.x;
+      s[c + 1] -= w * q.y;
+      s[c + 2] -= w * q.z;
+      s[c + 3] -= w * q.w;
+    }
+  }
+}
+
+// the same, each result written G slots down: s[c - G] = s[c] - w prow[c]
+// for the slots C0..C1-1 (C0 >= G)
+template <int WP, int G, int C0, int C1>
+__device__ __forceinline__ void update_shifted(float (&s)[WP], float w,
+                                               const float* prow, int live) {
+  static_assert(C0 >= G && G % 4 == 0, "whole float4 groups, shifted down");
+  const float4* p4 = reinterpret_cast<const float4*>(prow);
+#pragma unroll
+  for (int c = C0; c < C1; c += 4) {
+    if (c < live) {
+      const float4 q = p4[c / 4];
+      s[c - G] = s[c] - w * q.x;
+      s[c + 1 - G] = s[c + 1] - w * q.y;
+      s[c + 2 - G] = s[c + 2] - w * q.z;
+      s[c + 3 - G] = s[c + 3] - w * q.w;
+    }
+  }
+}
+
+// the index I as a type, so that a generic lambda can take it as a constant
+template <int I>
+struct Step {
+  static constexpr int value = I;
+};
+
+// f(Step<I>()), f(Step<I + 1>()), ... up to G - 1, while f returns true
+template <int I, int G, typename F>
+__device__ __forceinline__ void unroll_steps(F& f) {
+  if constexpr (I < G) {
+    if (f(Step<I>())) unroll_steps<I + 1, G>(f);
+  }
+}
+
+// gj_kernel_carried (G = 1: the step loop at run time, the slots rotating
+// one a step) and gj_kernel_unrolled (G > 1: the step loop unrolled G steps
+// at a time).  In a group of G steps slot j holds column k0 + j throughout
+// (k0 the group's first step): step g works on slot g and updates the live
+// slots in place, with every index static, and the group's last step writes
+// each result G slots down, so the next group starts at slot 0 again.  The
+// live slots, those below W - k0, stay the same through a group.  A last
+// group of fewer than G steps shifts nothing: b's columns then start at slot
+// n mod G
+template <int NP, int WP, bool BSMEM, int T, int G>
+__device__ __forceinline__ void carried_body(const float* __restrict__ A,
+                                             const float* __restrict__ b,
+                                             float* __restrict__ x, int n,
+                                             int R, int equil, Strides sa,
+                                             Strides sb, Strides sx) {
   static_assert(NP % 32 == 0 && WP >= NP && (T == 1 || T == 2) &&
                     WP % (4 * T) == 0,
                 "whole warps; a row's slots split into float4 groups");
   constexpr int NW = NP * T / 32;   // warps
   constexpr int RW = 32 / T;        // rows a warp
   constexpr int H = WP / T;         // slots a thread
+  static_assert(G == 1 || (G % 4 == 0 && G <= H),
+                "a group shifts whole float4 groups within a thread's slots");
   __shared__ __align__(16) float stage[2][NW][WP];   // each warp's best row
   __shared__ unsigned warp_k[2][NW];                 // its key
   __shared__ int warp_p[2][NW];                      // its index
@@ -448,64 +497,116 @@ __global__ void __launch_bounds__(NP * T)
       if (g0 + c < n) s[0][c] *= cscale[g0 + c];
   }
 
-  int live = W;   // W - k at step k
+  int live = W;   // W - k0 at a group's first step k0
   unsigned best;
   // step 0's best row of this warp (keys from the first half of each row)
   int lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
 #pragma unroll 1
-  for (int k = 0; k < n; ++k, --live) {
-    const int buf = k & 1;
-    if (i == lb) {
-      // this warp's best row (the lowest lane wins a tie), both halves
-      stage_row(stage[buf][warp] + g0, s[0], live - g0);
-      if (g0 == 0) {
-        if (BSMEM)
-          for (int q = 0; q < R; ++q) pbs[(buf * NW + warp) * R + q] = Sb[q];
-        warp_k[buf][warp] = best;
-        warp_p[buf][warp] = r;
-        warp_i[buf][warp] = __frcp_rn(s[0][0]);   // rounded as 1.0f / piv
+  for (int k0 = 0; k0 < n; k0 += G, live -= G) {
+    // step g of the group; false past the last step (a last group of fewer
+    // steps)
+    auto one_step = [&](auto gi) -> bool {
+      constexpr int g = decltype(gi)::value;
+      const int k = k0 + g;
+      if (k >= n) return false;
+      const int buf = k & 1;
+      if (i == lb) {
+        // this warp's best row (the lowest lane wins a tie), both halves
+        stage_row(stage[buf][warp] + g0, s[0], live - g0);
+        if (g0 == 0) {
+          if (BSMEM)
+            for (int q = 0; q < R; ++q)
+              pbs[(buf * NW + warp) * R + q] = Sb[q];
+          warp_k[buf][warp] = best;
+          warp_p[buf][warp] = r;
+          warp_i[buf][warp] = __frcp_rn(s[0][g]);   // rounded as 1.0f / piv
+        }
       }
-    }
-    __syncthreads();   // warp words written; step k-1's reads of them done
-    // the lowest of the warps with the largest key holds the pivot
-    unsigned bk = warp_k[buf][0];
-    int wb = 0;
+      __syncthreads();   // warp words written; step k-1's reads of them done
+      // the lowest of the warps with the largest key holds the pivot
+      unsigned bk = warp_k[buf][0];
+      int wb = 0;
 #pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      const unsigned kj = warp_k[buf][j];
-      if (kj > bk) {
-        bk = kj;
-        wb = j;
+      for (int j = 1; j < NW; ++j) {
+        const unsigned kj = warp_k[buf][j];
+        if (kj > bk) {
+          bk = kj;
+          wb = j;
+        }
       }
-    }
-    const int p = warp_p[buf][wb];
-    const float inv_piv = warp_i[buf][wb];
-    const float* prow = stage[buf][wb];   // row p, in slot order
-    // the row's working column, and the column after this thread's last
-    // slot (the other half's slot 0), before the update moves them
-    float col = s[0][0], next = 0.0f;
-    if (T == 2) {
-      col = __shfl_sync(kFullMask, s[0][0], i);
-      next = __shfl_sync(kFullMask, s[0][0], i + RW);
-    }
-    float w[1];
-    w[0] = r == p ? 1.0f - inv_piv : col * inv_piv;
-    if (r == p) step = k;
-    used = used || r == p;
-    // the next working column first, then the next step's warp argmax in
-    // flight while the other groups are updated
-    update_rows<1, H, 0, 4>(s, w, prow + g0, live - g0);
-    lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
-    update_rows<1, H, 4, H>(s, w, prow + g0, live - g0);
-    if (T == 2 && g0 == 0 && H < live) s[0][H - 1] = next - w[0] * prow[H];
-    if (BSMEM && g0 == 0) {
-      const float* pb = pbs + (buf * NW + wb) * R;
-      for (int q = 0; q < R; ++q) Sb[q] -= w[0] * pb[q];
-    }
+      const int p = warp_p[buf][wb];
+      const float inv_piv = warp_i[buf][wb];
+      const float* prow = stage[buf][wb] + g0;   // row p, in slot order
+      // the row's working column (slot g of its first half)
+      const float col = T == 2 ? __shfl_sync(kFullMask, s[0][g], i) : s[0][g];
+      float w[1];
+      w[0] = r == p ? 1.0f - inv_piv : col * inv_piv;
+      if (r == p) step = k;
+      used = used || r == p;
+      // the next working column first, then the next step's warp argmax in
+      // flight while the other groups are updated
+      if constexpr (G == 1) {
+        // the column after this thread's last slot (the other half's slot
+        // 0), before the update moves it
+        const float next =
+            T == 2 ? __shfl_sync(kFullMask, s[0][0], i + RW) : 0.0f;
+        update_rows<1, H, 0, 4>(s, w, prow, live - g0);
+        lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
+        update_rows<1, H, 4, H>(s, w, prow, live - g0);
+        if (T == 2 && g0 == 0 && H < live)
+          s[0][H - 1] = next - w[0] * stage[buf][wb][H];
+      } else if constexpr (g < G - 1) {
+        constexpr int C = (g + 1) / 4 * 4;   // the group of slot g + 1
+        update_in_place<H, C, C + 4>(s[0], w[0], prow, live - g0);
+        lb = warp_best(g0 == 0 ? pivot_key(s[0][g + 1], used) : 0u, best);
+        update_in_place<H, 0, C>(s[0], w[0], prow, live - g0);
+        update_in_place<H, C + 4, H>(s[0], w[0], prow, live - g0);
+      } else {
+        // the other half's first G slots, which move to this half's last
+        float next[T == 2 ? G : 1];
+        if (T == 2)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            next[j] = __shfl_sync(kFullMask, s[0][j], i + RW);
+        update_shifted<H, G, G, G + 4>(s[0], w[0], prow, live - g0);
+        lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
+        update_shifted<H, G, G + 4, H>(s[0], w[0], prow, live - g0);
+        if (T == 2 && g0 == 0)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            if (H + j < live)
+              s[0][H - G + j] = next[j] - w[0] * stage[buf][wb][H + j];
+      }
+      if (BSMEM && g0 == 0) {
+        const float* pb = pbs + (buf * NW + wb) * R;
+        for (int q = 0; q < R; ++q) Sb[q] -= w[0] * pb[q];
+      }
+      return true;
+    };
+    unroll_steps<0, G>(one_step);
   }
   if (own)
-    store_row<H, BSMEM>(x, s[0], Sb, R, g0, step, equil,
+    store_row<H, BSMEM>(x, s[0], Sb, R, g0, n % G, step, equil,
                         equil ? cscale[step] : 1.0f, sx, sys);
+}
+
+template <int NP, int WP, bool BSMEM, int T>
+__global__ void __launch_bounds__(NP * T)
+    gj_kernel_carried(const float* __restrict__ A,
+                      const float* __restrict__ b, float* __restrict__ x,
+                      int n, int R, int equil, Strides sa, Strides sb,
+                      Strides sx) {
+  carried_body<NP, WP, BSMEM, T, 1>(A, b, x, n, R, equil, sa, sb, sx);
+}
+
+template <int NP, int WP, bool BSMEM, int T>
+__global__ void __launch_bounds__(NP * T)
+    gj_kernel_unrolled(const float* __restrict__ A,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       int n, int R, int equil, Strides sa, Strides sb,
+                       Strides sx) {
+  carried_body<NP, WP, BSMEM, T, kUnrollGroup>(A, b, x, n, R, equil, sa, sb,
+                                               sx);
 }
 
 using K1Fn = void (*)(const float*, const float*, float*, int, int,
@@ -529,12 +630,13 @@ K1Fn k1_instance(int rows, int slots, int b_smem) {
   return nullptr;
 }
 
-// gj_kernel_carried's instantiations: (padded rows, slots a row, b in shared
-// memory, threads a row)
-K2Fn k2_instance(int np, int slots, int b_smem, int threads) {
+// gj_kernel_carried's and gj_kernel_unrolled's instantiations: (padded rows,
+// slots a row, b in shared memory, threads a row)
+K2Fn k2_instance(int np, int slots, int b_smem, int threads, bool unrolled) {
 #define HPFX_K2(NP, WP, BS, T)                                       \
   if (np == NP && slots == WP && b_smem == BS && threads == NP * T) \
-    return gj_kernel_carried<NP, WP, (BS) != 0, T>;
+    return unrolled ? gj_kernel_unrolled<NP, WP, (BS) != 0, T>     \
+                    : gj_kernel_carried<NP, WP, (BS) != 0, T>;
   HPFX_K2(64, 80, 0, 1)
   HPFX_K2(64, 64, 1, 1)
   HPFX_K2(96, 112, 0, 1)
@@ -569,105 +671,20 @@ int k2_smem(int np, int R, int b_smem, int threads) {
                 : 0;
 }
 
-template <int NP>
-__global__ void __launch_bounds__(NP)
-    gj_kernel_unrolled(const float* __restrict__ A,
-                       const float* __restrict__ b, float* __restrict__ x,
-                       int n, int R, Strides sa, Strides sb, Strides sx) {
-  constexpr int kWarps = NP / 32;
-  extern __shared__ float4 smem4[];
-  __shared__ float warp_v[kWarps];
-  __shared__ int warp_p[kWarps];
-  float* prow = reinterpret_cast<float*>(smem4);   // the staged [A | b] row
-  const int ldb = R | 1, lda = NP | 1;
-  float* Sb = prow + ((NP + R + 3) & ~3);          // b, NP rows at ldb
-  float* Sa = Sb + NP * ldb;                       // A at the end, at lda
-  const long long sys = blockIdx.x;
-  const int r = threadIdx.x;   // the row this thread owns
-  const int lane = r & 31, warp = r >> 5;
-  const float* As = A + sys * sa.s;
-  const float* bs = b + sys * sb.s;
-
-  float row[NP];
-#pragma unroll
-  for (int c = 0; c < NP; ++c)
-    row[c] = (r < n && c < n) ? As[r * sa.r + c * sa.c] : 0.0f;
-  for (int q = 0; q < R; ++q)
-    Sb[r * ldb + q] = r < n ? bs[r * sb.r + q * sb.c] : 0.0f;
-  bool used = r >= n;   // pad rows are never pivots
-  float col = row[0];   // this row's entry in the working column
-
-#pragma unroll 1
-  for (int k = 0; k < n; ++k) {
-    float v = pivot_score(col, used);
-    int p = r;
-    warp_argmax(v, p);
-    if (lane == 0) {
-      warp_v[warp] = v;
-      warp_p[warp] = p;
-    }
-    __syncthreads();   // warp results written; step k-1's prow reads done
-    v = warp_v[0];
-    p = warp_p[0];
-#pragma unroll
-    for (int j = 1; j < kWarps; ++j) take_max(v, p, warp_v[j], warp_p[j]);
-    if (r == p) {
-#pragma unroll
-      for (int c = 0; c < NP; c += 4)
-        *reinterpret_cast<float4*>(prow + c) =
-            make_float4(row[c], row[c + 1], row[c + 2], row[c + 3]);
-      for (int q = 0; q < R; ++q) prow[NP + q] = Sb[r * ldb + q];
-    }
-    __syncthreads();   // pivot row staged; warp_v/warp_p reads done
-    const float inv_piv = 1.0f / prow[k];
-    const float wr = r == p ? 1.0f - inv_piv : col * inv_piv;
-    // the column loop, unrolled: static indices keep the row in registers,
-    // and the next working column is selected on the way
-#pragma unroll
-    for (int c = 0; c < NP; c += 4) {
-      const float4 pv = *reinterpret_cast<const float4*>(prow + c);
-      row[c] -= wr * pv.x;
-      row[c + 1] -= wr * pv.y;
-      row[c + 2] -= wr * pv.z;
-      row[c + 3] -= wr * pv.w;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c + j == k + 1) col = row[c + j];
-    }
-    for (int q = 0; q < R; ++q) Sb[r * ldb + q] -= wr * prow[NP + q];
-    used = used || r == p;
-  }
-#pragma unroll
-  for (int c = 0; c < NP; ++c) Sa[r * lda + c] = row[c];
-  __syncthreads();
-  // x[i, q] = sum_r A[r, i] * b[r, q]
-  for (int e = r; e < n * R; e += NP) {
-    const int i = e / R;
-    const int q = e - i * R;
-    float acc = 0.0f;
-    for (int rr = 0; rr < n; ++rr) acc += Sa[rr * lda + i] * Sb[rr * ldb + q];
-    x[sys * sx.s + i * sx.r + q * sx.c] = acc;
-  }
-}
-
-int unrolled_smem_bytes(int NP, int R) {
-  return (((NP + R + 3) & ~3) + NP * (R | 1) + NP * (NP | 1)) *
-         (int)sizeof(float);
-}
-
-template <int NP>
-int launch_unrolled(const float* A, const float* b, float* x, int n, int R,
-                    long long B, Strides sa, Strides sb, Strides sx,
-                    cudaStream_t stream) {
-  const int smem = unrolled_smem_bytes(NP, R);
-  int limit = 0;
-  cudaError_t e = max_dynamic_smem(gj_kernel_unrolled<NP>, &limit);
+// gj_kernel_carried or gj_kernel_unrolled with the caller's launch plan,
+// checked against the kernel's need
+int launch_k2(bool unrolled, const float* A, const float* b, float* x, int n,
+              int R, long long B, Strides sa, Strides sb, Strides sx,
+              int rows, int slots, int b_smem, int threads, int systems,
+              int equil, int smem, cudaStream_t stream) {
+  const K2Fn fn = k2_instance(rows, slots, b_smem, threads, unrolled);
+  if (fn == nullptr || n < 1 || n > rows || R < 1 || B < 1 || B > INT_MAX ||
+      systems != 1 || (b_smem ? n > slots : n + R > slots) ||
+      smem < k2_smem(rows, R, b_smem, threads))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = set_dynamic_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  if (smem > limit) return (int)cudaErrorInvalidValue;
-  e = allow_smem(gj_kernel_unrolled<NP>, smem);
-  if (e != cudaSuccess) return (int)e;
-  gj_kernel_unrolled<NP><<<(unsigned)B, NP, smem, stream>>>(A, b, x, n, R, sa,
-                                                           sb, sx);
+  fn<<<(unsigned)B, threads, smem, stream>>>(A, b, x, n, R, equil, sa, sb, sx);
   return (int)cudaGetLastError();
 }
 
@@ -676,11 +693,10 @@ int launch_unrolled(const float* A, const float* b, float* x, int n, int R,
 extern "C" {
 
 // Each entry point launches on `stream`, does not synchronize, and returns
-// cudaGetLastError() after the launch (0 = launched).  gj_kernel and
-// gj_kernel_carried take the caller's launch plan (instantiation, systems a
-// block, dynamic shared memory `smem`), checked against the kernel's need;
-// `equil` != 0 runs the equilibration inside.  The unrolled kernel sizes its
-// own shared memory.
+// cudaGetLastError() after the launch (0 = launched).  Each takes the
+// caller's launch plan (instantiation, systems a block, dynamic shared
+// memory `smem`), checked against the kernel's need; `equil` != 0 runs the
+// equilibration inside.
 
 int hpfx_gj_kernel(const float* A, const float* b, float* x, int n, int R,
                    long long B, long long sa_r, long long sa_c,
@@ -712,52 +728,41 @@ int hpfx_gj_kernel_carried(const float* A, const float* b, float* x, int n,
                            long long sx_c, long long sx_s, int rows,
                            int slots, int b_smem, int threads, int systems,
                            int equil, int smem, void* stream) {
-  const K2Fn fn = k2_instance(rows, slots, b_smem, threads);
-  if (fn == nullptr || n < 1 || n > rows || R < 1 || B < 1 || B > INT_MAX ||
-      systems != 1 || (b_smem ? n > slots : n + R > slots) ||
-      smem < k2_smem(rows, R, b_smem, threads))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = set_dynamic_smem(fn, smem);
-  if (e != cudaSuccess) return (int)e;
-  fn<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      A, b, x, n, R, equil, Strides{sa_r, sa_c, sa_s},
-      Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s});
-  return (int)cudaGetLastError();
-}
-
-// Blocks of one instantiation that fit one SM at `threads` a block and
-// `smem` bytes of dynamic shared memory (the occupancy calculator), into
-// *blocks; `carried` picks gj_kernel_carried's table.  Returns a cudaError.
-int hpfx_gj_blocks_per_sm(int carried, int rows, int slots, int b_smem,
-                          int threads, int smem, int* blocks) {
-  const void* fn =
-      carried ? reinterpret_cast<const void*>(
-                    k2_instance(rows, slots, b_smem, threads))
-              : reinterpret_cast<const void*>(k1_instance(rows, slots, b_smem));
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_dynamic_smem(fn, smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
-                                                      smem);
-  return (int)e;
+  return launch_k2(false, A, b, x, n, R, B, Strides{sa_r, sa_c, sa_s},
+                   Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s}, rows,
+                   slots, b_smem, threads, systems, equil, smem,
+                   (cudaStream_t)stream);
 }
 
 int hpfx_gj_kernel_unrolled(const float* A, const float* b, float* x, int n,
                             int R, long long B, long long sa_r,
                             long long sa_c, long long sa_s, long long sb_r,
                             long long sb_c, long long sb_s, long long sx_r,
-                            long long sx_c, long long sx_s, void* stream) {
-  if (n < 1 || n > 192 || R < 1 || B < 1 || B > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const Strides sa{sa_r, sa_c, sa_s}, sb{sb_r, sb_c, sb_s},
-      sx{sx_r, sx_c, sx_s};
-  cudaStream_t st = (cudaStream_t)stream;
-  // padded up to the next instance
-  if (n <= 64) return launch_unrolled<64>(A, b, x, n, R, B, sa, sb, sx, st);
-  if (n <= 96) return launch_unrolled<96>(A, b, x, n, R, B, sa, sb, sx, st);
-  if (n <= 128) return launch_unrolled<128>(A, b, x, n, R, B, sa, sb, sx, st);
-  if (n <= 160) return launch_unrolled<160>(A, b, x, n, R, B, sa, sb, sx, st);
-  return launch_unrolled<192>(A, b, x, n, R, B, sa, sb, sx, st);
+                            long long sx_c, long long sx_s, int rows,
+                            int slots, int b_smem, int threads, int systems,
+                            int equil, int smem, void* stream) {
+  return launch_k2(true, A, b, x, n, R, B, Strides{sa_r, sa_c, sa_s},
+                   Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s}, rows,
+                   slots, b_smem, threads, systems, equil, smem,
+                   (cudaStream_t)stream);
+}
+
+// Blocks of one instantiation that fit one SM at `threads` a block and
+// `smem` bytes of dynamic shared memory (the occupancy calculator), into
+// *blocks; `kernel` picks the table: 0 gj_kernel, 1 gj_kernel_carried,
+// 2 gj_kernel_unrolled.  Returns a cudaError.
+int hpfx_gj_blocks_per_sm(int kernel, int rows, int slots, int b_smem,
+                          int threads, int smem, int* blocks) {
+  const void* fn =
+      kernel ? reinterpret_cast<const void*>(
+                   k2_instance(rows, slots, b_smem, threads, kernel == 2))
+             : reinterpret_cast<const void*>(k1_instance(rows, slots, b_smem));
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_dynamic_smem(fn, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                      smem);
+  return (int)e;
 }
 
 const char* hpfx_error_string(int e) {

@@ -237,15 +237,14 @@ def test_cpu_solve_bit_identical_badly_scaled(n, R):
                                                          "unrolled"])
 def test_kernel_route_and_equilibration(monkeypatch, unrolled):
     """kernel_for names the same kernels as before the equilibration moved
-    into them; gj_kernel and gj_kernel_carried run it inside, the
-    GJ_UNROLLED route keeps it around gj_kernel_unrolled."""
+    into them, and every one of them runs it inside, gj_kernel_unrolled
+    (the GJ_UNROLLED route) as well."""
     monkeypatch.setattr(tbs, "GJ_UNROLLED", unrolled)
     dims = (17, 26, 40, 63, 64, 96, 128, 182, 192)
     names = [tbs.kernel_for(n) for n in dims]
     big = "gj_kernel_unrolled" if unrolled else "gj_kernel_carried"
     assert names == ["gj_kernel"] * 4 + [big] * 5
-    assert [tbs.fuses_equilibration(n) for n in dims] == \
-        [True] * 4 + [not unrolled] * 5
+    assert [tbs.fuses_equilibration(n) for n in dims] == [True] * 9
 
 
 def test_f64_goes_to_linalg_solve():
@@ -420,14 +419,56 @@ def test_panel_wrapper_rejects_bad_operands():
         tbs.gj_panel_lanes(panel.double(), used.double())
     with pytest.raises(ValueError, match="expected"):
         tbs.gj_panel_lanes(panel, used[:, :2])
-    with pytest.raises(ValueError, match="1030"):
-        tbs.panel_width_for(1030)
-    # the full width up to 1024 padded rows; the twin's narrower widths
-    # pass through, and count their own padding
+    with pytest.raises(ValueError, match="4130"):
+        tbs.panel_gj_solve_lanes(torch.zeros(1).expand(4130, 4130, 1),
+                                 torch.zeros((4130, 1, 1)))
+    # the full width up to 1024 padded rows; a narrower request takes the
+    # widest kernel width within it, and counts its own padding
     assert tbs.panel_width_for(182) == 32 and tbs.panel_width_for(1024) == 32
     assert tbs.panel_width_for(182, 16) == 16
-    with pytest.raises(ValueError, match="1021"):
-        tbs.panel_width_for(1021, 24)
+    assert tbs.panel_width_for(1021, 24) == 16
+    assert tbs.panel_width_for(1030) == 16
+
+
+@pytest.mark.parametrize("n,width", [(1024, 32), (1056, 16), (2048, 16),
+                                     (2080, 8), (4096, 8), (4128, 0)])
+def test_panel_width_narrows(monkeypatch, n, width):
+    """Past 1024 padded rows the blocked solve narrows its panel, as the
+    reference narrows its own: a thread of the kernel keeps 32 slots, one
+    row of 32, two of 16 or four of 8, so width 16 takes 2048 rows and
+    width 8 4096; past those, a float32 solve takes LU (the reference's
+    route past its kernel's budget).  The route is checked with the
+    solves stubbed: only the dispatch runs at these dims."""
+    assert tbs.panel_width_for(n) == width
+    if width:
+        Np = -(-n // width) * width
+        assert Np <= dict(tbs.PANEL_LIMITS)[width]
+        assert width == 32 or Np > dict(tbs.PANEL_LIMITS)[2 * width]
+    taken = []
+    monkeypatch.setattr(tbs, "_lu_solve_lanes",
+                        lambda A, b: taken.append("lu") or b)
+    monkeypatch.setattr(tbs, "panel_gj_solve_lanes",
+                        lambda A, b: taken.append("panel") or b)
+    A = torch.ones(1).expand(n, n, 1)
+    tbs.batched_solve_lanes(A, torch.ones((n, 1, 1)))
+    assert taken == (["panel"] if width else ["lu"])
+
+
+@pytest.mark.parametrize("n", [1100, 1960, 3072])
+def test_f32_solve_past_1024_rows(n):
+    """Float32 solves past the full width's 1024 padded rows (1100 and
+    1960 at width 16; 3072, the 128-bus feeder's seed, at width 8) solve
+    as the reference does: against the JAX dispatcher on the CPU
+    (equilibrated LU) and float64 LU, to F32_TOL of the solution's scale.
+    2-10 s each on one CPU thread."""
+    A, b = _systems(n, 1, 2, seed=11)
+    x = tbs.batched_solve_lanes(torch.tensor(A), torch.tensor(b))
+    assert x.shape == (n, 1, 2) and x.dtype == torch.float32
+    x_j = np.asarray(jbs.batched_solve_lanes(jnp.asarray(A), jnp.asarray(b)))
+    ref = _np_solve(A, b)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(x.numpy(), x_j, rtol=0, atol=F32_TOL * scale)
+    np.testing.assert_allclose(x.numpy(), ref, rtol=0, atol=F32_TOL * scale)
 
 
 @pytest.mark.parametrize("n,Np", [(182, 192), (364, 384), (700, 704),
