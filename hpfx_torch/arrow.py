@@ -1,17 +1,33 @@
-"""Index maps of the structured (arrow) Newton step.
+"""Structure-exploiting Newton step: block-diagonal solves plus Woodbury
+(the port of :mod:`hpfx.arrow`).
 
 The harmonic Jacobian is block-diagonal once rows and columns are grouped
-by harmonic, apart from the Norton coupling of the nonlinear buses (see
-``hpfx.arrow``).  :class:`ArrowIndex` holds the static host-side maps
-between the reference's state/mismatch layout (hcne_generalized.py
-:393-398, 469-472) and that grouped layout; ``hpfx_torch.lanes`` does
-the block + Woodbury solve with them.
+by harmonic, one (2n-1-c) fundamental block and H-1 blocks of 2n, apart
+from the Norton coupling of the nonlinear buses, a correction supported
+on r = 2·H·n_nl coordinates:
+
+    J_pi = D + U·C·V^T,  J^{-1} f = z − D^{-1} U (I_r + C·G)^{-1} C·(V^T z),
+    z = D^{-1} f,  G = V^T D^{-1} U  (block-diagonal over harmonics).
+
+:class:`ArrowIndex` holds the static host-side maps between the
+reference's state/mismatch layout (hcne_generalized.py:393-398, 469-472)
+and the grouped one.  :func:`build_arrow_pieces` and :func:`arrow_solve`
+are the single-scenario step (leading scenario axes are a batch);
+``hpfx_torch.lanes.arrow_step_lanes`` is the lane-major one.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from . import cx
+from .cx import Cx
+from .fundamental import _power_jacobian_blocks
+from .harmonic import norton_coupling
+from .ops.batched_solve import nr_solve, solve_blocks
 
 
 class ArrowIndex(NamedTuple):
@@ -60,3 +76,142 @@ def make_arrow_index(H: int, n: int, m: int, c: int) -> ArrowIndex:
     return ArrowIndex(H=H, n=n, m=m, c=c, d0=2 * n - 1 - c,
                       f_perm=inverse(rows), x_perm=inverse(cols),
                       cpl0=cpl0, cplh=cplh)
+
+
+class _ArrowConsts(NamedTuple):
+    """Constants of the arrow solve, on the solve's device."""
+    idx: ArrowIndex
+    E0: torch.Tensor          # (d0, r_blk) unit columns of U, block 0
+    Eh: torch.Tensor          # (2n, r_blk) unit columns of U, blocks h>=1
+    inv_f_perm: torch.Tensor  # (dim,) grouped row -> original position
+    x_perm: torch.Tensor      # (dim,) original col -> grouped position
+    cpl0: torch.Tensor
+    cplh: torch.Tensor
+
+
+def _make_arrow_consts(H: int, n: int, m: int, c: int, dtype,
+                       device=None) -> _ArrowConsts:
+    idx = make_arrow_index(H, n, m, c)
+    n_nl = n - m
+    r_blk = 2 * n_nl
+    rows0 = np.concatenate([(m - 1) + np.arange(n_nl),
+                            (m - 1) + n_nl + (m - c) + np.arange(n_nl)])
+    rowsh = np.concatenate([np.arange(m, n), n + np.arange(m, n)])
+    E0 = np.zeros((idx.d0, r_blk))
+    E0[rows0, np.arange(r_blk)] = 1.0
+    Eh = np.zeros((2 * n, r_blk))
+    Eh[rowsh, np.arange(r_blk)] = 1.0
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return _ArrowConsts(idx=idx, E0=f(E0), Eh=f(Eh),
+                        inv_f_perm=i(np.argsort(idx.f_perm)),
+                        x_perm=i(idx.x_perm), cpl0=i(idx.cpl0),
+                        cplh=i(idx.cplh))
+
+
+@functools.lru_cache(maxsize=16)
+def _consts(H: int, n: int, m: int, c: int, dtype, device) -> _ArrowConsts:
+    return _make_arrow_consts(H, n, m, c, dtype, device)
+
+
+class ArrowPieces(NamedTuple):
+    D0: torch.Tensor       # (..., d0, d0) fundamental block
+    Dh: torch.Tensor       # (..., H-1, 2n, 2n) harmonic blocks
+    C: torch.Tensor        # (..., r, r) coupling matrix (zero off the devices)
+
+
+def build_arrow_pieces(V_m, V_a, Y: Cx, devices,
+                       idx: ArrowIndex) -> ArrowPieces:
+    """Assemble the block-diagonal and coupling parts of the Jacobian
+    (``hpfx.arrow.build_arrow_pieces``); the Norton coupling is the dense
+    Jacobian's (:func:`hpfx_torch.harmonic.norton_coupling`, the JAX
+    package's ``_coupling_cx``)."""
+    H, n, m, c = idx.H, idx.n, idx.m, idx.c
+    n_nl = n - m
+    V_c = cx.polar(V_m, V_a)
+    Vn = cx.expj(V_a)
+    row = lambda z: Cx(z.re[..., :, None, :], z.im[..., :, None, :])
+    K_V, K_A = norton_coupling(V_m, V_a, devices, m)
+
+    # fold the h == p coupling into the diagonal blocks
+    nl = torch.arange(m, n, device=V_m.device)
+    hh = torch.arange(H, device=V_m.device)
+
+    def fold(blocks: Cx, K: Cx) -> Cx:
+        def one(b, k):
+            b = b.clone()
+            b[..., nl, nl] += k[..., hh, hh, :]
+            return b
+        return Cx(one(blocks.re, K.re), one(blocks.im, K.im))
+
+    M_V = fold(Y * row(Vn), K_V)                        # (..., H, n, n)
+    M_A = fold((Y * row(V_c)).jmul(), K_A)
+    dS1dA1, dS1dV1 = _power_jacobian_blocks(V_c[..., 0, :], Vn[..., 0, :],
+                                            Y[0], n)
+    hcat = lambda a, b: torch.cat([a, b], dim=-1)
+    D0 = torch.cat([
+        hcat(dS1dA1.re[..., 1:m, 1:], dS1dV1.re[..., 1:m, c:]),
+        hcat(M_A.re[..., 0, m:, 1:], M_V.re[..., 0, m:, c:]),
+        hcat(dS1dA1.im[..., c:m, 1:], dS1dV1.im[..., c:m, c:]),
+        hcat(M_A.im[..., 0, m:, 1:], M_V.im[..., 0, m:, c:]),
+    ], dim=-2)
+    Dh = torch.cat([hcat(M_A.re[..., 1:, :, :], M_V.re[..., 1:, :, :]),
+                    hcat(M_A.im[..., 1:, :, :], M_V.im[..., 1:, :, :])],
+                   dim=-2)                              # (..., H-1, 2n, 2n)
+
+    # the coupling matrix C (r x r): u = h·(2·n_nl) + t·n_nl + d, rows
+    # (Re, Im), columns (angle, magnitude); only h != p, d == d' entries
+    r = 2 * H * n_nl
+    off = ~torch.eye(H, dtype=torch.bool, device=V_m.device)[:, :, None]
+    keep = lambda z: torch.where(off, z, torch.zeros_like(z))
+    Cfull = torch.stack([
+        torch.stack([keep(K_A.re), keep(K_V.re)], dim=-1),    # Re row
+        torch.stack([keep(K_A.im), keep(K_V.im)], dim=-1),    # Im row
+    ], dim=-2)                                  # (..., H, H, n_nl, 2, 2)
+    eye_d = torch.eye(n_nl, dtype=V_m.dtype, device=V_m.device)
+    C = torch.einsum("...hpdrc,de->...hrdpce", Cfull, eye_d)
+    return ArrowPieces(D0=D0, Dh=Dh, C=C.reshape(C.shape[:-6] + (r, r)))
+
+
+def arrow_solve(pieces: ArrowPieces, f, idx: ArrowIndex):
+    """Solve J dx = f with the block and Woodbury structure
+    (``hpfx.arrow.arrow_solve``): the fundamental block identity-padded to
+    2n, every block's f and U columns in one multi-RHS
+    :func:`solve_blocks`, and the capacitance system I + C·G by
+    :func:`nr_solve`."""
+    H, n, d0 = idx.H, idx.n, idx.d0
+    n_nl = n - idx.m
+    K, k2, r, r_blk = H - 1, 2 * n, 2 * H * n_nl, 2 * n_nl
+    dt, dv = f.dtype, f.device
+    k = _consts(H, n, idx.m, idx.c, dt, dv)
+    batch = f.shape[:-1]
+
+    fp = f[..., k.inv_f_perm]                          # grouped order
+    f0 = fp[..., :d0]
+    fh = fp[..., d0:].reshape(batch + (K, k2))
+    D0p = torch.eye(k2, dtype=dt, device=dv).expand(batch + (k2, k2)).clone()
+    D0p[..., :d0, :d0] = pieces.D0
+    rhs0p = torch.zeros(batch + (k2, 1 + r_blk), dtype=dt, device=dv)
+    rhs0p[..., :d0, 0] = f0
+    rhs0p[..., :d0, 1:] = k.E0
+    rhsh = torch.cat([fh[..., None],
+                      k.Eh.expand(batch + (K, k2, r_blk))], dim=-1)
+    sol = solve_blocks(torch.cat([D0p[..., None, :, :], pieces.Dh], dim=-3),
+                       torch.cat([rhs0p[..., None, :, :], rhsh], dim=-3))
+
+    z0, X0 = sol[..., 0, :d0, 0], sol[..., 0, :d0, 1:]
+    zh, Xh = sol[..., 1:, :, 0], sol[..., 1:, :, 1:]
+    # V^T picks the coupling coordinates of a grouped vector
+    Vz = torch.cat([z0[..., k.cpl0][..., None, :], zh[..., k.cplh]],
+                   dim=-2).reshape(batch + (r,))
+    G = torch.cat([X0[..., k.cpl0, :][..., None, :, :],
+                   Xh[..., k.cplh, :]], dim=-3)        # (..., H, rb, rb)
+    CG = torch.einsum("...rpb,...pbs->...rps",
+                      pieces.C.reshape(batch + (r, H, r_blk)), G)
+    S = torch.eye(r, dtype=dt, device=dv) + CG.reshape(batch + (r, r))
+    y = nr_solve(S, torch.einsum("...ij,...j->...i", pieces.C, Vz))
+
+    yb = y.reshape(batch + (H, r_blk))
+    x0 = z0 - torch.einsum("...ds,...s->...d", X0, yb[..., 0, :])
+    xh = zh - torch.einsum("...kds,...ks->...kd", Xh, yb[..., 1:, :])
+    return torch.cat([x0, xh.flatten(-2)], dim=-1)[..., k.x_perm]

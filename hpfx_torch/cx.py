@@ -56,6 +56,11 @@ class Cx(NamedTuple):
         axes = tuple(reversed(range(self.ndim)))
         return Cx(self.re.permute(*axes), self.im.permute(*axes))
 
+    @property
+    def mT(self) -> "Cx":
+        """The last two axes swapped (leading axes are a batch)."""
+        return Cx(self.re.mT, self.im.mT)
+
     def to(self, *args, **kwargs) -> "Cx":
         return Cx(self.re.to(*args, **kwargs), self.im.to(*args, **kwargs))
 
@@ -161,6 +166,12 @@ def zeros(shape, dtype, device=None) -> Cx:
 # float32 matmuls must run in full float32: the package pins TF32 off at
 # import (hpfx_torch/__init__.py) — a TF32 contraction keeps ~3 decimal
 # digits and stalls Newton at a residual floor far above thresh_h.
+
+def matvec(A: Cx, v: Cx) -> Cx:
+    """A·v over the last axes: A (..., m, n), v (..., n) -> (..., m),
+    leading axes broadcast."""
+    return einsum("...ij,...j->...i", A, v)
+
 
 def einsum(pattern: str, a: Cx, b: Cx) -> Cx:
     es = lambda x, y: torch.einsum(pattern, x, y)

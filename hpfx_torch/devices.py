@@ -14,6 +14,7 @@ import os
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import cx
 from .config import Settings
@@ -29,7 +30,8 @@ DATA_DIR = os.path.join(
 @dataclasses.dataclass(frozen=True)
 class DeviceSet:
     """Norton equivalents of all nonlinear buses of a network, stacked:
-    ``I_N[k]``/``Y_N[k]`` belong to bus ``m + k``."""
+    ``I_N[k]``/``Y_N[k]`` belong to bus ``m + k``.  A scaled set
+    (:meth:`scale`) may carry leading scenario axes."""
 
     I_N: Cx
     Y_N: Cx
@@ -37,7 +39,22 @@ class DeviceSet:
 
     @property
     def n_devices(self) -> int:
-        return self.I_N.shape[0]
+        return self.I_N.shape[-2]
+
+    def scale(self, factor) -> "DeviceSet":
+        """Scale injections: I_N and Y_N together
+        (``hpfx.devices.DeviceSet.scale``).  ``factor`` is a scalar, or
+        its last axis runs over the devices (n_nl, or 1 for all of them)
+        and its leading axes, if any, are scenarios, which the result then
+        carries in front of I_N (..., n_nl, H) and Y_N."""
+        f = torch.as_tensor(factor, dtype=self.I_N.dtype,
+                            device=self.I_N.device)
+        if f.dim() == 0:
+            return dataclasses.replace(self, I_N=self.I_N * f,
+                                       Y_N=self.Y_N * f)
+        fY = f[..., None, None] if self.coupled else f[..., None]
+        return dataclasses.replace(self, I_N=self.I_N * f[..., None],
+                                   Y_N=self.Y_N * fY)
 
     def to(self, device=None, dtype=None) -> "DeviceSet":
         kw = dict(device=device, dtype=dtype)

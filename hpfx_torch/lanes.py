@@ -20,11 +20,10 @@ import contextlib
 import time
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from . import cx
-from .arrow import ArrowIndex, make_arrow_index
+from .arrow import _ArrowConsts, _make_arrow_consts
 from .config import Settings
 from .cx import Cx
 from .devices import DeviceSet
@@ -33,7 +32,7 @@ from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
 from .ops.batched_solve import SchurNotPorted, batched_solve_lanes
 from .warmstart import _floor_seed_mag
-from .ybus import LineYbus, resolve_ybus
+from .ybus import LineYbus, _polar_diff, resolve_ybus
 
 #: memory budget for the warm-seed embedded matrix (2N, 2N, chunk): the
 #: seed assembly and solve chunk the lane axis to stay under it
@@ -106,17 +105,6 @@ def _as_inj_db(inj, n_nl: int, B: int):
 # mismatch (lane-major)
 # ---------------------------------------------------------------------------
 
-def _polar_diff_lanes(mu_a, th_a, mu_b, th_b) -> Cx:
-    """mu_a·e^{j th_a} − mu_b·e^{j th_b} without cancellation
-    (``hpfx.ybus._polar_diff``), elementwise."""
-    dmu = mu_a - mu_b
-    delta = th_b - th_a
-    s_half = torch.sin(0.5 * delta)
-    re_local = dmu + 2.0 * mu_b * s_half * s_half
-    im_local = -mu_b * torch.sin(delta)
-    return cx.expj(th_a) * Cx(re_local, im_local)
-
-
 def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
     """Cancellation-free Y·V on (H, n, B) polar voltages
     (``hpfx.lanes.stable_matvec_lanes``): per-line flows, each difference
@@ -126,9 +114,9 @@ def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
     a_ff = lineY.a_ff[:, None]                  # (L, 1)
     inv_tau = lineY.inv_tau[:, None]
     shift = lineY.shift[:, None]
-    flow_f = lineY.Ys[..., None] * _polar_diff_lanes(
+    flow_f = lineY.Ys[..., None] * _polar_diff(
         V_m[:, f] * a_ff, V_a[:, f], V_m[:, t] * inv_tau, V_a[:, t] + shift)
-    flow_t = lineY.Ys[..., None] * _polar_diff_lanes(
+    flow_t = lineY.Ys[..., None] * _polar_diff(
         V_m[:, t], V_a[:, t], V_m[:, f] * inv_tau, V_a[:, f] - shift)
     out = lineY.d[..., None] * cx.polar(V_m, V_a)
     n = V_m.shape[1]
@@ -234,37 +222,6 @@ def _coupling_lanes(V_m, V_a, dev: DeviceSet, inj_db, m: int):
         K_A = z.at_set((hh, hh), -(Yt * V_nl).jmul())
     s = inj_db[None, None, :, :]
     return K_V * s, K_A * s
-
-
-class _ArrowConsts(NamedTuple):
-    """Constants of the lane-major arrow solve, on the solve's device."""
-    idx: ArrowIndex
-    E0: torch.Tensor          # (d0, r_blk) unit columns of U, block 0
-    Eh: torch.Tensor          # (2n, r_blk) unit columns of U, blocks h>=1
-    inv_f_perm: torch.Tensor  # (dim,) grouped row -> original position
-    x_perm: torch.Tensor      # (dim,) original col -> grouped position
-    cpl0: torch.Tensor
-    cplh: torch.Tensor
-
-
-def _make_arrow_consts(H: int, n: int, m: int, c: int, dtype,
-                       device=None) -> _ArrowConsts:
-    idx = make_arrow_index(H, n, m, c)
-    n_nl = n - m
-    r_blk = 2 * n_nl
-    rows0 = np.concatenate([(m - 1) + np.arange(n_nl),
-                            (m - 1) + n_nl + (m - c) + np.arange(n_nl)])
-    rowsh = np.concatenate([np.arange(m, n), n + np.arange(m, n)])
-    E0 = np.zeros((idx.d0, r_blk))
-    E0[rows0, np.arange(r_blk)] = 1.0
-    Eh = np.zeros((2 * n, r_blk))
-    Eh[rowsh, np.arange(r_blk)] = 1.0
-    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
-    return _ArrowConsts(idx=idx, E0=f(E0), Eh=f(Eh),
-                        inv_f_perm=i(np.argsort(idx.f_perm)),
-                        x_perm=i(idx.x_perm), cpl0=i(idx.cpl0),
-                        cplh=i(idx.cplh))
 
 
 def arrow_step_lanes(V_m, V_a, f, Y: Cx, dev: DeviceSet, inj,

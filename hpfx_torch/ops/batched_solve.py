@@ -62,10 +62,13 @@ PANEL_WIDTH = 32
 #: (``panel_gj_width_for``)
 PANEL_LIMITS = ((32, 1024), (16, 2048), (8, 4096))
 #: largest padded dim of the panel kernel.  Past it a float32 solve takes
-#: ``equilibrated_lanes(_lu_solve_lanes)``.  This is a limit of the port,
-#: where it departs from the reference: the reference keeps its panel
-#: kernel up to n ~ 30k (``panel_gj_width_for``) and takes LU only past
-#: that (``hpfx/ops/batched_solve.py:779-780``)
+#: ``equilibrated_lanes(_lu_solve_lanes)``.  The reference bounds its panel
+#: by VMEM (``panel_gj_fits``: 9 slabs of Np x width x 128 floats within
+#: ``VMEM_LIMIT``), so it runs its panel kernel at width 32 up to n = 768,
+#: 24 up to 1056, 16 up to 1584 and 8 up to 3184, and takes LU from 3185
+#: on (``hpfx/ops/batched_solve.py:779-780``).  The port runs K4 further,
+#: to 4096 padded rows: between 3185 and 4096 the two take different
+#: routes (K4 here, LU there), both pivoting over all rows
 MAX_PANEL_DIM = PANEL_LIMITS[-1][1]
 #: shared memory one block may use on Hopper, static and dynamic (bytes)
 _SMEM_PER_BLOCK = 232448
@@ -532,8 +535,8 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
     "auto" or "direct"; on the card the equilibration runs inside them).  Above
     192, and above 128 with ``impl="panel"``, it takes the blocked panel
     solve (:func:`panel_gj_solve_lanes`) up to :data:`MAX_PANEL_DIM`
-    padded rows, and LU past them (the reference keeps its panel kernel
-    to n ~ 30k).  ``impl="schur"`` above 128 raises
+    padded rows, and LU past them (the reference takes LU from n = 3185
+    on).  ``impl="schur"`` above 128 raises
     :class:`SchurNotPorted`: the panel-Schur solve (``schur_solve_lanes``)
     is not part of the port."""
     n = A.shape[0]
@@ -551,3 +554,107 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
             return equilibrated_lanes(_lu_solve_lanes)(A, b)
         return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
     return equilibrated_gauss_solve_lanes(A.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# batch-major solves: A (B, n, n), b (B, n) or (B, n, R)
+# ---------------------------------------------------------------------------
+
+def equilibrated(solve):
+    """Batch-major twin of :func:`equilibrated_lanes`: wrap a solver of
+    A (..., n, n), b (..., n) or (..., n, R) with row and column max-abs
+    equilibration, D_r·A·D_c x' = D_r·b, x = D_c·x'
+    (``hpfx.ops.batched_solve.equilibrated``)."""
+    amax_abs = lambda X, d: torch.linalg.vector_norm(X, float("inf"), dim=d)
+
+    def wrapped(A, b):
+        multi = b.dim() == A.dim()
+        r = 1.0 / torch.clamp_min(amax_abs(A, -1), 1e-30)          # (..., n)
+        As = A * r[..., :, None]
+        c = 1.0 / torch.clamp_min(amax_abs(As, -2), 1e-30)
+        As.mul_(c[..., None, :])
+        x = solve(As, b * (r[..., :, None] if multi else r))
+        return x * (c[..., :, None] if multi else c)
+    return wrapped
+
+
+def _lu_solve(A, b):
+    """LAPACK/cuSOLVER LU, batch-major; b (..., n) or (..., n, R)."""
+    if b.dim() == A.dim():
+        return torch.linalg.solve(A, b)
+    return torch.linalg.solve(A, b[..., None])[..., 0]
+
+
+def _gauss_solve_batch_major(A, b):
+    """The direct kernels on batch-major operands: one copy moves the
+    batch last (``gauss_solve_pallas``, ``hpfx/ops/batched_solve.py:248-
+    280``), then :func:`equilibrated_gauss_solve_lanes` solves with the
+    equilibration inside ``gj_kernel`` (n < 64) or ``gj_kernel_carried``
+    (``gj_kernel_unrolled`` under :data:`GJ_UNROLLED`) on the card, and
+    ``equilibrated_lanes(gj_solve_lanes_ref)`` on the CPU.  The kernels
+    take any dim from 1: a system's pad rows and slots are zero and never
+    pivot."""
+    multi = b.dim() == A.dim()
+    b3 = b if multi else b[..., None]
+    x = equilibrated_gauss_solve_lanes(A.permute(1, 2, 0).contiguous(),
+                                       b3.permute(1, 2, 0).contiguous())
+    x = x.permute(2, 0, 1)
+    return x if multi else x[..., 0]
+
+
+def _panel_gj_batch_major(A, b):
+    """:func:`panel_gj_solve_lanes` on batch-major operands: the blocked
+    solve copies A into its batch-major buffer anyway, so the lane-major
+    view of A is read as it stands."""
+    multi = b.dim() == A.dim()
+    b3 = b if multi else b[..., None]
+    x = panel_gj_solve_lanes(A.permute(1, 2, 0), b3.permute(1, 2, 0))
+    x = x.permute(2, 0, 1)
+    return x if multi else x[..., 0]
+
+
+def batched_solve(A, b):
+    """Batch-major batched solve: A (B, n, n), b (B, n) or (B, n, R)
+    (``hpfx.ops.batched_solve.batched_solve``).
+
+    float64 goes to LU (``torch.linalg.solve``) raw, as in the JAX
+    package.  float32 takes the JAX package's TPU branch on either device:
+    equilibrated, n <= 192 goes to the direct kernels
+    (:func:`_gauss_solve_batch_major`: ``gj_kernel`` below 64, with no
+    split at dim 16, ``gj_kernel_carried`` from 64), larger dims to the
+    blocked panel solve (:func:`_panel_gj_batch_major`, K4) up to
+    :data:`MAX_PANEL_DIM` padded rows and to LU past them.  On the CPU
+    the kernels' plain twins run.  This departs from the JAX package on
+    the CPU, whose float32 branch there takes equilibrated LU."""
+    n = A.shape[-1]
+    if A.dtype == torch.float64:
+        return _lu_solve(A, b)
+    if n > MAX_KERNEL_DIM:
+        if panel_width_for(n) == 0:
+            return equilibrated(_lu_solve)(A, b)
+        return equilibrated(_panel_gj_batch_major)(A, b)
+    return _gauss_solve_batch_major(A, b)
+
+
+def solve_blocks(D, rhs):
+    """Uniform multi-RHS block solves: D (..., H, k, k), rhs (..., H, k, R)
+    -> (..., H, k, R) (``hpfx.ops.batched_solve.solve_blocks`` with its
+    batching rule): every leading axis joins one batch of
+    :func:`batched_solve`; float64 keeps the raw LU."""
+    if D.dtype == torch.float64:
+        return torch.linalg.solve(D, rhs)
+    k, R = D.shape[-1], rhs.shape[-1]
+    out = batched_solve(D.reshape(-1, k, k), rhs.reshape(-1, k, R))
+    return out.reshape(rhs.shape)
+
+
+def nr_solve(J, f):
+    """The Newton linear solve J·dx = f: J (..., n, n), f (..., n) ->
+    (..., n) (``hpfx.ops.batched_solve.nr_solve`` with its batching rule).
+    float64 keeps the raw LU; float32 sends the whole batch (a single
+    system is a batch of one) through :func:`batched_solve`."""
+    if J.dtype == torch.float64:
+        return torch.linalg.solve(J, f[..., None])[..., 0]
+    n = J.shape[-1]
+    out = batched_solve(J.reshape(-1, n, n), f.reshape(-1, n))
+    return out.reshape(f.shape)

@@ -1,6 +1,10 @@
-"""Batched scenario sweeps: the port of the sweep entry points of
-:mod:`hpfx.solve`.
+"""Single cases and batched scenario sweeps: the port of the entry points
+of :mod:`hpfx.solve`.
 
+:func:`hpf_single` solves one case.  :func:`hpf_sweep` solves a batch in
+one of two layouts: lane-major (``hpfx_torch.lanes``, the arrow solver
+with Norton devices) or batch-major, the JAX package's ``vmap`` layout
+(:func:`_hpf_sweep_vmap`), which takes every configuration.
 :func:`hpf_sweep_device` is the net2 main path: the adaptive lane-major
 sweep (:func:`hpfx_torch.lanes.hpf_sweep_adaptive_lanes`) followed, only
 when lanes remain unconverged, by the deterministic host-driven rescue
@@ -11,17 +15,19 @@ net1-class sweeps, ending in the same rescue.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from .config import Settings
 from .devices import DeviceSet
-from .fundamental import FundResult
-from .harmonic import HPFResult
-from .lanes import (PhaseLog, _phase, hpf_sweep_adaptive_lanes,
+from .fundamental import FundResult, solve_fundamental
+from .harmonic import HPFResult, solve_harmonic
+from .lanes import (PhaseLog, _phase, _trip, hpf_sweep_adaptive_lanes,
                     hpf_sweep_lanes, supports_lanes)
 from .network import Network
+from .ybus import build_ybus, line_ybus_pair, resolve_ybus
 
 
 class Scenarios(NamedTuple):
@@ -33,18 +39,66 @@ class Scenarios(NamedTuple):
     injection_scale: Optional[torch.Tensor] = None
 
 
+def hpf_single(net: Network, devices: DeviceSet,
+               settings: Settings, I_bg=None) -> HPFResult:
+    """Single-case harmonic power flow (``hpfx.solve.hpf_single``): the
+    admittances and, with ``settings.stable_mismatch``, their line
+    structure, then the fundamental and the harmonic Newton solves.
+    ``I_bg`` is not ported and raises."""
+    Y = build_ybus(net, settings)
+    lineY, lineY_f = line_ybus_pair(net, settings)
+    fund = solve_fundamental(Y[0], net, settings, lineY=lineY_f)
+    return solve_harmonic(Y, fund, net, devices, settings, lineY=lineY,
+                          I_bg=I_bg)
+
+
 def hpf_sweep(net: Network, devices: DeviceSet, settings: Settings,
               scenarios: Scenarios, V0=None,
               log: Optional[PhaseLog] = None) -> HPFResult:
-    """Solve B independent HPF cases in the lane-major layout; returns a
-    batch-major :class:`HPFResult`.  ``V0``: optional batch-major (V_m,
-    V_a) warm starts.  Configurations the lane-major path does not cover
-    (dense solver, no Norton devices) are not ported."""
-    if not supports_lanes(devices, settings, net):
-        raise NotImplementedError(
-            "hpfx_torch sweeps need solver='arrow' and a non-empty Norton "
-            "DeviceSet (the lane-major path); the vmap layout is not ported")
-    return hpf_sweep_lanes(net, devices, settings, scenarios, V0=V0, log=log)
+    """Solve B independent HPF cases; returns a batch-major
+    :class:`HPFResult`.  ``V0``: optional batch-major (V_m, V_a) warm
+    starts.
+
+    ``settings.layout`` picks the layout, on either device as the JAX
+    package picks it on its TPU: "vmap" the batch-major loop
+    (:func:`_hpf_sweep_vmap`); "lanes" and "auto" the lane-major path
+    where it applies (:func:`hpfx_torch.lanes.supports_lanes`: the arrow
+    solver with Norton devices), the batch-major loop otherwise.
+    ``log`` counts the Newton loop trips (fundamental and harmonic) in
+    its current phase."""
+    if settings.layout != "vmap" and supports_lanes(devices, settings, net):
+        return hpf_sweep_lanes(net, devices, settings, scenarios, V0=V0,
+                               log=log)
+    res = _hpf_sweep_vmap(net, devices, settings, scenarios, V0=V0)
+    if log is not None:
+        # the batch-major loops run as many trips as their longest scenario
+        for _ in range(int(res.fund.n_iter.max()) + int(res.n_iter.max())):
+            _trip(log)
+    return res
+
+
+def _hpf_sweep_vmap(net: Network, devices: DeviceSet, settings: Settings,
+                    scenarios: Scenarios, V0=None) -> HPFResult:
+    """The JAX package's ``vmap`` layout (``hpfx.solve._solve_scenario``
+    under ``vmap``) as a batch-major loop: the single-case solvers run on
+    (B, ...) tensors, and each scenario stops updating when its own test
+    fails, as JAX's while-loop batching rule does; ``n_iter`` and
+    ``err_hist`` are per scenario.  The Newton solves see the whole batch
+    on every iteration, converged scenarios included."""
+    Y, lineY, lineY_f = resolve_ybus(net, settings)
+    # batch-major (B, n) loads and the devices scaled per scenario
+    p = scenarios.p_scale
+    q = scenarios.q_scale if scenarios.q_scale is not None else p
+    inj = scenarios.injection_scale
+    if inj is None:
+        inj = torch.ones_like(p)
+    col = lambda x: (x[:, None] if x.dim() == 1 else x).to(net.bus_P.dtype)
+    net_s = dataclasses.replace(net, bus_P=net.bus_P * col(p),
+                                bus_Q=net.bus_Q * col(q))
+    dev_s = devices.scale(col(inj))
+    fund = solve_fundamental(Y[0], net_s, settings, lineY=lineY_f)
+    return solve_harmonic(Y, fund, net_s, dev_s, settings, V0=V0,
+                          lineY=lineY)
 
 
 def _take_scen(scenarios: Scenarios, idx) -> Scenarios:
@@ -55,7 +109,8 @@ def _cast_result(r: HPFResult, dtype) -> HPFResult:
     """Cast every floating tensor of a result (fund included) to dtype."""
     cast = lambda t: t.to(dtype) if t.is_floating_point() else t
     fund = None if r.fund is None else FundResult(*map(cast, r.fund))
-    return HPFResult(*map(cast, r[:-1]), fund=fund)
+    traj = None if r.trajectory is None else cast(r.trajectory)
+    return HPFResult(*map(cast, r[:6]), fund=fund, trajectory=traj)
 
 
 def _f64_resolve(net: Network, devices: DeviceSet, settings: Settings,
@@ -65,10 +120,10 @@ def _f64_resolve(net: Network, devices: DeviceSet, settings: Settings,
     so the last rescue resort is more precision.  ``converged`` reflects
     the f64 criterion; the result is cast back to the caller's dtype."""
     f64 = torch.float64
-    r = hpf_sweep_lanes(net.to(dtype=f64), devices.to(dtype=f64),
-                        settings.with_(dtype="float64"),
-                        Scenarios(*(None if x is None else x.to(f64)
-                                    for x in sub)), log=log)
+    r = hpf_sweep(net.to(dtype=f64), devices.to(dtype=f64),
+                  settings.with_(dtype="float64"),
+                  Scenarios(*(None if x is None else x.to(f64)
+                              for x in sub)), log=log)
     return _cast_result(r, settings.real_dtype)
 
 

@@ -84,12 +84,25 @@ def build_ybus(net: Network, settings: Settings) -> Cx:
 
 def resolve_ybus(net: Network, settings: Settings, Y=None):
     """``(Y, lineY, lineY_f)`` for a solver entry: ``None`` builds both
-    forms from the network; a dense ``Cx`` comes with no line structure."""
+    forms from the network; a dense ``Cx`` comes with no line structure
+    (the stable mismatch is then off); a ``(Y, lineY, lineY_f)`` triple
+    carries its own consistent structures."""
     if Y is None:
         return build_ybus(net, settings), *line_ybus_pair(net, settings)
     if isinstance(Y, Cx):
         return Y, None, None
-    raise TypeError("Y must be None or a dense Cx")
+    Yd, lineY, lineY_f = Y
+    if not isinstance(Yd, Cx):
+        raise TypeError("Y must be None, a dense Cx, or a "
+                        "(Y, lineY, lineY_f) triple")
+    return Yd, lineY, lineY_f
+
+
+def fold_ydiag(Y: Cx, Y_diag: Cx) -> Cx:
+    """Add per-bus shunt admittances ``Y_diag`` (H, n) to the diagonal of
+    the dense (H, n, n) admittance tensor (``hpfx.ybus.fold_ydiag``)."""
+    idx = torch.arange(Y.shape[-1], device=Y.device)
+    return Y.at_add((_all, idx, idx), Y_diag)
 
 
 class LineYbus(NamedTuple):
@@ -135,3 +148,35 @@ def line_ybus_pair(net: Network, settings: Settings):
     full = build_line_ybus(net, settings)
     fund = full._replace(Ys=full.Ys[:1], d=full.d[:1])
     return full, fund
+
+
+def _polar_diff(mu_a, th_a, mu_b, th_b) -> Cx:
+    """mu_a·e^{j th_a} − mu_b·e^{j th_b} without cancellation
+    (``hpfx.ybus._polar_diff``): e^{j th_a}·[(mu_a − mu_b)
+    + 2·mu_b·sin²(Δ/2) − j·mu_b·sin Δ] with Δ = th_b − th_a, so the
+    rounding is relative to the difference, not to |V|."""
+    dmu = mu_a - mu_b
+    delta = th_b - th_a
+    s_half = torch.sin(0.5 * delta)
+    re_local = dmu + 2.0 * mu_b * s_half * s_half
+    im_local = -mu_b * torch.sin(delta)
+    return cx.expj(th_a) * Cx(re_local, im_local)
+
+
+def stable_matvec(lineY: LineYbus, V_m, V_a) -> Cx:
+    """Cancellation-free Y·V for (..., H, n) polar voltage spectra
+    (``hpfx.ybus.stable_matvec``): per line Ys·(V_f/tau² − V_t·e^{j s}/tau)
+    into the from bus and the mirror flow into the to bus, each voltage
+    difference taken by :func:`_polar_diff`, plus the diagonal-only terms
+    d·V.  Leading axes are scenarios."""
+    f, t = lineY.f_idx, lineY.t_idx
+    Vm_f, Va_f = V_m[..., f], V_a[..., f]
+    Vm_t, Va_t = V_m[..., t], V_a[..., t]
+    flow_f = lineY.Ys * _polar_diff(Vm_f * lineY.a_ff, Va_f,
+                                    Vm_t * lineY.inv_tau, Va_t + lineY.shift)
+    flow_t = lineY.Ys * _polar_diff(Vm_t, Va_t, Vm_f * lineY.inv_tau,
+                                    Va_f - lineY.shift)
+    out = lineY.d * cx.polar(V_m, V_a)
+    add = lambda o, i, v: o.index_add(-1, i, v)
+    return Cx(add(add(out.re, f, flow_f.re), t, flow_t.re),
+              add(add(out.im, f, flow_f.im), t, flow_t.im))

@@ -531,3 +531,18 @@ def test_direct_dims_up_to_192():
     ref = _np_solve(A, b)
     np.testing.assert_allclose(x.numpy(), ref, rtol=0,
                                atol=F32_TOL * np.abs(ref).max())
+
+
+def test_panel_limit_covers_the_reference():
+    """Every dim the reference's panel kernel takes (its VMEM bound:
+    widths 32/24/16/8 up to n = 768/1056/1584/3184, LU from 3185 on), the
+    port's blocked solve takes too (widths 32/16/8 up to 1024/2048/4096
+    padded rows)."""
+    ref_max = 0
+    for n in range(8, 4097):
+        if jbs.panel_gj_width_for(n) > 0:
+            ref_max = n
+            assert tbs.panel_width_for(n) > 0, n
+    assert ref_max == 3184
+    assert [max(n for n in range(8, 4097) if jbs.panel_gj_width_for(n) >= w)
+            for w in (32, 24, 16, 8)] == [768, 1056, 1584, 3184]
