@@ -68,7 +68,8 @@ kernels, and checks them:
      DIVERGED, LOOSE_ITERS and SHALLOW_STOP, copied here, and net1 H<=99
      with test_net1_h99_parity's rules), each first-iteration Jacobian
      against J0 to 1e-9, and the arrow solver on net2 and net1 H<=25
-     against the dense result (identical counts, voltages to 1e-8);
+     against the dense result (identical counts, voltages to 1e-8); at
+     net1 H<=51 c, build_ybus bit for bit over 100 calls and hpf over 3;
  12. the dense path: hpf_sweep's vmap layout with solver="dense" in
      float32 from the cold start at bench.py's settings, net2 H<=25
      B=16384 and net1 H<=25 B=2048 (warm-up, three timed reps beside the
@@ -78,7 +79,34 @@ kernels, and checks them:
      sub-batch that converged in float32 against float64 on the card to
      phases 4 and 6's bounds;
  13. hpf_sweep_adaptive with a dense phase 2 at net2 H<=25 B=16384 (the
-     net2 stage of bench.py with HPFX_BENCH_ADAPTDEV=0), conv >= 0.999.
+     net2 stage of bench.py with HPFX_BENCH_ADAPTDEV=0), conv >= 0.999;
+ 14. the stream at bench.py's stream stage: hpf_sweep_stream over 4
+     net2 H<=25 B=16384 batches (p_scale offset by 1e-4·k), depth 2,
+     phase_iters=24, warm="linear"; a warm pass, 3 timed passes, one pass
+     at depth 1 and the same 4 batches through back-to-back
+     hpf_sweep_device calls; conv >= 0.999, every streamed batch with
+     hpf_sweep_device's converged mask on it and within 1e-6 pu (bit for
+     bit or not, printed);
+ 15. the host schedule from the seed: net1 H<=25 B=2048
+     hpf_sweep_adaptive(warm="linear"), 3 reps interleaved with 3 from
+     the cold start (PhaseLog phases and trips, the seed's time,
+     torch.linalg.solve on one seed chunk beside its bound), conv >=
+     0.999, float32 against float64 on 64 scenarios to phase 6's bounds;
+     K4 against its plain twin, timed beside its bound, at every panel
+     shape the path launched that phase 2 does not check;
+ 16. the new inputs at width: (a) background_sweep(schedule="device",
+     warm="linear") at net2 H<=25 B=16384 with a 5th/7th background
+     scaled over 0.5-1.5, beside the plain sweep: conv >= 0.999, float32
+     against float64 to phase 4's bounds, every scenario's worst-bus THD
+     above the plain sweep's; (b) a five-type DeviceLibrary on the net1
+     H<=25 B=2048 host schedule: a one-hot SMPS mix within 1e-6 pu of
+     the DeviceSet sweep (equal bit for bit printed), then a one-hot mix
+     drawn from a seeded generator (its conv recorded, not required); (c) AnalyticDeviceSet(norton_inject)
+     through hpf_sweep at net2 H<=25 B=1024 beside the DeviceSet sweep:
+     in float32 from the exact-linear seed (conv >= 0.999, float32
+     against float64 to phase 4's bounds), and in float64 from the cold
+     start within 1e-5 pu of the DeviceSet sweep with the same converged
+     flags.
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes
@@ -640,6 +668,61 @@ def check_solve_kernel(name, gen):
     return errs, shapes
 
 
+def panel_case(N, Pw, Bt, gen, tag="2"):
+    """gj_panel_kernel against gj_panel_ref on one (N, Pw, Bt) panel, as a
+    middle panel sees it (a third of the rows already used), read from a
+    lane-major and from a batch-major matrix; times the kernel, the plain
+    twin and the bound.  Returns (max |dZ|, the shape's numbers)."""
+    name = "gj_panel_kernel"
+    A, _ = systems(N, 1, Bt, gen, pivot_case=True)
+    cols = slice(N // 3, N // 3 + Pw)
+    used = (torch.rand((N, Bt), generator=gen, device=DEV)
+            < 1.0 / 3.0).float()
+    refs, errs = None, []
+    for layout in ("lane-major", "batch-major"):
+        if layout == "lane-major":
+            panel = A[:, cols]                     # a strided column slice
+        else:   # as panel_gj_solve_lanes reads its buffer
+            panel = A.permute(2, 0, 1).contiguous()[:, :, cols] \
+                .permute(1, 2, 0)
+        before = ht.LAUNCHES[name]
+        outs = ht.gj_panel_lanes(panel, used)
+        torch.cuda.synchronize()
+        check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+        if refs is None:
+            refs = ht.gj_panel_ref(panel, used)
+        # the pivot rows and the mask: the same pivot sequence, exactly.
+        # Z: per system, against its largest |Z| (~1e2 on the pivot
+        # systems), in another rounding order (the kernel fuses
+        # multiply-adds)
+        check(torch.equal(outs[1], refs[1]) and torch.equal(outs[2], refs[2]),
+              f"{name} {layout} at {(N, Pw, Bt)}: pivot sequences differ")
+        d = (outs[0] - refs[0]).abs().amax(dim=(0, 1))
+        rel = (d / refs[0].abs().amax(dim=(0, 1))).max().item()
+        check(np.isfinite(rel) and rel <= KERNEL_TOL,
+              f"{name} {layout} Z at {(N, Pw, Bt)}: max err / system "
+              f"scale {rel} > {KERNEL_TOL}")
+        errs.append(d.max().item())
+        k_ms = time_ms(lambda: ht.gj_panel_lanes(panel, used), 20)
+        log(f"[{tag}] {name} N={N} Pw={Pw} B={Bt} {layout}: pivots and used "
+            f"equal; Z {d.max().item():.3e} abs, {rel:.3e} of system "
+            f"scale; kernel {k_ms:.4f} ms")
+    p_ms = time_ms(lambda: ht.gj_panel_ref(panel, used), 3)
+    # the panel and the mask in; Z, the mask and the pivot rows out;
+    # Pw steps of Pw multiply-adds per row.  The old outputs (Ap, TE
+    # and E for Z and the pivots) moved 4 B (4 N Pw + 2 N) bytes
+    b_ms, b_by = bound(4 * Bt * (2 * N * Pw + 2 * N + Pw),
+                       2 * Bt * N * Pw * Pw)
+    old_ms = bound(4 * Bt * (4 * N * Pw + 2 * N), 4 * Bt * N * Pw * Pw)[0]
+    log(f"[{tag}] {name} N={N} Pw={Pw} B={Bt}: kernel (batch-major) "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {old_ms:.4f} ms on the old outputs); no PyTorch call "
+        "eliminates one panel")
+    return max(errs), dict(shape=[N, Pw, Bt], ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           max_abs_err=max(errs))
+
+
 def check_panel_kernel(gen):
     """gj_panel_kernel against gj_panel_ref on one panel per dim, as a
     middle panel sees it (a third of the rows already used), read from a
@@ -647,58 +730,11 @@ def check_panel_kernel(gen):
     with the kernel against the same solve with the plain panel twin and
     against float64 LU, timed beside torch.linalg.solve and the direct
     kernels on the same systems."""
-    name = "gj_panel_kernel"
     errs, shapes = [], []
-    for (N, Pw, Bt) in KERNELS[name][2]:
-        A, _ = systems(N, 1, Bt, gen, pivot_case=True)
-        cols = slice(N // 3, N // 3 + Pw)
-        used = (torch.rand((N, Bt), generator=gen, device=DEV)
-                < 1.0 / 3.0).float()
-        refs = None
-        for layout in ("lane-major", "batch-major"):
-            if layout == "lane-major":
-                panel = A[:, cols]                 # a strided column slice
-            else:   # as panel_gj_solve_lanes reads its buffer
-                panel = A.permute(2, 0, 1).contiguous()[:, :, cols] \
-                    .permute(1, 2, 0)
-            before = ht.LAUNCHES[name]
-            outs = ht.gj_panel_lanes(panel, used)
-            torch.cuda.synchronize()
-            check(ht.LAUNCHES[name] > before, f"{name} was not launched")
-            if refs is None:
-                refs = ht.gj_panel_ref(panel, used)
-            # the pivot rows and the mask: the same pivot sequence, exactly.
-            # Z: per system, against its largest |Z| (~1e2 on the pivot
-            # systems), in another rounding order (the kernel fuses
-            # multiply-adds)
-            check(torch.equal(outs[1], refs[1])
-                  and torch.equal(outs[2], refs[2]),
-                  f"{name} {layout} at {(N, Pw, Bt)}: pivot sequences differ")
-            d = (outs[0] - refs[0]).abs().amax(dim=(0, 1))
-            rel = (d / refs[0].abs().amax(dim=(0, 1))).max().item()
-            check(np.isfinite(rel) and rel <= KERNEL_TOL,
-                  f"{name} {layout} Z at {(N, Pw, Bt)}: max err / system "
-                  f"scale {rel} > {KERNEL_TOL}")
-            errs.append(d.max().item())
-            k_ms = time_ms(lambda: ht.gj_panel_lanes(panel, used), 20)
-            log(f"[2] {name} N={N} Pw={Pw} B={Bt} {layout}: pivots and used "
-                f"equal; Z {d.max().item():.3e} abs, {rel:.3e} of system "
-                f"scale; kernel {k_ms:.4f} ms")
-        p_ms = time_ms(lambda: ht.gj_panel_ref(panel, used), 3)
-        # the panel and the mask in; Z, the mask and the pivot rows out;
-        # Pw steps of Pw multiply-adds per row.  The old outputs (Ap, TE
-        # and E for Z and the pivots) moved 4 B (4 N Pw + 2 N) bytes
-        b_ms, b_by = bound(4 * Bt * (2 * N * Pw + 2 * N + Pw),
-                           2 * Bt * N * Pw * Pw)
-        old_ms = bound(4 * Bt * (4 * N * Pw + 2 * N), 4 * Bt * N * Pw * Pw)[0]
-        log(f"[2] {name} N={N} Pw={Pw} B={Bt}: kernel (batch-major) "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {old_ms:.4f} ms on the old outputs); no PyTorch call "
-            "eliminates one panel")
-        shapes.append(dict(shape=[N, Pw, Bt], ms=k_ms, plain_ms=p_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                           max_abs_err=max(errs[-2:])))
-        del A, panel, used, outs, refs
+    for (N, Pw, Bt) in KERNELS["gj_panel_kernel"][2]:
+        err, shape = panel_case(N, Pw, Bt, gen)
+        errs.append(err)
+        shapes.append(shape)
 
     for (n, Bt) in PANEL_SOLVES:
         A, b = systems(n, 1, Bt, gen, pivot_case=True)
@@ -1028,6 +1064,13 @@ def check_result(res, Bt, s, net, tag, min_conv=0.999):
     return conv
 
 
+def log_shapes(tag):
+    """The launches by kernel and shape since the last reset."""
+    log(f"[{tag}] launches by shape: " + ", ".join(
+        f"{k}{list(sh)} {c}" for (k, sh), c
+        in sorted(ht.LAUNCHES_BY_SHAPE.items())))
+
+
 def warm_up(run, Bt, spread, kernels, tag):
     """The path's first run, with the launch counts reset just before it
     and read just after; requires a launch of each of ``kernels``."""
@@ -1040,6 +1083,7 @@ def warm_up(run, Bt, spread, kernels, tag):
     log(f"[{tag}] warm-up sweep {time.perf_counter() - t0:.3f} s, launches "
         f"{launches}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log_shapes(tag)
     for k in kernels:
         check(launches[k] > 0, f"the {tag} path never launched {k}")
     return launches
@@ -1080,7 +1124,8 @@ def compare_f64(res32, run64, Bt, vm_tol, phasor_tol, tag,
     """Re-solve 64 scenarios of rep 0 in float64 on the card; with
     ``converged_only``, compare those that converged in float32."""
     idx = torch.arange(0, Bt, Bt // 64, device=DEV)
-    sub = ht.Scenarios(*(x[idx].double() for x in scen(0, Bt)))
+    sub = ht.Scenarios(*(None if x is None else x[idx]
+                         for x in scen(0, Bt))).to(torch.float64)
     t0 = time.perf_counter()
     r64 = run64(sub)
     torch.cuda.synchronize()
@@ -1207,7 +1252,7 @@ def phase8():
     # trip on the card, and the unfused sweep) is the witness that they
     # are float32's stalls and not the scenarios'
     sc = scen(0, B)
-    sc64 = ht.Scenarios(*(x.double() for x in sc))
+    sc64 = sc.to(torch.float64)
     net64, dev64 = net.to(dtype=f64), dev.to(dtype=f64)
     s64 = s.with_(dtype="float64")
     out = {}
@@ -1321,7 +1366,9 @@ def golden_gate(cfg, res, g, s):
     if cfg in LOOSE_ITERS:
         check(abs(n_it - ref_it) <= 6, f"{tag}: n_iter {n_it} vs {ref_it}")
         check(close(Vm, g["V_m"], 1e-10) and close(Va, g["V_a"], 1e-10),
-              f"{tag}: voltages beyond 1e-10")
+              f"{tag}: voltages beyond 1e-10 (n_iter {n_it}, err "
+              f"{float(res.err):.2e}, max|dV_m| "
+              f"{float(np.abs(Vm - g['V_m']).max()):.2e})")
         rule = "|dn| <= 6"
     else:
         check(n_it == ref_it, f"{tag}: n_iter {n_it} vs {ref_it}")
@@ -1330,6 +1377,31 @@ def golden_gate(cfg, res, g, s):
           and close(F, g["THD_F"], 1e-8) and close(R, g["THD_R"], 1e-8),
           f"{tag}: voltages or THD beyond 1e-8")
     return rule
+
+
+#: phase 11: calls of build_ybus, and of hpf, that must agree bit for bit
+YBUS_REPEATS = 100
+HPF_REPEATS = 3
+
+
+def repeat_check(case):
+    """The same float64 inputs give the same bits on every call: the
+    admittances of net1 H<=51 over YBUS_REPEATS calls, and its LOOSE_ITERS
+    solve over HPF_REPEATS (whose chaotic transient turns a last-bit
+    difference of Y into another iteration count)."""
+    net, dev, s, res = case
+    Y0 = ht.build_ybus(net, s)
+    same = sum(torch.equal(Y.re, Y0.re) and torch.equal(Y.im, Y0.im)
+               for Y in (ht.build_ybus(net, s)
+                         for _ in range(YBUS_REPEATS - 1)))
+    runs = [ht.hpf(net, dev, s) for _ in range(HPF_REPEATS - 1)]
+    counts = [int(res.n_iter)] + [int(r.n_iter) for r in runs]
+    bits = all(torch.equal(r.V_m, res.V_m) for r in runs)
+    log(f"[11] net1 H<=51 c: build_ybus equal to its first call on {same} "
+        f"of {YBUS_REPEATS - 1} calls; hpf n_iter {counts}, equal bit for "
+        f"bit: {bits}")
+    check(same == YBUS_REPEATS - 1 and bits,
+          "[11] build_ybus or hpf differ from call to call")
 
 
 def phase11():
@@ -1373,6 +1445,7 @@ def phase11():
             f"{float(res.err):.2e} ({float(g['err_h']):.2e}), max|dV_m| "
             f"{dV:.1e}{j0}, {rule}; {dt:.3f} s")
         dense[cfg] = (net, dev, s, res)
+    repeat_check(dense[("net1", 51, True)])
     for cfg in (("net2", 25, True), ("net1", 25, True)):
         net, dev, s, rd = dense[cfg]
         ra = ht.hpf(net, dev, s.with_(solver="arrow"))
@@ -1403,9 +1476,6 @@ def phase12(lanes_rates):
         for key in shapes:
             check(ht.LAUNCHES_BY_SHAPE[key] > 0,
                   f"[{tag}] no launch of {key[0]} at {key[1]}")
-        log(f"[{tag}] launches by shape: " + ", ".join(
-            f"{k}{list(sh)} {c}" for (k, sh), c
-            in sorted(ht.LAUNCHES_BY_SHAPE.items())))
         reps, rep0 = timed_reps(run, Bt, s, net, tag, 3, min_conv=0.0)
         med = float(np.median(reps))
         conv = rep0.converged.float().mean().item()
@@ -1435,6 +1505,283 @@ def phase13():
     logged_rep(run, B, 13, ("phase1", "phase2", "host_rescue"))
     return launches
 
+#: phase 14: bench.py's stream stage (bench.py:390-436): batches a pass
+STREAM_BATCHES = 4
+#: phase 14: each streamed batch against hpf_sweep_device on it (pu)
+STREAM_TOL = 1e-6
+#: phase 16: the background study's source ({order: (magnitude, angle)},
+#: voltages behind the grid impedance) and its per-scenario scale range
+BACKGROUND = {5: (0.02, 0.0), 7: (0.01, 1.57)}
+BACKGROUND_SCALE = (0.5, 1.5)
+#: phase 16: the device library and the batch of the analytic sweep
+LIBRARY = ("SMPS", "EV_1", "EV_2", "EV_4", "EV_5")
+B_ANALYTIC = 1024
+
+
+def stream_pass(net, dev, s, k0, depth):
+    """One pass of hpf_sweep_stream over STREAM_BATCHES batches built in
+    the generator (p_scale offset by 1e-4·k, bench.py's scen): (seconds,
+    the results, the lowest conv)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(ht.hpf_sweep_stream(
+        net, dev, s, (scen(k0 + i, B) for i in range(STREAM_BATCHES)),
+        phase_iters=PHASE_ITERS, depth=depth, warm="linear"))
+    dt = time.perf_counter() - t0
+    return dt, out, min(r.converged.float().mean().item() for r in out)
+
+
+def phase14():
+    """The stream (bench.py's stream stage): net2 H<=25 B=16384, 4 batches
+    a pass, depth 2, phase_iters=24, warm="linear"; a warm pass, 3 timed
+    passes, one pass at depth 1 and the same 4 batches through
+    back-to-back hpf_sweep_device calls; every streamed batch against
+    hpf_sweep_device on it."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    reset_launches()
+    dt, _, _ = stream_pass(net, dev, s, -10 * STREAM_BATCHES, 2)
+    launches = read_launches()
+    log(f"[14] warm pass {dt:.3f} s, launches {launches}")
+    log_shapes(14)
+    for k in ("gj_kernel", "gj_kernel_carried"):
+        check(launches[k] > 0, f"the stream never launched {k}")
+    times, conv, first = [], 1.0, None
+    for p in range(3):
+        dt, out, c = stream_pass(net, dev, s, 100 * (p + 1), 2)
+        times.append(dt)
+        conv = min(conv, c)
+        first = first or out
+        log(f"[14] depth 2 pass {p}: {dt:.4f} s, lowest conv {c:.6f}")
+    t1, _, c1 = stream_pass(net, dev, s, 100, 1)
+    conv = min(conv, c1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = [ht.hpf_sweep_device(net, dev, s, scen(100 + i, B),
+                               phase_iters=PHASE_ITERS, warm="linear")
+           for i in range(STREAM_BATCHES)]
+    torch.cuda.synchronize()
+    t_b2b = time.perf_counter() - t0
+    n = STREAM_BATCHES * B
+    rate = lambda t: conv * n / t
+    log(f"[14] depth 2: passes {', '.join(f'{t:.4f}' for t in times)} s -> "
+        f"{rate(min(times)):.1f} converged solves/s at conv {conv:.6f}; "
+        f"depth 1: {t1:.4f} s ({rate(t1):.1f}/s); back-to-back "
+        f"hpf_sweep_device: {t_b2b:.4f} s ({rate(t_b2b):.1f}/s); depth 2 "
+        f"over back-to-back: {t_b2b / min(times):.4f}x")
+    check(conv >= 0.999, f"[14] stream conv {conv} < 0.999")
+    bits = True
+    for i, (r, r0) in enumerate(zip(first, ref)):
+        check(torch.equal(r.converged, r0.converged),
+              f"[14] batch {i}: converged differs from hpf_sweep_device")
+        dV = (phasor(r.V_m, r.V_a) - phasor(r0.V_m, r0.V_a)).abs().max()
+        check(dV.item() <= STREAM_TOL,
+              f"[14] batch {i}: {dV.item()} pu from hpf_sweep_device")
+        bits = bits and torch.equal(r.V_m, r0.V_m) \
+            and torch.equal(r.V_a, r0.V_a)
+    log(f"[14] each streamed batch: the converged mask of hpf_sweep_device "
+        f"on it, within {STREAM_TOL} pu; equal bit for bit: {bits}")
+    return launches
+
+
+def seed_solve_ms(net, dev, s, sc):
+    """torch.linalg.solve on the first chunk of norton_warm_start's seed
+    systems, caught as cx.solve passes them, timed beside the bound."""
+    caught = {}
+    solve = torch.linalg.solve
+
+    def catch(A, b):
+        caught.setdefault("Ab", (A, b))
+        return solve(A, b)
+
+    torch.linalg.solve = catch
+    try:
+        ht.norton_warm_start(net, dev, s, sc)
+    finally:
+        torch.linalg.solve = solve
+    A, b = caught["Ab"]
+    ms = time_ms(lambda: solve(A, b), 3)
+    Bt, n = A.shape[0], A.shape[-1]
+    b_ms, b_by = bound(*solve_work(n, 1, Bt))
+    log(f"[15] torch.linalg.solve on one seed chunk ({Bt} systems of dim "
+        f"{n}): {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def phase15(gen):
+    """The host schedule from the seed: net1 H<=25 B=2048
+    hpf_sweep_adaptive(phase_iters=24, warm="linear"), 3 reps interleaved
+    with 3 from the cold start, float32 against float64 on 64 scenarios;
+    then K4 at the bucket shapes the path launched.  Returns (launches,
+    the K4 shapes' numbers)."""
+    s, net, dev = fixture_net("net1", H_MAX)
+    warm = lambda sc, lg=None: ht.hpf_sweep_adaptive(
+        net, dev, s, sc, phase_iters=PHASE_ITERS, phase2_settings=s,
+        warm="linear", log=lg)
+    cold = adaptive(s, net, dev, PHASE_ITERS)
+    launches = warm_up(warm, B_NET1, None, ("gj_kernel", "gj_panel_kernel"),
+                       15)
+    k4 = sorted(sh for (k, sh), c in ht.LAUNCHES_BY_SHAPE.items()
+                if k == "gj_panel_kernel")
+    phases = ("seed", "phase1", "phase2", "host_rescue")
+    rep0 = None
+    for k in range(3):
+        for tag, run in (("seed", warm), ("cold", cold)):
+            lg = ht.PhaseLog()
+            sc = scen(k, B_NET1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(sc, lg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            conv = check_result(res, B_NET1, s, net, f"15 {tag} rep {k}")
+            log(f"[15] {tag} rep {k}: {dt:.4f} s, {conv * B_NET1 / dt:.1f} "
+                f"converged solves/s, conv {conv:.6f}, n_iter max "
+                f"{int(res.n_iter.max())}; " + ", ".join(
+                    f"{p} {lg.seconds.get(p, 0.0) * 1e3:.3f} ms "
+                    f"{lg.trips.get(p, 0)} trips" for p in phases))
+            if tag == "seed" and rep0 is None:
+                rep0 = res
+    seed_solve_ms(net, dev, s, scen(0, B_NET1))
+    f64 = torch.float64
+    compare_f64(rep0, lambda sub: ht.hpf_sweep_adaptive(
+        net.to(dtype=f64), dev.to(dtype=f64), s.with_(dtype="float64"), sub,
+        phase_iters=PHASE_ITERS, warm="linear"), B_NET1, 3e-4, 5e-4, 15)
+    checked = {tuple(x) for x in KERNELS["gj_panel_kernel"][2]}
+    shapes = [panel_case(*sh, gen, tag="15")[1] for sh in k4
+              if tuple(sh) not in checked]
+    return launches, shapes
+
+
+def background_batch(net, s, Bt):
+    """BACKGROUND behind the slack's grid impedance, scaled per scenario
+    over BACKGROUND_SCALE: (Bt, H, n)."""
+    base = ht.background_from_harmonics(net, s, BACKGROUND)
+    f = torch.linspace(*BACKGROUND_SCALE, Bt, device=DEV,
+                       dtype=s.real_dtype)[:, None, None]
+    return ht.Cx(base.re[None] * f, base.im[None] * f)
+
+
+def phase16(gen):
+    """The new inputs at width: (a) background_sweep on the device
+    schedule from the seed at net2 H<=25 B=16384; (b) a five-type
+    DeviceLibrary on the net1 H<=25 B=2048 host schedule, a one-hot SMPS
+    mix against phase 5's DeviceSet sweep, then a drawn one-hot mix; (c)
+    AnalyticDeviceSet(norton_inject) through hpf_sweep at net2 H<=25
+    B=1024 against the DeviceSet sweep."""
+    f64 = torch.float64
+    total = {k: 0 for k in ht.LAUNCHES}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # (a) the background study
+    s, net, dev = fixture_net("net2", H_MAX)
+    I_bg = background_batch(net, s, B)
+    study = lambda sc, lg=None: ht.background_sweep(
+        net, dev, s, I_bg, scenarios=sc, phase_iters=PHASE_ITERS,
+        schedule="device", warm="linear")
+    plain = lambda sc, lg=None: ht.hpf_sweep_device(
+        net, dev, s, sc, phase_iters=PHASE_ITERS, warm="linear")
+    add(warm_up(study, B, None, ("gj_kernel", "gj_kernel_carried"), "16a"))
+    t_bg, res = timed_reps(study, B, s, net, "16a background", 2)
+    t_pl, res0 = timed_reps(plain, B, s, net, "16a plain", 2)
+    worst = lambda r: ht.summarize_thd(r).max_thd_f
+    rise = (worst(res) > worst(res0)).float().mean().item()
+    log(f"[16a] background study {min(t_bg):.4f} s against the plain sweep's "
+        f"{min(t_pl):.4f} s; worst-bus THD_F mean {worst(res).mean():.6f} "
+        f"against {worst(res0).mean():.6f}, higher on {rise:.6f} of the "
+        "scenarios")
+    check(rise == 1.0, "[16a] the background does not raise every "
+          "scenario's worst-bus THD")
+    idx = torch.arange(0, B, B // 64, device=DEV)
+    bg64 = ht.Cx(I_bg.re[idx].double(), I_bg.im[idx].double())
+    compare_f64(res, lambda sub: ht.background_sweep(
+        net.to(dtype=f64), dev.to(dtype=f64), s.with_(dtype="float64"), bg64,
+        scenarios=sub, phase_iters=PHASE_ITERS, schedule="device",
+        warm="linear"), B, 5e-5, 1e-4, "16a")
+    del I_bg, res, res0
+    torch.cuda.empty_cache()
+
+    # (b) the device library on the host schedule
+    s, net, dev = fixture_net("net1", H_MAX)
+    lib = ht.load_device_library(LIBRARY, s, device=DEV)
+    n_nl = net.n - net.m
+    one_hot = torch.zeros((B_NET1, n_nl, len(LIBRARY)), device=DEV)
+    one_hot[:, :, lib.index("SMPS")] = 1.0
+    mixed = lambda mix: (lambda sc, lg=None: ht.hpf_sweep_adaptive(
+        net, lib, s, sc._replace(device_mix=mix), phase_iters=PHASE_ITERS,
+        phase2_settings=s, warm="cold", log=lg))
+    add(warm_up(mixed(one_hot), B_NET1, None,
+                ("gj_kernel", "gj_panel_kernel"), "16b"))
+    t_mix, r_mix = timed_reps(mixed(one_hot), B_NET1, s, net,
+                              "16b one-hot SMPS", 1)
+    t_set, r_set = timed_reps(adaptive(s, net, dev, PHASE_ITERS), B_NET1, s,
+                              net, "16b DeviceSet", 1)
+    dV = (phasor(r_mix.V_m, r_mix.V_a)
+          - phasor(r_set.V_m, r_set.V_a)).abs().max().item()
+    bits = all(torch.equal(getattr(r_mix, k), getattr(r_set, k))
+               for k in ("V_m", "V_a", "n_iter", "converged"))
+    log(f"[16b] one-hot SMPS mix against the DeviceSet sweep: max phasor "
+        f"|dV| {dV:.3e} pu, equal bit for bit: {bits}; {t_mix[0]:.4f} s "
+        f"against {t_set[0]:.4f} s")
+    check(dV <= 1e-6, f"[16b] one-hot mix {dV} pu from the DeviceSet sweep")
+    g = torch.Generator(device=DEV).manual_seed(16)
+    drawn = torch.nn.functional.one_hot(
+        torch.randint(0, len(LIBRARY), (B_NET1, n_nl), generator=g,
+                      device=DEV), len(LIBRARY)).to(torch.float32)
+    log(f"[16b] drawn mix: type counts "
+        f"{drawn.sum(dim=(0, 1)).int().tolist()} over {LIBRARY}")
+    # recorded, not required: a drawn mix is another set of networks,
+    # and what the rescue's float64 pass leaves unconverged stays so
+    _, r_drawn = timed_reps(mixed(drawn), B_NET1, s, net, "16b drawn mix",
+                            1, min_conv=0.0)
+    log(f"[16b] drawn mix: {int((~r_drawn.converged).sum())} of {B_NET1} "
+        "not converged after the rescue's float64 pass")
+    del r_mix, r_set
+    torch.cuda.empty_cache()
+
+    # (c) analytic devices against the DeviceSet sweep.  float32 from the
+    # main path's start (the exact-linear seed of the DeviceSet): from the
+    # cold start float32 rounding decides which scenarios stall, and
+    # where, in either form (phase 8); float64 from the cold start holds
+    # the autodiff Jacobian to the closed form
+    s, net, dev = fixture_net("net2", H_MAX)
+    adev = ht.AnalyticDeviceSet(params=(dev.I_N, dev.Y_N),
+                                inject=ht.norton_inject, n_nl=net.n - net.m)
+    seeded = lambda d: (lambda sc, lg=None: ht.hpf_sweep(
+        net, d, s, sc, V0=linear_seed(net, dev, s, sc)))
+    add(warm_up(seeded(adev), B_ANALYTIC, None, ("gj_kernel",), "16c"))
+    t_an, r_an = timed_reps(seeded(adev), B_ANALYTIC, s, net, "16c analytic",
+                            2)
+    t_ds, r_ds = timed_reps(seeded(dev), B_ANALYTIC, s, net, "16c DeviceSet",
+                            2)
+    both = r_an.converged & r_ds.converged
+    d32 = (phasor(r_an.V_m, r_an.V_a)
+           - phasor(r_ds.V_m, r_ds.V_a)).abs()[both].max().item()
+    log(f"[16c] float32 from the seed: analytic {min(t_an):.4f} s, DeviceSet "
+        f"{min(t_ds):.4f} s; max phasor |dV| {d32:.3e} pu where both "
+        f"converged ({int(both.sum())} of {B_ANALYTIC})")
+    net64, dev64, s64 = net.to(dtype=f64), dev.to(dtype=f64), \
+        s.with_(dtype="float64")
+    compare_f64(r_an, lambda sub: ht.hpf_sweep(
+        net64, dev64, s64, sub, V0=linear_seed(net64, dev64, s64, sub)),
+        B_ANALYTIC, 5e-5, 1e-4, "16c analytic")
+    adev64 = adev.to(dtype=f64)
+    sc64 = scen(0, B_ANALYTIC).to(torch.float64)
+    t0 = time.perf_counter()
+    ra = ht.hpf_sweep(net64, adev64, s64, sc64)
+    torch.cuda.synchronize()
+    t_a64 = time.perf_counter() - t0
+    rd = ht.hpf_sweep(net64, dev64, s64, sc64)
+    d64 = (phasor(ra.V_m, ra.V_a) - phasor(rd.V_m, rd.V_a)).abs().max().item()
+    log(f"[16c] float64 from the cold start: analytic {t_a64:.4f} s, conv "
+        f"{ra.converged.double().mean().item():.6f} and "
+        f"{rd.converged.double().mean().item():.6f}, max phasor |dV| "
+        f"{d64:.3e} pu, same counts: {torch.equal(ra.n_iter, rd.n_iter)}")
+    check(torch.equal(ra.converged, rd.converged) and d64 <= 1e-5,
+          f"[16c] analytic float64 {d64} pu from the DeviceSet sweep")
+    return total
+
 
 def main():
     t_start = time.perf_counter()
@@ -1446,7 +1793,14 @@ def main():
     rows = phase2()
     paths = [phase3_4(), phase5_6()]
     paths += [phase7(), phase8(), phase9(), phase11(), phase12(LANES_RATES),
-              phase13()]
+              phase13(), phase14()]
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    launches15, k4_shapes = phase15(gen)
+    paths += [launches15, phase16(gen)]
+    row = rows["gj_panel_kernel"]
+    row["shapes"] += k4_shapes
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [sh["max_abs_err"] for sh in k4_shapes])
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
         check(row["launches"] > 0, f"no path launched {name}")

@@ -2,9 +2,10 @@
 
 The port never imports ``hpfx`` (its ``__init__`` imports JAX), so the
 hand-over is plain data: the caller flattens ``hpfx.network.Network`` and
-``hpfx.devices.DeviceSet`` into numpy arrays and Python values, and
-:func:`from_hpfx_arrays` rebuilds the port's objects from them, so both
-packages compute from bit-identical inputs.
+``hpfx.devices.DeviceSet`` (or ``DeviceLibrary``) into numpy arrays and
+Python values, and :func:`from_hpfx_arrays` (or
+:func:`library_from_hpfx_arrays`) rebuilds the port's objects from them,
+so both packages compute from bit-identical inputs.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ._device import resolve_device
 from .cx import Cx
-from .devices import DeviceSet
+from .devices import DeviceLibrary, DeviceSet
 from .network import ARRAY_FIELDS, Network
 
 
@@ -43,3 +44,15 @@ def from_hpfx_arrays(net_leaves: dict, dev_leaves: dict, device=None):
                     Y_N=Cx(*map(t, dev_leaves["Y_N"])),
                     coupled=bool(dev_leaves["coupled"]))
     return net, dev
+
+
+def library_from_hpfx_arrays(lib_leaves: dict, device=None) -> DeviceLibrary:
+    """Rebuild a ``DeviceLibrary`` on ``device`` (default: the CUDA card)
+    from ``hpfx.devices.DeviceLibrary``'s leaves: ``I_lib`` and ``Y_lib``
+    as ``(re, im)`` numpy pairs, ``coupled`` and ``names``."""
+    device = resolve_device(device)
+    t = lambda a: torch.tensor(np.asarray(a), device=device)   # a copy
+    return DeviceLibrary(I_lib=Cx(*map(t, lib_leaves["I_lib"])),
+                         Y_lib=Cx(*map(t, lib_leaves["Y_lib"])),
+                         coupled=bool(lib_leaves["coupled"]),
+                         names=tuple(lib_leaves["names"]))

@@ -111,8 +111,11 @@ class Cx(NamedTuple):
 
     def at_add(self, idx, val: "Cx") -> "Cx":
         """Copy with ``out[idx] += val``, accumulating over repeated
-        indices like JAX ``.at[idx].add`` (``index_put`` semantics)."""
-        return Cx(_add(self.re, idx, val.re), _add(self.im, idx, val.im))
+        indices like JAX ``.at[idx].add`` (``index_put`` semantics), in
+        index order, the same bits on every call and device."""
+        plan = _add_plan(self.re, idx)
+        return Cx(_add(self.re, idx, val.re, plan),
+                  _add(self.im, idx, val.im, plan))
 
 
 def _set(x: torch.Tensor, idx, val) -> torch.Tensor:
@@ -121,18 +124,43 @@ def _set(x: torch.Tensor, idx, val) -> torch.Tensor:
     return out
 
 
-def _add(x: torch.Tensor, idx, val) -> torch.Tensor:
-    out = x.clone()
+def _add_plan(x: torch.Tensor, idx):
+    """How :func:`_add` adds at advanced indices, which may repeat (two
+    lines into one bus): the flat positions the index selects, grouped
+    into passes over distinct positions, the first occurrence of each in
+    the first pass, the second in the second, ...: (positions, entries)
+    chunks, one per pass, and the index's shape.  A CUDA index_add_ would add repeats atomically,
+    in an order that changes from call to call, and a chaotic Newton
+    transient turns that last bit into another iteration count.  One host
+    sync (the passes' sizes); None for basic indexing."""
     idx = idx if isinstance(idx, tuple) else (idx,)
     if not any(isinstance(i, torch.Tensor) for i in idx):
+        return None
+    dv = x.device
+    sel = torch.arange(x.numel(), device=dv).view(x.shape)[idx]
+    lin, order = torch.sort(sel.reshape(-1), stable=True)
+    pos = torch.arange(lin.numel(), device=dv)
+    first = torch.ones_like(lin, dtype=torch.bool)
+    first[1:] = lin[1:] != lin[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_pass = torch.sort(rank * x.numel() + lin).indices
+    counts = torch.bincount(rank).tolist()
+    return lin[by_pass].split(counts), order[by_pass].split(counts), sel.shape
+
+
+def _add(x: torch.Tensor, idx, val, plan=None) -> torch.Tensor:
+    out = x.clone()
+    if plan is None:
+        plan = _add_plan(x, idx)
+    if plan is None:
         out[idx] += val                          # basic slicing: a view
         return out
-    # advanced indices may repeat (two lines into one bus): scatter-add on
-    # the flat linear positions the index selects, so repeats accumulate
-    lin = torch.arange(out.numel(), device=out.device).view(out.shape)[idx]
+    positions, entries, shape = plan
     val = torch.as_tensor(val, dtype=out.dtype, device=out.device)
-    out.view(-1).index_add_(0, lin.reshape(-1),
-                            val.expand(lin.shape).reshape(-1))
+    val = val.expand(shape).reshape(-1)
+    flat = out.view(-1)
+    for p, e in zip(positions, entries):
+        flat[p] += val[e]                        # distinct positions
     return out
 
 
@@ -177,6 +205,21 @@ def einsum(pattern: str, a: Cx, b: Cx) -> Cx:
     es = lambda x, y: torch.einsum(pattern, x, y)
     return Cx(es(a.re, b.re) - es(a.im, b.im),
               es(a.re, b.im) + es(a.im, b.re))
+
+
+def solve(A: Cx, B: Cx) -> Cx:
+    """Solve the complex system A·X = B through the real block system
+    [[Ar, −Ai], [Ai, Ar]]·[Xr; Xi] = [Br; Bi] (``hpfx.cx.solve``, which
+    takes ``jnp.linalg.solve`` outside any Pallas kernel): one
+    ``torch.linalg.solve``.  A (..., M, M); B (..., M) or (..., M, R)."""
+    M = A.shape[-1]
+    A_real = torch.cat([torch.cat([A.re, -A.im], dim=-1),
+                        torch.cat([A.im, A.re], dim=-1)], dim=-2)
+    vec = B.re.dim() == A.re.dim() - 1
+    Br, Bi = (B.re[..., None], B.im[..., None]) if vec else (B.re, B.im)
+    X = torch.linalg.solve(A_real, torch.cat([Br, Bi], dim=-2))
+    Xr, Xi = X[..., :M, :], X[..., M:, :]
+    return Cx(Xr[..., 0], Xi[..., 0]) if vec else Cx(Xr, Xi)
 
 
 def where(mask, a: Cx, b: Cx) -> Cx:

@@ -1,22 +1,31 @@
-"""Nonlinear devices as stacked Norton equivalents.
+"""Nonlinear device models: the PyTorch counterpart of :mod:`hpfx.devices`.
 
-The PyTorch counterpart of the Norton part of :mod:`hpfx.devices`: the
-``<device>_NE.csv`` reader, per-unit conversion, the case-insensitive
-file lookup and the stacked :class:`DeviceSet` — ``I_N (n_nl, H)`` and
-``Y_N (n_nl, H, H)`` coupled or ``(n_nl, H)`` uncoupled.  The NE tables
-are read in place from the JAX package's data directory, by path.
+- the ``<device>_NE.csv`` reader, per-unit conversion and the
+  case-insensitive file lookup;
+- :class:`DeviceSet`, the Norton equivalents of every nonlinear bus
+  stacked — ``I_N (n_nl, H)`` and ``Y_N (n_nl, H, H)`` coupled or
+  ``(n_nl, H)`` uncoupled;
+- :class:`DeviceLibrary`, a palette of device types that a sweep's
+  ``Scenarios.device_mix`` blends per bus;
+- :class:`AnalyticDeviceSet`, devices given by a differentiable injection
+  function, whose Jacobian blocks come from ``torch.func.jacfwd``.
+
+The NE tables are read in place from the JAX package's data directory, by
+path.
 """
 from __future__ import annotations
 
 import csv
 import dataclasses
 import os
+from numbers import Number
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import cx
+from ._device import resolve_device
 from .config import Settings
 from .cx import Cx
 from .network import Network
@@ -140,3 +149,181 @@ def load_device_set(net: Network, settings: Settings,
     return DeviceSet(I_N=cx.from_numpy(I_N, rd, net.device),
                      Y_N=cx.from_numpy(Y_N, rd, net.device),
                      coupled=coupled)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLibrary:
+    """A palette of T Norton-equivalent device types for device-mix sweeps
+    (``hpfx.devices.DeviceLibrary``): ``I_lib (T, H)``, ``Y_lib (T, H, H)``
+    coupled or ``(T, H)`` uncoupled.  :meth:`mixed` blends them into a
+    per-bus DeviceSet, I_N[d] = sum_t w[d, t]·I_lib[t] (same for Y_N):
+    Norton parameters enter linearly, so a weighted sum is the physics of
+    w[d, t] parallel devices of type t at bus d."""
+
+    I_lib: Cx
+    Y_lib: Cx
+    coupled: bool
+    names: Tuple[str, ...] = ()
+
+    @property
+    def n_types(self) -> int:
+        return self.I_lib.shape[0]
+
+    def mixed(self, w) -> DeviceSet:
+        """Blend with weights ``w (..., n_nl, T)``; leading axes are
+        scenarios, which the DeviceSet then carries in front."""
+        w = torch.as_tensor(w, dtype=self.I_lib.dtype,
+                            device=self.I_lib.device)
+        es = lambda spec, arr: Cx(torch.einsum(spec, w, arr.re),
+                                  torch.einsum(spec, w, arr.im))
+        return DeviceSet(
+            I_N=es("...dt,th->...dh", self.I_lib),
+            Y_N=es("...dt,thp->...dhp" if self.coupled else "...dt,th->...dh",
+                   self.Y_lib),
+            coupled=self.coupled)
+
+    def index(self, name: str) -> int:
+        return self.names.index(name)
+
+    def to(self, device=None, dtype=None) -> "DeviceLibrary":
+        kw = dict(device=device, dtype=dtype)
+        return dataclasses.replace(self, I_lib=self.I_lib.to(**kw),
+                                   Y_lib=self.Y_lib.to(**kw))
+
+
+def load_device_library(components: Sequence[str], settings: Settings,
+                        search_dirs: Sequence[str] = (DATA_DIR,),
+                        device=None) -> DeviceLibrary:
+    """The NE tables of ``components`` (device-type names) stacked into a
+    :class:`DeviceLibrary` on ``device`` (default: the CUDA card,
+    :func:`hpfx_torch._device.resolve_device`), with the per-unit
+    conversion and file lookup of :func:`load_device_set`."""
+    device = resolve_device(device)
+    pairs = [load_norton_equivalent(resolve_ne_path(comp, search_dirs),
+                                    settings, settings.coupled)
+             for comp in components]
+    rd = settings.real_dtype
+    return DeviceLibrary(
+        I_lib=cx.from_numpy(np.stack([p[0] for p in pairs]), rd, device),
+        Y_lib=cx.from_numpy(np.stack([p[1] for p in pairs]), rd, device),
+        coupled=settings.coupled, names=tuple(components))
+
+
+def device_set_from_arrays(I_N, Y_N, coupled: bool, settings: Settings,
+                           device=None) -> DeviceSet:
+    """A DeviceSet from complex numpy arrays or ``Cx`` pairs; a single
+    device's (H,) / (H, H) arrays gain the device axis.  Numpy input goes
+    to ``device`` (default: the CUDA card); ``Cx`` input stays where it
+    is, cast to ``settings.real_dtype``."""
+    rd = settings.real_dtype
+
+    def conv(a):
+        if isinstance(a, Cx):
+            return a.to(dtype=rd)
+        return cx.from_numpy(a, rd, resolve_device(device))
+
+    I_N, Y_N = conv(I_N), conv(Y_N)
+    if Y_N.ndim == (2 if coupled else 1):
+        I_N, Y_N = I_N[None], Y_N[None]
+    return DeviceSet(I_N=I_N, Y_N=Y_N, coupled=coupled)
+
+
+def _map_floats(tree, fn):
+    """Apply ``fn`` to every floating tensor of a nested tuple/list/Cx."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree) if tree.is_floating_point() else tree
+    if isinstance(tree, Cx):
+        return Cx(fn(tree.re), fn(tree.im))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_floats(t, fn) for t in tree)
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalyticDeviceSet:
+    """Nonlinear devices given by a differentiable injection
+    (``hpfx.devices.AnalyticDeviceSet``).
+
+    ``inject(params_i, V_m (H,), V_a (H,)) -> Cx (H,)`` maps one device's
+    bus-voltage spectrum (signed magnitudes and angles, the solver's own
+    state) to its injected current.  ``params`` is a nested tuple of
+    tensors or ``Cx`` pairs whose leaves carry a leading n_nl axis.  The
+    Jacobian coupling blocks come from ``torch.func.jacfwd`` of ``inject``,
+    vectorized by ``torch.func.vmap`` over the devices (and over any
+    leading scenario axes).  ``inj_scale``: a scalar, (n_nl,), or with
+    leading scenario axes (..., n_nl) or (..., 1); every device's current,
+    and so its Jacobian coupling, is scaled by it, as DeviceSet.scale
+    scales I_N and Y_N."""
+
+    params: object
+    inject: object
+    n_nl: int
+    inj_scale: object = 1.0
+
+    coupled = True  # treated as fully harmonic-coupled by the solver
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_nl
+
+    def scale(self, factor) -> "AnalyticDeviceSet":
+        return dataclasses.replace(self, inj_scale=self.inj_scale * factor)
+
+    def to(self, device=None, dtype=None) -> "AnalyticDeviceSet":
+        mv = lambda t: t.to(device=device, dtype=dtype)
+        s = self.inj_scale
+        return dataclasses.replace(
+            self, params=_map_floats(self.params, mv),
+            inj_scale=s if isinstance(s, Number) else mv(s))
+
+    def _s(self, extra_dims: int):
+        """inj_scale broadcast against a (..., n_nl, ...) array."""
+        s = self.inj_scale
+        if isinstance(s, Number) or s.dim() == 0:
+            return s
+        return s.reshape(s.shape + (1,) * extra_dims)
+
+    def _vmapped(self, fn, lead: int):
+        """``fn(params_i, vm, va)`` over the devices (the last axis of the
+        voltages) and ``lead`` leading scenario axes."""
+        f = torch.func.vmap(fn, in_dims=(0, -1, -1))
+        for _ in range(lead):
+            f = torch.func.vmap(f, in_dims=(None, 0, 0))
+        return f
+
+    def injections(self, V_m_nl, V_a_nl) -> Cx:
+        """All devices' injections: V_*_nl (..., H, n_nl) -> (..., n_nl, H)."""
+        f = self._vmapped(self.inject, V_m_nl.dim() - 2)
+        return f(self.params, V_m_nl, V_a_nl) * self._s(1)
+
+    def injection_jacobians(self, V_m_nl, V_a_nl):
+        """dI_inj/d(V_m, V_a) per device: two Cx (..., n_nl, H, H),
+        [..., d, h, p] = dI_inj[d, h] / dV_{m|a}[p, d]."""
+        def per_bus(p, vm, va):
+            JV = torch.func.jacfwd(lambda v: self.inject(p, v, va))(vm)
+            JA = torch.func.jacfwd(lambda a: self.inject(p, vm, a))(va)
+            return JV, JA
+
+        JV, JA = self._vmapped(per_bus, V_m_nl.dim() - 2)(
+            self.params, V_m_nl, V_a_nl)
+        return JV * self._s(2), JA * self._s(2)
+
+
+def norton_inject(params, V_m, V_a) -> Cx:
+    """Norton-equivalent injection as an analytic device: params = (I_N,
+    Y_N) with Y_N (H, H); I = I_N − Y_N·V."""
+    I_N, Y_N = params
+    return I_N - cx.matvec(Y_N, cx.polar(V_m, V_a))
+
+
+def check_devices(devices, library: bool = False) -> None:
+    """Raise ``TypeError`` unless ``devices`` is a DeviceSet, an
+    AnalyticDeviceSet or, where ``library``, a DeviceLibrary."""
+    kinds = (DeviceSet, AnalyticDeviceSet) + ((DeviceLibrary,)
+                                              if library else ())
+    if not isinstance(devices, kinds):
+        raise TypeError(
+            f"devices must be one of {', '.join(k.__name__ for k in kinds)}"
+            f", got {type(devices).__name__}"
+            + ("" if library else
+               " (a DeviceLibrary takes a sweep with Scenarios.device_mix)"))

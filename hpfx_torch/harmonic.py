@@ -25,7 +25,7 @@ import torch
 from . import cx
 from .config import Settings
 from .cx import Cx
-from .devices import DeviceSet
+from .devices import AnalyticDeviceSet, DeviceSet, check_devices
 from .fundamental import FundResult, _power_jacobian_blocks, solve_fundamental
 from .network import Network
 from .ops.batched_solve import nr_solve
@@ -45,22 +45,12 @@ class HPFResult(NamedTuple):
     trajectory: Optional[torch.Tensor] = None
 
 
-def _unported(devices, I_bg) -> None:
-    """Raise for the inputs the port does not take yet."""
-    if I_bg is not None:
-        raise NotImplementedError(
-            "background injections (I_bg) are not ported to hpfx_torch "
-            "(ROADMAP.md §1 item 4)")
-    if not isinstance(devices, DeviceSet):
-        raise NotImplementedError(
-            f"hpfx_torch takes Norton DeviceSets only, got "
-            f"{type(devices).__name__}: AnalyticDeviceSet and device "
-            "libraries are not ported (ROADMAP.md §1 item 4)")
-
-
-def current_injections(V_c: Cx, devices: DeviceSet, m: int) -> Cx:
-    """Norton current injections I_N − Y_N·V of every nonlinear bus,
-    (..., n_nl, H)."""
+def current_injections(V_c: Cx, devices, m: int, V_m=None, V_a=None) -> Cx:
+    """Current injections of every nonlinear bus, (..., n_nl, H): Norton
+    I_N − Y_N·V, or an AnalyticDeviceSet's own function of the polar
+    ``V_m``/``V_a``."""
+    if isinstance(devices, AnalyticDeviceSet):
+        return devices.injections(V_m[..., :, m:], V_a[..., :, m:])
     V_nl = V_c[..., :, m:]                              # (..., H, n_nl)
     if devices.coupled:
         return devices.I_N - cx.einsum("...dhp,...pd->...dh", devices.Y_N,
@@ -68,13 +58,16 @@ def current_injections(V_c: Cx, devices: DeviceSet, m: int) -> Cx:
     return devices.I_N - devices.Y_N * V_nl.mT
 
 
-def current_balance(V_c: Cx, Y: Cx, devices: DeviceSet, m: int, n: int,
-                    YV: Optional[Cx] = None) -> Cx:
+def current_balance(V_c: Cx, Y: Cx, devices, m: int, n: int,
+                    V_m=None, V_a=None, YV: Optional[Cx] = None,
+                    I_bg: Optional[Cx] = None) -> Cx:
     """Current balance: the fundamental at the nonlinear buses, then every
     bus at each harmonic above it, injections added at the nonlinear
     buses.  ``YV``: optional precomputed (..., H, n) Y·V (the stable
-    mismatch)."""
-    I_inj = current_injections(V_c, devices, m)         # (..., n_nl, H)
+    mismatch).  ``I_bg``: optional constant (..., H, n) background
+    injections (fundamental row zero), added on every bus's harmonic
+    rows."""
+    I_inj = current_injections(V_c, devices, m, V_m, V_a)  # (..., n_nl, H)
     if YV is None:
         dI_f = cx.matvec(Y[0, m:, :], V_c[..., 0, :]) + I_inj[..., :, 0]
         dI_h = cx.einsum("hij,...hj->...hi", Y[1:], V_c[..., 1:, :])
@@ -83,22 +76,25 @@ def current_balance(V_c: Cx, Y: Cx, devices: DeviceSet, m: int, n: int,
         dI_h = YV[..., 1:, :]
     dI_h = dI_h.at_add((..., slice(None), slice(m, None)),
                        I_inj[..., :, 1:].mT)
+    if I_bg is not None:
+        dI_h = dI_h + I_bg[..., 1:, :]
     return cx.concatenate([dI_f, Cx(dI_h.re.flatten(-2),
                                     dI_h.im.flatten(-2))], axis=-1)
 
 
-def harmonic_mismatch(V_m, V_a, Y: Cx, S: Cx, devices: DeviceSet,
-                      m: int, n: int, c: int, lineY=None):
+def harmonic_mismatch(V_m, V_a, Y: Cx, S: Cx, devices,
+                      m: int, n: int, c: int, lineY=None,
+                      I_bg: Optional[Cx] = None):
     """Harmonic mismatch f = [Re f_c, Im f_c[c-1:]] with f_c = [dS (power,
     linear non-slack buses), dI (current balance)], and its max-abs err.
     ``lineY``: optional ``LineYbus``; every Y·V is then taken in the
-    cancellation-free form."""
+    cancellation-free form.  ``I_bg``: as in :func:`current_balance`."""
     V_c = cx.polar(V_m, V_a)
     YV = None if lineY is None else stable_matvec(lineY, V_m, V_a)
     I1 = cx.matvec(Y[0, 1:m, :], V_c[..., 0, :]) if YV is None \
         else YV[..., 0, 1:m]
     dS = S[..., 1:m] + V_c[..., 0, 1:m] * I1.conj()
-    dI = current_balance(V_c, Y, devices, m, n, YV=YV)
+    dI = current_balance(V_c, Y, devices, m, n, V_m, V_a, YV=YV, I_bg=I_bg)
     f_c = cx.concatenate([dS, dI], axis=-1)
     f = torch.cat([f_c.re, f_c.im[..., c - 1:]], dim=-1)
     return f, f.abs().amax(dim=-1)
@@ -121,10 +117,17 @@ def update_harmonic_voltages(V_m, V_a, x, H: int, n: int, c: int):
     return V_m.reshape(shape), V_a.reshape(shape)
 
 
-def norton_coupling(V_m, V_a, devices: DeviceSet, m: int):
-    """K_V, K_A (..., H, H, n_nl): what the Norton devices add to the
-    Jacobian's (h·n+i, p·n+i) entries, i = m + d: −Y_N[d,h,p]·Vn[p,i] and
-    −j·Y_N[d,h,p]·V[p,i]; an uncoupled device only at h == p."""
+def norton_coupling(V_m, V_a, devices, m: int):
+    """K_V, K_A (..., H, H, n_nl): what the devices add to the Jacobian's
+    (h·n+i, p·n+i) entries, i = m + d.  Norton: −Y_N[d,h,p]·Vn[p,i] and
+    −j·Y_N[d,h,p]·V[p,i], an uncoupled device only at h == p; an
+    AnalyticDeviceSet: dI_inj[d,h]/dV_m[p] and dI_inj[d,h]/dV_a[p] by
+    forward-mode autodiff."""
+    if isinstance(devices, AnalyticDeviceSet):
+        JV, JA = devices.injection_jacobians(V_m[..., :, m:],
+                                             V_a[..., :, m:])
+        return (Cx(_device_last(JV.re), _device_last(JV.im)),
+                Cx(_device_last(JA.re), _device_last(JA.im)))
     Vn_nl = cx.expj(V_a)[..., :, m:]                    # (..., H, n_nl)
     V_nl = cx.polar(V_m, V_a)[..., :, m:]
     if devices.coupled:
@@ -136,6 +139,11 @@ def norton_coupling(V_m, V_a, devices: DeviceSet, m: int):
     diag = lambda z: Cx(eye * z.re[..., :, None, :], eye * z.im[..., :, None, :])
     Yt = devices.Y_N.mT                                 # (..., H, n_nl)
     return diag(-(Yt * Vn_nl)), diag(-(Yt * V_nl).jmul())
+
+
+def _device_last(J):
+    """(..., n_nl, H, H) -> (..., H, H, n_nl)."""
+    return J.movedim(-3, -1)
 
 
 class _JacobianMap(NamedTuple):
@@ -187,7 +195,7 @@ def _jacobian_map(H: int, n: int, m: int, c: int,
     return _JacobianMap(dim=dim, copies=tuple(copies), adds=tuple(adds))
 
 
-def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices: DeviceSet,
+def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
                             m: int, n: int, c: int):
     """Dense real harmonic Jacobian (..., dim, dim), dim = 2·H·n − 1 − c
     (``hpfx.harmonic.build_harmonic_jacobian``, the same values):
@@ -224,21 +232,24 @@ def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices: DeviceSet,
     return J.reshape(batch + (mp.dim, mp.dim))
 
 
-def mismatch_floor(V_m, Y: Cx, devices: DeviceSet, m: int,
-                   settings: Settings):
+def mismatch_floor(V_m, Y: Cx, devices, m: int, settings: Settings,
+                   I_bg: Optional[Cx] = None):
     """Evaluation floor of the harmonic mismatch, eps·scale, with scale the
     largest row sensitivity: max over (h, i) of sum_j |Y[h,i,j]|·|V_j|,
-    and of sum_p |Y_N[·,h,p]|·|V_p| on the nonlinear rows."""
+    of sum_p |Y_N[·,h,p]|·|V_p| on the nonlinear rows of Norton devices,
+    and of the background injections |I_bg|."""
     eps = torch.finfo(settings.real_dtype).eps
     vmax = V_m.abs()                                    # (..., H, n)
     scale = torch.einsum("hij,...hj->...hi", Y.abs(), vmax).amax(dim=(-2, -1))
-    if devices.n_devices > 0:
+    if isinstance(devices, DeviceSet) and devices.n_devices > 0:
         v_nl = vmax[..., :, m:]                         # (..., H, n_nl)
         if devices.coupled:
             inj = torch.einsum("...dhp,...pd->...dh", devices.Y_N.abs(), v_nl)
         else:
             inj = devices.Y_N.abs() * v_nl.mT
         scale = torch.maximum(scale, inj.amax(dim=(-2, -1)))
+    if I_bg is not None:
+        scale = torch.maximum(scale, I_bg.abs().amax(dim=(-2, -1)))
     return eps * scale
 
 
@@ -265,7 +276,7 @@ def cleanup_voltages(V_m, V_a):
 
 
 def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
-                   devices: DeviceSet, settings: Settings, V0=None,
+                   devices, settings: Settings, V0=None,
                    record_trajectory: bool = False, lineY=None,
                    I_bg=None) -> HPFResult:
     """The harmonic Newton loop (``hpfx.harmonic.solve_harmonic``).
@@ -273,7 +284,11 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
     ``V0``: optional (V_m, V_a) start in place of the flat start; the
     floor-aware threshold, max(thresh_h, floor_kappa·mismatch_floor), is
     taken at the cold flat start either way.  ``record_trajectory`` keeps
-    the raw (V_m, V_a) of every iteration.  ``settings.solver`` picks the
+    the raw (V_m, V_a) of every iteration.  ``devices``: a Norton
+    DeviceSet or an AnalyticDeviceSet; anything else raises
+    ``TypeError``.  ``I_bg``: optional constant (..., H, n) background
+    injections (``hpfx_torch.background``; fundamental row zero): they
+    enter the mismatch and the floor, not the Jacobian.  ``settings.solver`` picks the
     Newton step: "dense" solves the dense Jacobian (:func:`nr_solve`),
     "arrow" its block and Woodbury structure (``hpfx_torch.arrow``).
 
@@ -284,7 +299,7 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
     flag, never a gather of the active scenarios, which would change the
     batch the solves see and so their rounding); the loop ends when none
     is active, with one host synchronisation per iteration."""
-    _unported(devices, I_bg)
+    check_devices(devices)
     H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
     rd, dv = settings.real_dtype, net.device
     S = Cx(net.bus_P, net.bus_Q)
@@ -292,10 +307,11 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
     cold_V_m, cold_V_a = init_harmonic_voltages(fund, net, settings)
     V_m, V_a = (cold_V_m, cold_V_a) if V0 is None else V0
     batch = cold_V_m.shape[:-2]
-    f, err = harmonic_mismatch(V_m, V_a, Y, S, devices, m, n, c, lineY)
+    f, err = harmonic_mismatch(V_m, V_a, Y, S, devices, m, n, c, lineY,
+                               I_bg=I_bg)
     thresh = torch.clamp_min(
         settings.floor_kappa
-        * mismatch_floor(cold_V_m, Y, devices, m, settings),
+        * mismatch_floor(cold_V_m, Y, devices, m, settings, I_bg=I_bg),
         settings.thresh_h)
     x = harmonic_state_vector(V_m, V_a, c)
     hist = torch.full(batch + (settings.max_iter_h,), float("nan"),
@@ -324,7 +340,7 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
         x_new = x - newton_step(V_m, V_a, f)
         Vm_new, Va_new = update_harmonic_voltages(V_m, V_a, x_new, H, n, c)
         f_new, err_new = harmonic_mismatch(Vm_new, Va_new, Y, S, devices,
-                                           m, n, c, lineY)
+                                           m, n, c, lineY, I_bg=I_bg)
         a1, a2 = act[..., None], act[..., None, None]
         V_m = torch.where(a2, Vm_new, V_m)
         V_a = torch.where(a2, Va_new, V_a)
@@ -344,7 +360,7 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
     return HPFResult(V_m, V_a, err, it, hist, err <= thresh, fund, traj)
 
 
-def hpf(net: Network, devices: DeviceSet, settings: Settings, Y=None,
+def hpf(net: Network, devices, settings: Settings, Y=None,
         V0=None, record_trajectory: bool = False, I_bg=None,
         Y_diag: Optional[Cx] = None) -> HPFResult:
     """Full harmonic power flow (``hpfx.harmonic.hpf``): admittances, the
@@ -354,9 +370,9 @@ def hpf(net: Network, devices: DeviceSet, settings: Settings, Y=None,
     ``(Y, lineY, lineY_f)`` triple that carries its own structures.
     ``Y_diag``: optional (H, n) per-bus shunt admittances folded into the
     built admittances and the line structure's diagonal (ignored with a
-    ``Y`` override).  ``V0``: optional (V_m, V_a) start.  ``I_bg`` is not
-    ported and raises."""
-    _unported(devices, I_bg)
+    ``Y`` override).  ``V0``: optional (V_m, V_a) start.  ``I_bg``:
+    optional (H, n) background injections (:func:`solve_harmonic`)."""
+    check_devices(devices)
     if Y is None:
         Y = build_ybus(net, settings)
         lineY, lineY_f = line_ybus_pair(net, settings)
@@ -370,4 +386,5 @@ def hpf(net: Network, devices: DeviceSet, settings: Settings, Y=None,
         Y, lineY, lineY_f = resolve_ybus(net, settings, Y)
     fund = solve_fundamental(Y[0], net, settings, lineY=lineY_f)
     return solve_harmonic(Y, fund, net, devices, settings, V0=V0,
-                          record_trajectory=record_trajectory, lineY=lineY)
+                          record_trajectory=record_trajectory, lineY=lineY,
+                          I_bg=I_bg)

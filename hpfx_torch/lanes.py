@@ -7,12 +7,16 @@ are (``hpfx_torch.ops.batched_solve``).  The math is that of the JAX
 module, function for function, with the same names, so intermediates
 compare one to one.
 
-Scope of the port: the structured arrow Newton step (``Settings.solver =
-"arrow"``) with stacked Norton-equivalent devices (:class:`DeviceSet`,
-coupled or uncoupled), plain or stable mismatch, PV buses and per-device
-injection scales.  ``lax.while_loop`` becomes a Python ``while`` on
-``bool(active.any())``: one device-to-host synchronisation per Newton
-trip.
+Scope: the structured arrow Newton step (``Settings.solver = "arrow"``)
+with stacked Norton-equivalent devices (:class:`DeviceSet`, coupled or
+uncoupled), device mixes (a :class:`DeviceLibrary` blended per scenario
+by ``Scenarios.device_mix``, :class:`LaneDevices` with a trailing lane
+axis) and autodiff devices (:class:`AnalyticDeviceSet`, vectorized over
+the lanes by ``torch.func.vmap``); plain or stable mismatch, PV buses,
+per-device injection scales, warm starts, a ``Y`` override and
+per-scenario background injections ``I_bg``.  ``lax.while_loop``
+becomes a Python ``while`` on ``bool(active.any())``: one device-to-host
+synchronisation per Newton trip.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from . import cx
 from .arrow import _ArrowConsts, _make_arrow_consts
 from .config import Settings
 from .cx import Cx
-from .devices import DeviceSet
+from .devices import AnalyticDeviceSet, DeviceLibrary, DeviceSet
 from .fundamental import FundResult
 from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
@@ -93,6 +97,67 @@ def _trip(log: Optional[PhaseLog]):
         log.trip()
 
 
+class LaneDevices(NamedTuple):
+    """Norton parameters in the lane layout (``hpfx.lanes.LaneDevices``).
+
+    ``batched=False``: a DeviceSet's arrays, I_N (n_nl, H) and Y_N
+    (n_nl, H, H) or (n_nl, H), shared by every lane.  ``batched=True``:
+    per-lane arrays with a trailing lane axis, I_N (n_nl, H, B) and Y_N
+    (n_nl, H, H, B) or (n_nl, H, B), blended once per sweep from a
+    DeviceLibrary and the lanes' device mixes."""
+    I_N: Cx
+    Y_N: Cx
+    coupled: bool
+    batched: bool
+
+
+def _as_lane_devices(devices):
+    if isinstance(devices, (LaneDevices, AnalyticDeviceSet)):
+        return devices
+    return LaneDevices(devices.I_N, devices.Y_N, devices.coupled, False)
+
+
+def _mix_lane_devices(lib: DeviceLibrary, mix, rd) -> LaneDevices:
+    """Blend a DeviceLibrary with (B, n_nl, T) weights into lane-major
+    device arrays: I_N[d, h, b] = sum_t mix[b, d, t]·I_lib[t, h] (Y_N the
+    same)."""
+    w = mix.to(rd)
+    es = lambda spec, arr: Cx(torch.einsum(spec, w, arr.re),
+                              torch.einsum(spec, w, arr.im))
+    return LaneDevices(
+        I_N=es("bdt,th->dhb", lib.I_lib),
+        Y_N=es("bdt,thp->dhpb" if lib.coupled else "bdt,th->dhb", lib.Y_lib),
+        coupled=lib.coupled, batched=True)
+
+
+def _lane(a, batched: bool):
+    """A device array with a trailing lane axis: its own when batched (a
+    device mix), of size 1 when every lane shares it."""
+    return a if batched else a[..., None]
+
+
+def _device_matvec(Y_N: Cx, V_nl: Cx) -> Cx:
+    """sum_p Y_N[d, h, p, b]·V[p, d, b] -> (n_nl, H, B), with Y_N
+    (n_nl, H, H, B|1) and V_nl (H, n_nl, B): one elementwise product and
+    one sum over p, whether the lanes share the devices or not, so that a
+    one-hot device mix of a DeviceSet's types takes the DeviceSet's
+    arithmetic, bit for bit."""
+    V = V_nl.transpose(1, 0, 2)[:, None]                 # (n_nl, 1, H, B)
+    # the products' layout follows their operands' strides; summing a
+    # contiguous copy fixes the order of the sum
+    total = lambda x: x.contiguous().sum(2)
+    return Cx(total(Y_N.re * V.re - Y_N.im * V.im),
+              total(Y_N.re * V.im + Y_N.im * V.re))
+
+
+def _lanes_first(fn, *lanes_last):
+    """Call a batch-first function on lane-last tensors and move the lane
+    axis of its Cx results back to the end."""
+    out = fn(*(x.movedim(-1, 0) for x in lanes_last))
+    back = lambda z: Cx(z.re.movedim(0, -1), z.im.movedim(0, -1))
+    return back(out) if isinstance(out, Cx) else tuple(map(back, out))
+
+
 def _as_inj_db(inj, n_nl: int, B: int):
     """Injection scale as device-major (n_nl, B): a (B,) per-scenario
     scale broadcasts over devices; 2-D input is already (n_nl, B)."""
@@ -128,22 +193,33 @@ def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
     return out + Cx(acc(flows.re), acc(flows.im))
 
 
-def _injections_lanes(V_c: Cx, dev: DeviceSet, inj_db, m: int) -> Cx:
-    """Norton current injections I_N − Y_N·V on (H, n, B) voltages ->
-    (n_nl, H, B), scaled per device by ``inj_db`` (n_nl, B)."""
+def _injections_lanes(V_c: Cx, dev, inj_db, m: int, V_m=None,
+                      V_a=None) -> Cx:
+    """Current injections on (H, n, B) voltages -> (n_nl, H, B), scaled
+    per device by ``inj_db`` (n_nl, B): Norton I_N − Y_N·V (``dev`` a
+    LaneDevices), or an AnalyticDeviceSet's function of the polar
+    ``V_m``/``V_a``, vectorized over the lanes."""
+    if isinstance(dev, AnalyticDeviceSet):
+        raw = _lanes_first(dev.injections, V_m[:, m:], V_a[:, m:])
+        return raw * inj_db[:, None, :]
     V_nl = V_c[:, m:]                                    # (H, n_nl, B)
+    lane = lambda z: Cx(_lane(z.re, dev.batched), _lane(z.im, dev.batched))
     if dev.coupled:
-        raw = dev.I_N[..., None] - cx.einsum("dhp,pdb->dhb", dev.Y_N, V_nl)
+        raw = lane(dev.I_N) - _device_matvec(lane(dev.Y_N), V_nl)
     else:
-        raw = dev.I_N[..., None] - dev.Y_N[..., None] * V_nl.transpose(1, 0, 2)
+        raw = lane(dev.I_N) - lane(dev.Y_N) * V_nl.transpose(1, 0, 2)
     return raw * inj_db[:, None, :]
 
 
-def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, dev: DeviceSet, inj,
-                   m: int, n: int, c: int, lineY: Optional[LineYbus]):
+def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, devices, inj,
+                   m: int, n: int, c: int, lineY: Optional[LineYbus],
+                   ibg: Optional[Cx] = None):
     """Harmonic mismatch on (H, n, B) voltages; S is the scaled (n, B)
-    load, ``inj`` a (B,) or (n_nl, B) injection scale.
-    Returns (f (rows, B), err (B,))."""
+    load, ``devices`` a DeviceSet, LaneDevices or AnalyticDeviceSet,
+    ``inj`` a (B,) or (n_nl, B) injection scale, ``ibg`` optional (H, n,
+    B) background injections (fundamental row zero) added to the harmonic
+    rows.  Returns (f (rows, B), err (B,))."""
+    dev = _as_lane_devices(devices)
     inj_db = _as_inj_db(inj, n - m, V_m.shape[-1])
     V_c = cx.polar(V_m, V_a)
     if lineY is None:
@@ -152,10 +228,12 @@ def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, dev: DeviceSet, inj,
         YV = stable_matvec_lanes(lineY, V_m, V_a)
     I1 = YV[0, 1:m]
     dS = S[1:m] + V_c[0, 1:m] * I1.conj()               # (m-1, B)
-    I_inj = _injections_lanes(V_c, dev, inj_db, m)       # (n_nl, H, B)
+    I_inj = _injections_lanes(V_c, dev, inj_db, m, V_m, V_a)  # (n_nl, H, B)
     dI_f = YV[0, m:] + I_inj[:, 0]
     dI_h = YV[1:].at_add((_all, slice(m, None)),
                          I_inj[:, 1:].transpose(1, 0, 2))  # (K, n, B)
+    if ibg is not None:
+        dI_h = dI_h + ibg[1:]
     K_, B = dI_h.shape[0], dI_h.shape[2]
     dI = cx.concatenate([dI_f, dI_h.reshape(K_ * n, B)])
     f_c = cx.concatenate([dS, dI])
@@ -163,28 +241,36 @@ def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, dev: DeviceSet, inj,
     return f, f.abs().amax(dim=0)
 
 
-def mismatch_floor_lanes(V_m, Y: Cx, dev: DeviceSet, inj, m: int,
-                         settings: Settings):
+def mismatch_floor_lanes(V_m, Y: Cx, devices, inj, m: int,
+                         settings: Settings, ibg: Optional[Cx] = None):
     """Per-scenario mismatch evaluation floor eps·scale -> (B,)
-    (``hpfx.harmonic.mismatch_floor``)."""
+    (``hpfx.harmonic.mismatch_floor``); ``devices``/``inj``/``ibg`` as in
+    :func:`mismatch_lanes`.  Analytic devices add no Norton sensitivity
+    bound."""
+    dev = _as_lane_devices(devices)
     inj_db = _as_inj_db(inj, V_m.shape[1] - m, V_m.shape[-1])
     eps = torch.finfo(settings.real_dtype).eps
     vmax = V_m.abs()                                      # (H, n, B)
     scale = torch.einsum("hij,hjb->hib", Y.abs(), vmax).amax(dim=(0, 1))
+    if ibg is not None:
+        scale = torch.maximum(scale, ibg.abs().amax(dim=(0, 1)))
+    if isinstance(dev, AnalyticDeviceSet):
+        return eps * scale
     if dev.I_N.shape[0] > 0:
-        v_nl = vmax[:, m:]                                # (H, n_nl, B)
-        if dev.coupled:
-            d_inj = torch.einsum("dhp,pdb->dhb", dev.Y_N.abs(), v_nl)
+        v_dl = vmax[:, m:].permute(1, 0, 2)               # (n_nl, H, B)
+        Ya = _lane(dev.Y_N.abs(), dev.batched)
+        if dev.coupled:   # as _device_matvec sums, for the same reason
+            d_inj = (Ya * v_dl[:, None]).contiguous().sum(2)
         else:
-            d_inj = dev.Y_N.abs()[..., None] * v_nl.permute(1, 0, 2)
+            d_inj = Ya * v_dl
         scale = torch.maximum(
             scale, (d_inj * inj_db.abs()[:, None, :]).amax(dim=(0, 1)))
     return eps * scale
 
 
-def _thresh_lanes(V_m, Y, dev, inj_db, m, settings):
+def _thresh_lanes(V_m, Y, dev, inj_db, m, settings, ibg=None):
     """Floor-aware convergence threshold max(thresh_h, kappa·floor)."""
-    floor = mismatch_floor_lanes(V_m, Y, dev, inj_db, m, settings)
+    floor = mismatch_floor_lanes(V_m, Y, dev, inj_db, m, settings, ibg=ibg)
     return torch.clamp_min(settings.floor_kappa * floor, settings.thresh_h)
 
 
@@ -205,30 +291,38 @@ def _power_jacobian_blocks_lanes(V: Cx, Vn: Cx, Y: Cx, n: int):
     return dSdA, dSdV
 
 
-def _coupling_lanes(V_m, V_a, dev: DeviceSet, inj_db, m: int):
-    """K_V/K_A (H, H, n_nl, B): the Norton coupling of harmonic p into
-    harmonic h at every nonlinear bus, scaled per device."""
+def _coupling_lanes(V_m, V_a, dev, inj_db, m: int):
+    """K_V/K_A (H, H, n_nl, B): the coupling of harmonic p into harmonic h
+    at every nonlinear bus, scaled per device; for an AnalyticDeviceSet
+    the autodiff blocks, vectorized over the lanes."""
+    s = inj_db[None, None, :, :]
+    if isinstance(dev, AnalyticDeviceSet):
+        JV, JA = _lanes_first(dev.injection_jacobians, V_m[:, m:],
+                              V_a[:, m:])                 # (n_nl, H, H, B)
+        return JV.transpose(1, 2, 0, 3) * s, JA.transpose(1, 2, 0, 3) * s
     Vn_nl = cx.expj(V_a)[:, m:]                           # (H, n_nl, B)
     V_nl = cx.polar(V_m, V_a)[:, m:]
     if dev.coupled:
-        K_V = -cx.einsum("dhp,pdb->hpdb", dev.Y_N, Vn_nl)
-        K_A = -cx.einsum("dhp,pdb->hpdb", dev.Y_N, V_nl).jmul()
+        spec = "dhpb,pdb->hpdb" if dev.batched else "dhp,pdb->hpdb"
+        K_V = -cx.einsum(spec, dev.Y_N, Vn_nl)
+        K_A = -cx.einsum(spec, dev.Y_N, V_nl).jmul()
     else:
         H, n_nl, B = Vn_nl.shape
-        Yt = dev.Y_N.T[..., None]                         # (H, n_nl, 1)
+        Yt = dev.Y_N.transpose(1, 0, 2) if dev.batched \
+            else dev.Y_N.T[..., None]                     # (H, n_nl, B|1)
         hh = torch.arange(H, device=V_m.device)
         z = cx.zeros((H, H, n_nl, B), V_m.dtype, V_m.device)
         K_V = z.at_set((hh, hh), -(Yt * Vn_nl))
         K_A = z.at_set((hh, hh), -(Yt * V_nl).jmul())
-    s = inj_db[None, None, :, :]
     return K_V * s, K_A * s
 
 
-def arrow_step_lanes(V_m, V_a, f, Y: Cx, dev: DeviceSet, inj,
+def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
                      consts: _ArrowConsts, big_solve: str = "auto"):
     """One arrow Newton-step solve J dx = f on (H, n, B) state and
     (dim, B) mismatch -> dx (dim, B): per-harmonic block solves plus the
-    Woodbury capacitance solve (``hpfx.lanes.arrow_step_lanes``)."""
+    Woodbury capacitance solve (``hpfx.lanes.arrow_step_lanes``).
+    ``devices``/``inj`` as in :func:`mismatch_lanes`."""
     idx = consts.idx
     H, n, m, c, d0 = idx.H, idx.n, idx.m, idx.c, idx.d0
     n_nl = n - m
@@ -237,6 +331,7 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, dev: DeviceSet, inj,
     r_blk = 2 * n_nl
     rd, dv = V_m.dtype, V_m.device
     B = V_m.shape[-1]
+    dev = _as_lane_devices(devices)
     inj_db = _as_inj_db(inj, n_nl, B)
 
     V_c = cx.polar(V_m, V_a)
@@ -412,9 +507,12 @@ def solve_fundamental_lanes(Y1: Cx, S: Cx, net: Network, settings: Settings,
 # ---------------------------------------------------------------------------
 
 def supports_lanes(devices, settings: Settings, net: Network) -> bool:
-    """Whether the port implements this configuration."""
-    return (settings.solver == "arrow" and net.n > net.m
-            and isinstance(devices, DeviceSet) and devices.n_devices > 0)
+    """Whether the lane-major path implements this configuration."""
+    if settings.solver != "arrow" or net.n <= net.m:
+        return False
+    if isinstance(devices, (DeviceLibrary, AnalyticDeviceSet)):
+        return True
+    return isinstance(devices, DeviceSet) and devices.n_devices > 0
 
 
 def _scale_cols(base, scale):
@@ -425,19 +523,22 @@ def _scale_cols(base, scale):
     return base[:, None] * s.T
 
 
-def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev: DeviceSet, inj_db, V_m, V_a,
+def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
                   settings: Settings, consts: _ArrowConsts, thresh_eff,
-                  f0=None, log: Optional[PhaseLog] = None):
+                  f0=None, ibg: Optional[Cx] = None,
+                  log: Optional[PhaseLog] = None):
     """The lane-major harmonic NR loop from state (V_m, V_a) (H, n, B) to
     convergence or ``max_iter_h``.  ``f0``: optional precomputed (f, err)
-    at the initial state.  Returns raw (V_m, V_a, err, n_iter, err_hist);
-    callers apply ``cleanup_voltages``."""
+    at the initial state; ``ibg``: optional (H, n, B) background
+    injections.  Returns raw (V_m, V_a, err, n_iter, err_hist); callers
+    apply ``cleanup_voltages``."""
     idx = consts.idx
     H, n, m, c = idx.H, idx.n, idx.m, idx.c
     B = V_m.shape[-1]
     rd, dv = V_m.dtype, V_m.device
     if f0 is None:
-        f, err = mismatch_lanes(V_m, V_a, Y, S, dev, inj_db, m, n, c, lineY)
+        f, err = mismatch_lanes(V_m, V_a, Y, S, dev, inj_db, m, n, c, lineY,
+                                ibg=ibg)
     else:
         f, err = f0
     hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
@@ -472,7 +573,7 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev: DeviceSet, inj_db, V_m, V_a,
         Vm_new = torch.cat([V_m.reshape(D, B)[:c], x_new[D - 1:]],
                            dim=0).reshape(H, n, B)
         f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev, inj_db,
-                                        m, n, c, lineY)
+                                        m, n, c, lineY, ibg=ibg)
         V_m = torch.where(act, Vm_new, V_m)
         V_a = torch.where(act, Va_new, V_a)
         x = torch.where(act, x_new, x)
@@ -490,24 +591,30 @@ class _SweepSetup(NamedTuple):
     Y: Cx
     lineY: object
     S: Cx
-    dev: DeviceSet
+    dev: object                  # LaneDevices or AnalyticDeviceSet
     inj_db: torch.Tensor
     fund: FundLanes
     cold_V_m: torch.Tensor
     cold_V_a: torch.Tensor
     consts: _ArrowConsts
     thresh: torch.Tensor         # floor-aware, evaluated at the COLD state
+    ibg: Optional[Cx] = None     # (H, n, B) background injections
 
 
-def _sweep_setup(net: Network, devices: DeviceSet, settings: Settings,
-                 scenarios, log: Optional[PhaseLog] = None) -> _SweepSetup:
-    """Admittances, scenario-scaled powers and injections, the batched
-    fundamental solve, the cold start and the floor-aware threshold
-    (evaluated at the cold state even for warm starts)."""
+def _sweep_setup(net: Network, devices, settings: Settings, scenarios,
+                 Y=None, I_bg=None, log: Optional[PhaseLog] = None
+                 ) -> _SweepSetup:
+    """Admittances (``Y``: None, a dense Cx or a (Y, lineY, lineY_f)
+    triple, :func:`hpfx_torch.ybus.resolve_ybus`), scenario-scaled powers
+    and injections, the lane devices (a DeviceLibrary blended by
+    ``scenarios.device_mix``), the batched fundamental solve, the cold
+    start, the background injections ``I_bg`` (batch-major (B, H, n),
+    carried (H, n, B)) and the floor-aware threshold (evaluated at the
+    cold state even for warm starts)."""
     H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
     rd, dv = settings.real_dtype, net.device
     B = scenarios.p_scale.shape[0]
-    Y, lineY, lineY_f = resolve_ybus(net, settings)
+    Y, lineY, lineY_f = resolve_ybus(net, settings, Y)
 
     q_scale = scenarios.q_scale if scenarios.q_scale is not None \
         else scenarios.p_scale
@@ -516,6 +623,13 @@ def _sweep_setup(net: Network, devices: DeviceSet, settings: Settings,
     inj = inj.to(rd)
     # per-device scales arrive batch-major (B, n_nl); lanes carry (n_nl, B)
     inj_db = _as_inj_db(inj.T if inj.ndim == 2 else inj, n - m, B)
+    mix = getattr(scenarios, "device_mix", None)
+    if (mix is not None) != isinstance(devices, DeviceLibrary):
+        raise ValueError(
+            "Scenarios.device_mix requires passing a DeviceLibrary as "
+            "devices (and vice versa)")
+    dev = (_mix_lane_devices(devices, mix, rd) if mix is not None
+           else _as_lane_devices(devices))
     S = Cx(_scale_cols(net.bus_P, scenarios.p_scale),
            _scale_cols(net.bus_Q, q_scale))
 
@@ -525,19 +639,25 @@ def _sweep_setup(net: Network, devices: DeviceSet, settings: Settings,
     cold_V_m[0] = fund.V_m
     cold_V_a = torch.full((H, n, B), settings.a_init_h, dtype=rd, device=dv)
     cold_V_a[0] = fund.V_a
+    ibg = None
+    if I_bg is not None:
+        ibg = Cx(torch.movedim(I_bg.re.to(rd), 0, -1),
+                 torch.movedim(I_bg.im.to(rd), 0, -1))
     consts = _make_arrow_consts(H, n, m, c, rd, dv)
-    thresh = _thresh_lanes(cold_V_m, Y, devices, inj_db, m, settings)
-    return _SweepSetup(Y, lineY, S, devices, inj_db, fund, cold_V_m,
-                       cold_V_a, consts, thresh)
+    thresh = _thresh_lanes(cold_V_m, Y, dev, inj_db, m, settings, ibg=ibg)
+    return _SweepSetup(Y, lineY, S, dev, inj_db, fund, cold_V_m,
+                       cold_V_a, consts, thresh, ibg)
 
 
-def hpf_sweep_lanes(net: Network, devices: DeviceSet, settings: Settings,
-                    scenarios, V0=None,
+def hpf_sweep_lanes(net: Network, devices, settings: Settings,
+                    scenarios, V0=None, Y=None, I_bg=None,
                     log: Optional[PhaseLog] = None) -> HPFResult:
     """Batched HPF sweep with the scenario batch lane-minor throughout;
     returns the batch-major ``HPFResult``.  ``V0``: optional batch-major
-    (B, H, n) (V_m, V_a) start, used as given."""
-    su = _sweep_setup(net, devices, settings, scenarios, log=log)
+    (B, H, n) (V_m, V_a) start, used as given; ``Y``, ``I_bg`` as in
+    :func:`_sweep_setup`."""
+    su = _sweep_setup(net, devices, settings, scenarios, Y=Y, I_bg=I_bg,
+                      log=log)
     if V0 is None:
         V_m, V_a = su.cold_V_m, su.cold_V_a
     else:
@@ -546,7 +666,7 @@ def hpf_sweep_lanes(net: Network, devices: DeviceSet, settings: Settings,
         V_a = torch.movedim(V0[1].to(rd), 0, -1)
     V_m, V_a, err, n_iter, hist = nr_trip_lanes(
         su.Y, su.lineY, su.S, su.dev, su.inj_db, V_m, V_a, settings,
-        su.consts, su.thresh, log=log)
+        su.consts, su.thresh, ibg=su.ibg, log=log)
     V_m, V_a = cleanup_voltages(V_m, V_a)
     return _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
 
@@ -556,13 +676,17 @@ def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
     current-balance rows are linear in rectangular coordinates, so one
     real-embedded (2·(H−1)·n)² solve per lane lands phase 1 on the exact
     harmonic solution at the just-solved fundamental
-    (``hpfx.lanes._linear_seed_lanes``).  Returns the (H, n, B) start."""
+    (``hpfx.lanes._linear_seed_lanes``).  Needs Norton LaneDevices,
+    batched (a device mix) or not; background injections move to the
+    right-hand side.  Returns the (H, n, B) start."""
     H, n, m = settings.n_harmonics, net.n, net.m
     K, rd = H - 1, settings.real_dtype
     dev, inj = su.dev, su.inj_db                      # inj: (n_nl, B)
     B, dv = inj.shape[-1], inj.device
     eyeN = torch.eye(n, dtype=rd, device=dv)
     eyeK = torch.eye(K, dtype=rd, device=dv)
+    # device arrays with a trailing lane axis (of size 1 when shared)
+    lane = lambda a: _lane(a, dev.batched)
 
     # per-lane device coupling, scaled like _injections_lanes:
     # D[h, p, i, b] on the nonlinear buses
@@ -571,13 +695,13 @@ def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
     D_im = torch.zeros((K, K, n, B), dtype=rd, device=dv)
     if dev.coupled:
         s_ = inj[:, None, None, :]
-        D_re[:, :, m:, :] = torch.movedim(YN.re[:, 1:, 1:, None] * s_, 0, 2)
-        D_im[:, :, m:, :] = torch.movedim(YN.im[:, 1:, 1:, None] * s_, 0, 2)
+        D_re[:, :, m:, :] = torch.movedim(lane(YN.re[:, 1:, 1:]) * s_, 0, 2)
+        D_im[:, :, m:, :] = torch.movedim(lane(YN.im[:, 1:, 1:]) * s_, 0, 2)
     else:
         s_ = inj[:, None, :]
         i = torch.arange(K, device=dv)
-        D_re[i, i, m:, :] = torch.movedim(YN.re[:, 1:, None] * s_, 0, 1)
-        D_im[i, i, m:, :] = torch.movedim(YN.im[:, 1:, None] * s_, 0, 1)
+        D_re[i, i, m:, :] = torch.movedim(lane(YN.re[:, 1:]) * s_, 0, 1)
+        D_im[i, i, m:, :] = torch.movedim(lane(YN.im[:, 1:]) * s_, 0, 1)
 
     # A = blockdiag(Y) − δ_ij·D, lane-major (K·n, K·n, lanes)
     def assemble(Ypart, D):
@@ -588,13 +712,15 @@ def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
 
     V1 = cx.polar(su.fund.V_m, su.fund.V_a)           # (n, B)
     si = inj[:, None, :]
-    rhs_nl = -(Cx(IN.re[:, 1:, None], IN.im[:, 1:, None]) * si)
+    rhs_nl = -(Cx(lane(IN.re[:, 1:]), lane(IN.im[:, 1:])) * si)
     if dev.coupled:
-        col0 = Cx(YN.re[:, 1:, 0, None], YN.im[:, 1:, 0, None])
+        col0 = Cx(lane(YN.re[:, 1:, 0]), lane(YN.im[:, 1:, 0]))
         rhs_nl = rhs_nl + (col0 * si) * V1[m:][:, None, :]
     rhs = cx.zeros((K, n, B), rd, dv).at_set(
         (_all, slice(m, None), _all),
         Cx(torch.movedim(rhs_nl.re, 0, 1), torch.movedim(rhs_nl.im, 0, 1)))
+    if su.ibg is not None:
+        rhs = rhs - su.ibg[1:]
 
     N = K * n
 
@@ -621,16 +747,18 @@ def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
     return V_m, V_a
 
 
-def hpf_sweep_adaptive_lanes(net: Network, devices: DeviceSet,
-                             settings: Settings, scenarios,
-                             phase_iters: int = 24, rescue_width=None,
-                             warm: str = "cold",
+def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
+                             scenarios, phase_iters: int = 24,
+                             rescue_width=None, warm: str = "cold",
+                             V0=None, I_bg=None,
                              log: Optional[PhaseLog] = None) -> HPFResult:
     """Two-phase adaptive sweep with a gathered straggler rescue
     (``hpfx.lanes.hpf_sweep_adaptive_lanes``):
 
       1. phase 1: full-width trip capped at ``phase_iters``, from the cold
-         flat start or (``warm="linear"``) the exact-linear Norton seed;
+         flat start, an explicit ``V0`` (batch-major (B, H, n), its
+         fundamental row replaced by the sweep's own fundamental) or
+         (``warm="linear"``, Norton devices) the exact-linear seed;
       2. phase 2: the ``rescue_width`` worst lanes (default
          ``max(128, B // 16)``) are gathered into a narrow batch and
          continue warm from their own phase-1 state with the remaining
@@ -639,19 +767,29 @@ def hpf_sweep_adaptive_lanes(net: Network, devices: DeviceSet,
          start with a fresh full budget;
       4. scatter back, splicing full-width ``err_hist``.
 
-    Stragglers beyond ``rescue_width`` keep their phase-1 state and are
-    reported unconverged.  ``rescue_width`` is an int (bucketed widths
-    are not ported).  ``log``: optional :class:`PhaseLog`."""
-    if rescue_width is not None and not isinstance(rescue_width, int):
-        raise NotImplementedError("only an int rescue_width is supported")
+    Stragglers beyond the width keep their phase-1 state and are reported
+    unconverged.  A tuple ``rescue_width`` gives bucketed widths: the
+    smallest that covers the phase-1 straggler count is chosen on the
+    host (one synchronisation), where the JAX package's ``lax.switch``
+    picks it on the device; with the stragglers inside it, the result is
+    that of the single width of that size, bit for bit.  ``I_bg``:
+    optional batch-major (B, H, n) background injections.  ``log``:
+    optional :class:`PhaseLog`."""
     dv = net.device
     with _phase(log, "setup", dv):
-        su = _sweep_setup(net, devices, settings, scenarios, log=log)
+        su = _sweep_setup(net, devices, settings, scenarios, I_bg=I_bg,
+                          log=log)
     rd = settings.real_dtype
     B = scenarios.p_scale.shape[0]
     p1 = min(phase_iters, settings.max_iter_h)
 
-    if warm == "linear":
+    # the cold state keeps its roles in the floor-aware threshold and the
+    # cold restart whatever phase 1 starts from
+    if V0 is not None:
+        Vm1 = torch.movedim(V0[0].to(rd), 0, -1).clone()
+        Va1 = torch.movedim(V0[1].to(rd), 0, -1).clone()
+        Vm1[0], Va1[0] = su.fund.V_m, su.fund.V_a
+    elif warm == "linear" and isinstance(su.dev, LaneDevices):
         with _phase(log, "seed", dv):
             Vm1, Va1 = _linear_seed_lanes(su, net, settings)
     else:
@@ -660,20 +798,31 @@ def hpf_sweep_adaptive_lanes(net: Network, devices: DeviceSet,
     with _phase(log, "phase1", dv):
         V_m, V_a, err, n_iter, hist1 = nr_trip_lanes(
             su.Y, su.lineY, su.S, su.dev, su.inj_db, Vm1, Va1,
-            settings.with_(max_iter_h=p1), su.consts, su.thresh, log=log)
+            settings.with_(max_iter_h=p1), su.consts, su.thresh,
+            ibg=su.ibg, log=log)
     conv = err <= su.thresh
     hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
                       device=dv)
     hist[:p1] = hist1
 
-    K = min(B, rescue_width if rescue_width is not None
-            else max(128, B // 16))
+    if isinstance(rescue_width, (tuple, list)):
+        widths = sorted({min(B, max(1, int(w))) for w in rescue_width})
+        n_bad = int((~conv).sum())
+        K = widths[sum(n_bad > w for w in widths[:-1])]
+    else:
+        K = min(B, rescue_width if rescue_width is not None
+                else max(128, B // 16))
     # unconverged lanes first (stable: deterministic padding choice)
     bad = torch.argsort(conv.to(rd), stable=True)[:K]
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
-    S_k = Cx(g(su.S.re), g(su.S.im))
+    gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
+    S_k = gcx(su.S)
     inj_k = g(su.inj_db)
+    dev_k = su.dev
+    if isinstance(dev_k, LaneDevices) and dev_k.batched:
+        dev_k = dev_k._replace(I_N=gcx(dev_k.I_N), Y_N=gcx(dev_k.Y_N))
+    ibg_k = gcx(su.ibg)
     thresh_k = g(su.thresh)
     coldVm_k, coldVa_k = g(su.cold_V_m), g(su.cold_V_a)
 
@@ -684,8 +833,8 @@ def hpf_sweep_adaptive_lanes(net: Network, devices: DeviceSet,
         thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
                                thresh_k)
         Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
-            su.Y, su.lineY, S_k, su.dev, inj_k, Vm0, Va0, s_pass,
-            su.consts, thresh_r, log=log)
+            su.Y, su.lineY, S_k, dev_k, inj_k, Vm0, Va0, s_pass,
+            su.consts, thresh_r, ibg=ibg_k, log=log)
         redo = ~convk
         Vmk = torch.where(redo[None, None, :], Vm2, Vmk)
         Vak = torch.where(redo[None, None, :], Va2, Vak)

@@ -22,16 +22,21 @@ from .network import Network
 _all = slice(None)
 
 
-def _series(net: Network, settings: Settings):
-    """(h (H, 1), Ys (H, L), pi-shunt per end Ysh (H, L))."""
+def _series(net: Network, settings: Settings, Rh=None, Ys=None, Ysh=None):
+    """(h (H, 1), Ys (H, L), pi-shunt per end Ysh (H, L)).  ``Rh`` (H, L)
+    replaces ``net.line_R`` per harmonic; ``Ys``/``Ysh`` replace the
+    series admittance and the per-end shunt outright."""
     rd = settings.real_dtype
     h = torch.tensor(settings.harmonics, dtype=rd,
                      device=net.device)[:, None]
     Xh = net.line_X * h
-    R = net.line_R
-    d = R * R + Xh * Xh
-    Ys = Cx(R / d, -Xh / d)                                   # 1/(R+jXh)
-    Ysh = Cx((net.line_G / 2.0).expand(Xh.shape), h * net.line_B / 2.0)
+    if Ys is None:
+        R = net.line_R if Rh is None else torch.as_tensor(
+            Rh, dtype=rd, device=net.device)
+        d = R * R + Xh * Xh
+        Ys = Cx(R / d, -Xh / d)                               # 1/(R+jXh)
+    if Ysh is None:
+        Ysh = Cx((net.line_G / 2.0).expand(Xh.shape), h * net.line_B / 2.0)
     return h, Ys, Ysh
 
 
@@ -55,12 +60,18 @@ def _bus_shunt_im(net: Network, h):
     return torch.where(apply, -1.0 / (safe * h), torch.zeros_like(safe * h))
 
 
-def build_ybus(net: Network, settings: Settings) -> Cx:
+def build_ybus(net: Network, settings: Settings, Rh=None, *,
+               Ys: Cx = None, Ysh: Cx = None) -> Cx:
     """The dense (H, n, n) split-complex admittance tensor, one block per
-    harmonic order in ``settings.harmonics``."""
+    harmonic order in ``settings.harmonics``.
+
+    ``Rh`` (H, L) overrides the series resistance per harmonic and line
+    (frequency-dependent conductors); ``Ys``/``Ysh`` (split-complex
+    (H, L)) replace the series admittance and the per-end pi shunt
+    (G + j·h·B)/2 outright.  Taps, shifts and bus shunts still apply."""
     rd = settings.real_dtype
     n = net.n
-    h, Ys, Ysh = _series(net, settings)
+    h, Ys, Ysh = _series(net, settings, Rh, Ys, Ysh)
     tau = net.line_tau
     inv_t_ft = cx.expj(net.line_shift) * (1.0 / tau)
     inv_t_tf = cx.expj(-net.line_shift) * (1.0 / tau)
@@ -120,11 +131,13 @@ class LineYbus(NamedTuple):
     t_idx: torch.Tensor
 
 
-def build_line_ybus(net: Network, settings: Settings) -> LineYbus:
-    """The line-structured form of the same physics as :func:`build_ybus`."""
+def build_line_ybus(net: Network, settings: Settings, Rh=None, *,
+                    Ys: Cx = None, Ysh: Cx = None) -> LineYbus:
+    """The line-structured form of the same physics as :func:`build_ybus`;
+    ``Rh``/``Ys``/``Ysh`` as there."""
     rd = settings.real_dtype
     H = len(settings.harmonics)
-    h, Ys, Ysh = _series(net, settings)
+    h, Ys, Ysh = _series(net, settings, Rh, Ys, Ysh)
     tau = net.line_tau
     a_ff = 1.0 / (tau * tau)
 
@@ -140,12 +153,14 @@ def build_line_ybus(net: Network, settings: Settings) -> LineYbus:
                     f_idx=net.line_from, t_idx=net.line_to)
 
 
-def line_ybus_pair(net: Network, settings: Settings):
+def line_ybus_pair(net: Network, settings: Settings, Rh=None, *,
+                   Ys: Cx = None, Ysh: Cx = None):
     """(full, fundamental-sliced) LineYbus pair for the stable mismatch,
-    or (None, None) when ``settings.stable_mismatch`` is off."""
+    or (None, None) when ``settings.stable_mismatch`` is off;
+    ``Rh``/``Ys``/``Ysh`` as in :func:`build_ybus`."""
     if not settings.stable_mismatch:
         return None, None
-    full = build_line_ybus(net, settings)
+    full = build_line_ybus(net, settings, Rh, Ys=Ys, Ysh=Ysh)
     fund = full._replace(Ys=full.Ys[:1], d=full.d[:1])
     return full, fund
 

@@ -231,3 +231,21 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_at_add_repeats_accumulate_in_index_order():
+    """Cx.at_add with repeated advanced indices (two lines into one bus)
+    adds the repeats in index order, the order of a sequential loop, bit
+    for bit: the same on every device and every call (a CUDA index_add_
+    would add them in a racing order)."""
+    rng = np.random.default_rng(3)
+    idx = torch.tensor([4, 1, 4, 0, 4, 1, 7])
+    base = ht.Cx(*(torch.tensor(rng.normal(size=8)) for _ in range(2)))
+    val = ht.Cx(*(torch.tensor(rng.normal(size=7) * 10.0 ** rng.integers(
+        -8, 8, 7)) for _ in range(2)))
+    got = base.at_add(idx, val)
+    for part in ("re", "im"):
+        want = getattr(base, part).clone()
+        for i, k in enumerate(idx.tolist()):
+            want[k] += getattr(val, part)[i]
+        assert torch.equal(getattr(got, part), want)

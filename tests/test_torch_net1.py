@@ -177,16 +177,6 @@ def test_adaptive_f32_close_to_f64():
     assert dV.max() <= PHASOR_TOL_F32
 
 
-def test_adaptive_warm_linear_not_ported():
-    _, ts, jnet, jdev, scen = _inputs(2)
-    net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev),
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="norton_warm_start"):
-        ht.hpf_sweep_adaptive(net, dev, ts.with_(dtype="float64"),
-                              ht.Scenarios(*map(torch.tensor, scen)),
-                              warm="linear")
-
-
 def test_warmup_names_its_setting():
     """big_solve="warmup" solves its first trips with the panel-Schur
     solve, which the port leaves out: at net1's dim-182 capacitance system

@@ -519,11 +519,9 @@ def test_sweep_layout_rule(monkeypatch, layout, solver, devices, route):
     assert taken == [route]
 
 
-def test_unported_inputs_raise():
-    """Background injections and non-Norton devices name the queue that
-    holds them."""
+def test_unknown_devices_raise_type_error():
+    """A devices that is none of DeviceSet, AnalyticDeviceSet and
+    DeviceLibrary raises TypeError, naming the types it takes."""
     ts, net, dev = _port_setup(("net2", 5, True))
-    with pytest.raises(NotImplementedError, match="I_bg"):
-        ht.hpf(net, dev, ts, I_bg=Cx(torch.zeros(3, 4), torch.zeros(3, 4)))
-    with pytest.raises(NotImplementedError, match="AnalyticDeviceSet"):
+    with pytest.raises(TypeError, match="DeviceSet, AnalyticDeviceSet"):
         ht.hpf(net, object(), ts)
