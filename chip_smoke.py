@@ -69,7 +69,9 @@ kernels, and checks them:
      with test_net1_h99_parity's rules), each first-iteration Jacobian
      against J0 to 1e-9, and the arrow solver on net2 and net1 H<=25
      against the dense result (identical counts, voltages to 1e-8); at
-     net1 H<=51 c, build_ybus bit for bit over 100 calls and hpf over 3;
+     net1 H<=51 c, build_ybus and stable_matvec (batch-major, B=64) bit
+     for bit over 100 calls and hpf over 3, and fused_trip_ref at net2
+     H<=25 B=4096 in float64 bit for bit over 100 calls;
  12. the dense path: hpf_sweep's vmap layout with solver="dense" in
      float32 from the cold start at bench.py's settings, net2 H<=25
      B=16384 and net1 H<=25 B=2048 (warm-up, three timed reps beside the
@@ -106,12 +108,33 @@ kernels, and checks them:
      in float32 from the exact-linear seed (conv >= 0.999, float32
      against float64 to phase 4's bounds), and in float64 from the cold
      start within 1e-5 pu of the DeviceSet sweep with the same converged
-     flags.
+     flags;
+ 17. bench.py's study stages at its settings and widths: (a)
+     sweep_sensitivity on hpf_sweep's result at net2 H<=25 B=1024 (one
+     warm-up, 3 timed reps each ended by a host copy of the gradients;
+     grads/s and the finite fraction), the gradients finite on every
+     converged scenario, launches of gj_kernel, float64 gradients of 8
+     scenarios on the card against central finite differences
+     (eps = 1e-5) of a float64 hpf_sweep to rtol 2e-4, and float32
+     against float64; (b) assess_quantiles at B=4096 on
+     monte_carlo_scenarios(k, 4096, inj_spread=0.3) and run_timeseries
+     over daily_profile(1008) with percentile_compliance, both through
+     hpf_sweep_device(phase_iters=24, warm="linear") (one warm-up, 2
+     timed reps each; conv >= 0.999), the float32 assessment's thd_q
+     against a float64 assessment of the same draws within THD_BOUND,
+     derived from phase 4's voltage bound; (c) screen_line_outages_sweep
+     at net1 H<=5 uncoupled, S=128 (one warm-up, 2 timed reps; pairs/s,
+     conv), launches of gj_kernel at (38, 1, K·S) and gj_kernel_carried
+     at (118, 1, K·S), identical converged and n_iter arrays from two
+     calls on the same draws, the float64 verification pass (infeasible
+     count, conv among feasible pairs) and worst_thd of 64 converged
+     pairs, drawn with a seeded generator, against a float64 re-solve
+     within THD_BOUND.
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
-dispatcher (ht.batched_solve) runs them at the dense path's shapes
-(BATCH_MAJOR), timing the kernel, the batch-major -> lane-major copy in
-front of it and the whole call apart, and the panel kernel and the
+dispatcher (ht.batched_solve) runs them at the dense path's shapes and
+phase 17's (BATCH_MAJOR), timing the kernel, the batch-major ->
+lane-major copy in front of it and the whole call apart, and the panel kernel and the
 blocked solve at net1 H<=25's dense Jacobian (dim 518, panel (544, 32)).
 It also holds gj_kernel_unrolled (K2u) against its plain version at
 its paths' shapes, beside gj_kernel_carried at the same shapes, and the
@@ -152,7 +175,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false — no result")
 
 import hpfx_torch as ht  # noqa: E402
-from hpfx_torch import fused_trip as ft, lanes  # noqa: E402
+from hpfx_torch import contingency as cg, fused_trip as ft  # noqa: E402
+from hpfx_torch import lanes, ybus  # noqa: E402
 from hpfx_torch.ops import _build, batched_solve as bs  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -169,18 +193,24 @@ KERNELS = {
     # the net2 capacitance system at the main path's batch and at the
     # rescue's width; the net1 arrow blocks at 13 harmonics x B_NET1 and at
     # phase-2 bucket sizes, and net1's fundamental Jacobian (the bucket
-    # sizes vary from run to run with the lanes left after phase 1)
+    # sizes vary from run to run with the lanes left after phase 1); the
+    # net2 capacitance system of phase 17's studies: at the assessment's
+    # batch, the time series' steps and their cold restarts' widths
     "gj_kernel": ("hpfx/ops/batched_solve.py:63",
                   "hpfx_torch/ops/csrc/gj_solve.cu",
                   [(26, 1, B), (26, 1, 1024), (40, 15, 13 * B_NET1),
                    (40, 15, 6656), (40, 15, 3200), (40, 15, 1600),
-                   (40, 15, 800), (38, 1, B_NET1), (38, 1, 256)]),
+                   (40, 15, 800), (38, 1, B_NET1), (38, 1, 256),
+                   (26, 1, 4096), (26, 1, 1008), (26, 1, 256),
+                   (26, 1, 128)]),
     # the net2 seed; the synthetic 64-bus blocks (13 x 256, and a phase-2
-    # bucket) and its fundamental Jacobian
+    # bucket) and its fundamental Jacobian; the seed of phase 17's studies
+    # (the assessment's batch, the time series' steps)
     "gj_kernel_carried": ("hpfx/ops/batched_solve.py:139",
                           "hpfx_torch/ops/csrc/gj_solve.cu",
                           [(96, 1, B), (128, 15, 13 * 256), (126, 1, 256),
-                           (128, 15, 416), (126, 1, 32)]),
+                           (128, 15, 416), (126, 1, 32), (96, 1, 4096),
+                           (96, 1, 1008)]),
     # the net2 seed, the synthetic 64-bus blocks, the net1 capacitance
     # system when solved directly
     "gj_kernel_unrolled": ("hpfx/ops/batched_solve.py:103",
@@ -247,12 +277,43 @@ COLD_RATE_GAP = 0.003
 #: (1960) and the 128-bus feeder (3072), and 1100
 PANEL_SOLVES = [(182, 2048), (364, 256), (700, 64), (780, 128), (192, 2048),
                 (1100, 16), (1960, 64), (3072, 8), (518, B_NET1)]
+#: phase 17: bench.py's study stages.  The sweep sensitivity's batch and
+#: its P = 3 parameter columns (scalar p, q and injection scales); the
+#: assessment's batch and the time series' steps; the contingency
+#: screen's draws and its K·S pairs (net1's 23 lines, none a bridge)
+B_GRADS = 1024
+GRAD_COLS = 3
+B_STUDIES = 4096
+T_STUDIES = 1008
+S_CONTINGENCY = 128
+PAIRS_CONTINGENCY = 23 * S_CONTINGENCY
+#: phase 17a: the finite-difference step and the tolerance of
+#: tests/test_sensitivity.py
+GRAD_FD_EPS = 1e-5
+GRAD_FD_RTOL = 2e-4
+#: phase 4's float32 bound on |V_m| (pu), from which phase 17 derives its
+#: bound on THD_F (thd_bound)
+VM_TOL_NET2 = 5e-5
+#: the range of the whole run's time before phase 17 was added (PERF.md
+#: §6), against which the run prints its growth
+BEFORE_17_RUN_S = (87.1, 150.1)
 #: the batch-major solves of the dense path (phase 12), (kernel, n, R, B),
 #: as batched_solve receives them: the fundamental Jacobians of net2 (6)
 #: and net1 (38), the dense Jacobians of net2 H<=5 (22) and H<=25 (102);
-#: net1 H<=25's dense Jacobian (518) is the panel kernel's (544, 32)
+#: net1 H<=25's dense Jacobian (518) is the panel kernel's (544, 32).
+#: Phase 17's: the sweep sensitivity's column solves (the arrow blocks of
+#: dim 8 with 3 right-hand sides, 13 harmonics x 3 columns x B_GRADS, and
+#: the capacitance systems of dim 26), and the contingency screen's
+#: fundamental (38) and dense (118) Jacobians at K·S, and at S (its
+#: intact baseline)
 BATCH_MAJOR = [("gj_kernel", 6, 1, B), ("gj_kernel", 22, 1, B),
-               ("gj_kernel", 38, 1, B_NET1), ("gj_kernel_carried", 102, 1, B)]
+               ("gj_kernel", 38, 1, B_NET1), ("gj_kernel_carried", 102, 1, B),
+               ("gj_kernel", 8, 3, 13 * GRAD_COLS * B_GRADS),
+               ("gj_kernel", 26, 1, GRAD_COLS * B_GRADS),
+               ("gj_kernel", 38, 1, PAIRS_CONTINGENCY),
+               ("gj_kernel_carried", 118, 1, PAIRS_CONTINGENCY),
+               ("gj_kernel", 38, 1, S_CONTINGENCY),
+               ("gj_kernel_carried", 118, 1, S_CONTINGENCY)]
 #: the dense sweeps of phase 12, (network, B), and the launches each must
 #: show, by kernel and shape
 DENSE_SWEEPS = [
@@ -1379,16 +1440,21 @@ def golden_gate(cfg, res, g, s):
     return rule
 
 
-#: phase 11: calls of build_ybus, and of hpf, that must agree bit for bit
+#: phase 11: calls of build_ybus (and of stable_matvec and
+#: fused_trip_ref), and of hpf, that must agree bit for bit; the batch of
+#: the stable_matvec calls and of the fused_trip_ref calls
 YBUS_REPEATS = 100
 HPF_REPEATS = 3
+MATVEC_BATCH = 64
+TRIP_REPEAT_B = 4096
 
 
 def repeat_check(case):
     """The same float64 inputs give the same bits on every call: the
-    admittances of net1 H<=51 over YBUS_REPEATS calls, and its LOOSE_ITERS
-    solve over HPF_REPEATS (whose chaotic transient turns a last-bit
-    difference of Y into another iteration count)."""
+    admittances of net1 H<=51 and its stable matvec over YBUS_REPEATS
+    calls, its LOOSE_ITERS solve over HPF_REPEATS (whose chaotic transient
+    turns a last-bit difference into another iteration count), and the
+    plain fused trip at net2 H<=25 over YBUS_REPEATS."""
     net, dev, s, res = case
     Y0 = ht.build_ybus(net, s)
     same = sum(torch.equal(Y.re, Y0.re) and torch.equal(Y.im, Y0.im)
@@ -1402,6 +1468,32 @@ def repeat_check(case):
         f"bit: {bits}")
     check(same == YBUS_REPEATS - 1 and bits,
           "[11] build_ybus or hpf differ from call to call")
+    # the two line-flow sums into buses: an incidence product, where a
+    # CUDA index_add would add repeated buses in a racing order
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    lineY = ybus.build_line_ybus(net, s)
+    shape = (MATVEC_BATCH, s.n_harmonics, net.n)
+    Vm = torch.rand(shape, generator=gen, device=DEV, dtype=torch.float64)
+    Va = 6.0 * torch.rand(shape, generator=gen, device=DEV,
+                          dtype=torch.float64)
+    ref = ybus.stable_matvec(lineY, Vm, Va)
+    same_mv = sum(torch.equal(o.re, ref.re) and torch.equal(o.im, ref.im)
+                  for o in (ybus.stable_matvec(lineY, Vm, Va)
+                            for _ in range(YBUS_REPEATS - 1)))
+    dims, k, args, _ = trip_case("net2", TRIP_REPEAT_B, True, True, 3)
+    k64 = ft.TripConsts(*(t.double() if t.is_floating_point() else t
+                          for t in k))
+    args64 = tuple(a.double() for a in args)
+    first = ft.fused_trip_ref(dims, k64, *args64)
+    same_trip = sum(all(torch.equal(a, b) for a, b in zip(
+        ft.fused_trip_ref(dims, k64, *args64), first))
+        for _ in range(YBUS_REPEATS - 1))
+    log(f"[11] stable_matvec at net1 H<=51 c, B={MATVEC_BATCH}, float64: "
+        f"equal to its first call on {same_mv} of {YBUS_REPEATS - 1} calls; "
+        f"fused_trip_ref at net2 H<=25 B={TRIP_REPEAT_B} after 3 trips, "
+        f"float64: on {same_trip} of {YBUS_REPEATS - 1}")
+    check(same_mv == YBUS_REPEATS - 1 and same_trip == YBUS_REPEATS - 1,
+          "[11] stable_matvec or fused_trip_ref differ from call to call")
 
 
 def phase11():
@@ -1783,6 +1875,254 @@ def phase16(gen):
     return total
 
 
+def thd_bound(V_m64, vm_tol=VM_TOL_NET2):
+    """The most that an error of ``vm_tol`` pu on every harmonic magnitude
+    (phase 4's float32 bound) moves THD_F = ||V_h, h > 1|| / V_1 of the
+    float64 (..., H, n) spectra ``V_m64``: ||dV_h|| <= sqrt(H-1)·tol, so
+    |dTHD| <= (sqrt(H-1) + THD)·tol / (V_1 - tol), at the worst bus.  A
+    quantile of values each moved by at most that moves at most that."""
+    H = V_m64.shape[-2]
+    thd = ht.get_thd(V_m64.movedim(-2, 0)).THD_F
+    v1 = V_m64[..., 0, :]
+    return ((H - 1) ** 0.5 + thd).mul(vm_tol).div(v1 - vm_tol).max().item()
+
+
+def phase17a():
+    """bench.py's gradient stage: sweep_sensitivity on hpf_sweep's result
+    at net2 H<=25 B=1024, float64 gradients against finite differences,
+    float32 against float64."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    sweep = lambda sc: ht.hpf_sweep(net, dev, s, sc)
+    grads = lambda sr, sc: ht.sweep_sensitivity(net, dev, s, sr, sc)
+    host = lambda g: [x.cpu() for x in g.grad]
+    sc0 = scen(-1, B_GRADS)
+    sr0 = sweep(sc0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    g0 = host(grads(sr0, sc0))
+    launches = read_launches()
+    log(f"[17a] warm-up {time.perf_counter() - t0:.3f} s, launches "
+        f"{launches}")
+    log_shapes("17a")
+    check(launches["gj_kernel"] > 0, "[17a] sweep_sensitivity never "
+          "launched gj_kernel")
+    ok = sr0.converged.cpu()
+    finite = float(np.mean([torch.isfinite(x).double().mean().item()
+                            for x in g0]))
+    check(all(bool(torch.isfinite(x[ok]).all()) for x in g0),
+          "[17a] non-finite gradients on converged scenarios")
+    times, g32 = [], None
+    for k in range(3):
+        sc = scen(k, B_GRADS)
+        sr = sweep(sc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = host(grads(sr, sc))
+        times.append(time.perf_counter() - t0)
+        g32 = g32 or g
+    log(f"[17a] sweep_sensitivity reps "
+        f"{', '.join(f'{t:.4f}' for t in times)} s -> "
+        f"{B_GRADS / min(times):.1f} grads/s; finite fraction {finite:.6f}; "
+        f"sweep conv {ok.double().mean().item():.6f}")
+
+    # float64 on the card against central finite differences of float64
+    # sweeps solved to 1e-10 (the default threshold would leave each
+    # solve ~1e-4 off, which the step divides by 2e-5)
+    f64 = torch.float64
+    net64, dev64 = net.to(dtype=f64), dev.to(dtype=f64)
+    s64 = s.with_(dtype="float64", thresh_h=1e-10)
+    idx = torch.arange(0, B_GRADS, B_GRADS // 8, device=DEV)
+    sub = ht.Scenarios(*(x[idx] for x in scen(0, B_GRADS)[:3])).to(f64)
+    sweep64 = lambda sc: ht.hpf_sweep(net64, dev64, s64, sc)
+    r64 = sweep64(sub)
+    check(bool(r64.converged.all()), "[17a] float64 sweep did not converge")
+    g64 = ht.sweep_sensitivity(net64, dev64, s64, r64, sub)
+    worst = lambda r: ht.get_thd(r.V_m.movedim(1, 0)).THD_F.amax(dim=-1)
+    rel_fd, rel_32 = [], []
+    for j, name in enumerate(("p_scale", "q_scale", "injection_scale")):
+        step = lambda e: sub._replace(**{name: sub[j] + e})
+        fd = (worst(sweep64(step(GRAD_FD_EPS)))
+              - worst(sweep64(step(-GRAD_FD_EPS)))) / (2 * GRAD_FD_EPS)
+        g = g64.grad[j]
+        floor = 1e-3 * fd.abs().max()
+        rel_fd.append(((g - fd).abs() / torch.clamp_min(fd.abs(), floor))
+                      .max().item())
+        rel_32.append(((g32[j].to(DEV)[idx].double() - g).abs()
+                       / torch.clamp_min(g.abs(), 1e-3 * g.abs().max()))
+                      .max().item())
+    log(f"[17a] float64 gradients of 8 scenarios against central finite "
+        f"differences (eps {GRAD_FD_EPS}): max relative difference "
+        f"{max(rel_fd):.3e} (p, q, injection: "
+        f"{', '.join(f'{r:.3e}' for r in rel_fd)}); float32 against float64: "
+        f"{max(rel_32):.3e}")
+    check(max(rel_fd) <= GRAD_FD_RTOL, f"[17a] float64 gradients "
+          f"{max(rel_fd)} from finite differences > {GRAD_FD_RTOL}")
+    return launches
+
+
+def phase17b():
+    """bench.py's studies stage: assess_quantiles at B=4096 and
+    run_timeseries over T=1008 steps with percentile_compliance, through
+    hpf_sweep_device(phase_iters=24, warm="linear"); the float32
+    assessment against a float64 one of the same draws.  Returns
+    (launches, the THD bound derived from phase 4's)."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    sweep_fn = lambda n_, d_, s_, sc_: ht.hpf_sweep_device(
+        n_, d_, s_, sc_, phase_iters=PHASE_ITERS, warm="linear")
+    total = {k: 0 for k in ht.LAUNCHES}
+
+    def assess(k):
+        draws = ht.monte_carlo_scenarios(k, B_STUDIES, net, s,
+                                         inj_spread=0.3, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qa = ht.assess_quantiles(net, dev, s, draws, sweep=sweep_fn)
+        qa.thd_q.cpu()
+        return time.perf_counter() - t0, qa
+
+    def tseries(k):
+        prof = ht.daily_profile(T_STUDIES, base=0.7 + 0.002 * k, peak=1.15,
+                                device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = ht.run_timeseries(net, dev, s, prof, inj_profile=prof,
+                               chunk=T_STUDIES, sweep=sweep_fn)
+        pc = ht.percentile_compliance(ts, s)
+        pc.thd_p.cpu()
+        return time.perf_counter() - t0, pc
+
+    for tag, stage, n_b in (("assess", assess, B_STUDIES),
+                            ("timeseries", tseries, T_STUDIES)):
+        reset_launches()
+        dt, _ = stage(999)
+        launches = read_launches()
+        log(f"[17b] {tag} warm-up {dt:.3f} s, launches {launches}")
+        log_shapes(f"17b {tag}")
+        for k in ("gj_kernel", "gj_kernel_carried"):
+            check(launches[k] > 0, f"[17b] {tag} never launched {k}")
+        for k in total:
+            total[k] += launches[k]
+        times, conv = [], 1.0
+        for k in range(2):
+            dt, out = stage(k)
+            times.append(dt)
+            conv = min(conv, out.converged_frac)
+        rate = conv * n_b / min(times) if tag == "assess" \
+            else n_b / min(times)
+        unit = "assessed solves/s" if tag == "assess" else "steps/s"
+        log(f"[17b] {tag} reps {', '.join(f'{t:.4f}' for t in times)} s -> "
+            f"{rate:.1f} {unit}, conv {conv:.6f}")
+        check(conv >= 0.999, f"[17b] {tag} conv {conv} < 0.999")
+
+    # the float32 assessment against a float64 one of the same draws, on
+    # the scenarios both converged
+    f64 = torch.float64
+    draws = ht.monte_carlo_scenarios(0, B_STUDIES, net, s, inj_spread=0.3,
+                                     device=DEV)
+    r32 = sweep_fn(net, dev, s, draws)
+    r64 = sweep_fn(net.to(dtype=f64), dev.to(dtype=f64),
+                   s.with_(dtype="float64"), draws.to(f64))
+    both = r32.converged & r64.converged
+    q = lambda r, s_: ht.summarize_quantiles(r._replace(converged=both),
+                                             s_).thd_q
+    d = (q(r32, s).double() - q(r64, s.with_(dtype="float64"))).abs().max()
+    bound_thd = thd_bound(r64.V_m[both])
+    log(f"[17b] float32 assessment against float64 on the {int(both.sum())} "
+        f"of {B_STUDIES} draws both converged: max |d thd_q| "
+        f"{d.item():.3e}, THD bound from phase 4's {VM_TOL_NET2} pu: "
+        f"{bound_thd:.3e}")
+    check(d.item() <= bound_thd, f"[17b] thd_q {d.item()} from float64 > "
+          f"{bound_thd}")
+    return total, bound_thd
+
+
+def phase17c(bound_thd):
+    """bench.py's contingency stage: screen_line_outages_sweep at net1
+    H<=5 uncoupled, S=128, the K·S pairs in one batch-major batch;
+    determinism, the float64 verification, and worst_thd of 64 converged
+    pairs against a float64 re-solve."""
+    s = ht.settings_for_hmax(5, coupled=False).with_(stable_mismatch=True)
+    net = ht.load_network(os.path.join(DATA, "net1_buses.csv"),
+                          os.path.join(DATA, "net1_lines.csv"), s,
+                          device=DEV)
+    dev = ht.load_device_set(net, s)
+    draws = lambda k: scen(k, S_CONTINGENCY, (0.9, 1.1, 0.8, 1.2))
+
+    def run(k, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ht.screen_line_outages_sweep(net, dev, s, draws(k), **kw)
+        return time.perf_counter() - t0, rep
+
+    reset_launches()
+    dt, rep = run(-1)
+    launches = read_launches()
+    n_pairs = int((~rep.islanded).sum()) * S_CONTINGENCY
+    log(f"[17c] warm-up {dt:.3f} s, {n_pairs} (outage, draw) pairs, "
+        f"launches {launches}")
+    log_shapes("17c")
+    check(n_pairs == PAIRS_CONTINGENCY, f"[17c] {n_pairs} pairs, not "
+          f"{PAIRS_CONTINGENCY}")
+    for key in (("gj_kernel", (38, 1, n_pairs)),
+                ("gj_kernel_carried", (118, 1, n_pairs))):
+        check(ht.LAUNCHES_BY_SHAPE[key] > 0,
+              f"[17c] no launch of {key[0]} at {key[1]}")
+    times, conv, reps = [], 1.0, []
+    for k in range(2):
+        dt, rep = run(k)
+        times.append(dt)
+        reps.append(rep)
+        conv = min(conv, float(rep.converged[~rep.islanded].mean()))
+    log(f"[17c] reps {', '.join(f'{t:.4f}' for t in times)} s -> "
+        f"{conv * n_pairs / min(times):.1f} pairs/s, conv {conv:.6f}")
+    _, again = run(0)
+    same = (np.array_equal(again.converged, reps[0].converged)
+            and np.array_equal(again.n_iter, reps[0].n_iter))
+    log(f"[17c] a second call on rep 0's draws: converged and n_iter "
+        f"identical: {same}")
+    check(same, "[17c] converged or n_iter differ between two calls")
+    _, vrep = run(1, verify_infeasible=True)
+    rows = ~vrep.islanded
+    n_feasible = int(rows.sum()) * S_CONTINGENCY - int(vrep.infeasible.sum())
+    worst_k = int(np.argmin(vrep.conv_frac))
+    log(f"[17c] float64 verification of rep 1: {int(vrep.infeasible.sum())} "
+        f"infeasible pairs, conv among feasible "
+        f"{int(vrep.converged[rows].sum()) / max(1, n_feasible):.6f}; lowest "
+        f"conv_frac {vrep.conv_frac[worst_k]:.6f} at outage "
+        f"{vrep.outages[worst_k]} (float32: "
+        f"{reps[1].conv_frac[worst_k]:.6f})")
+
+    # worst_thd of 64 converged pairs against a float64 re-solve
+    g = torch.Generator().manual_seed(17)
+    ks, ss = np.nonzero(reps[0].converged)
+    pick = torch.randperm(len(ks), generator=g)[:64].numpy()
+    ks, ss = ks[pick], ss[pick]
+    f64 = torch.float64
+    sel = torch.as_tensor(ss, device=DEV)
+    sub = ht.Scenarios(*(x[sel] for x in draws(0)[:3])).to(f64)
+    r64 = cg.solve_outage_pairs(net.to(dtype=f64), dev.to(dtype=f64),
+                                s.with_(dtype="float64"),
+                                [reps[0].outages[k] for k in ks], sub)
+    check(bool(r64.converged.all()), "[17c] float64 re-solve did not "
+          "converge")
+    w64 = ht.get_thd(r64.V_m.movedim(1, 0)).THD_F.amax(dim=-1).cpu().numpy()
+    d = float(np.abs(reps[0].worst_thd[ks, ss] - w64).max())
+    log(f"[17c] worst_thd of 64 converged pairs against float64: max |d| "
+        f"{d:.3e} (bound {bound_thd:.3e}, from 17b)")
+    check(d <= bound_thd, f"[17c] worst_thd {d} from float64 > {bound_thd}")
+    return launches
+
+
+def phase17():
+    """bench.py's study stages at its width: (a) the sweep sensitivity,
+    (b) the studies, (c) the contingency screen."""
+    total = phase17a()
+    launches_b, bound_thd = phase17b()
+    launches_c = phase17c(bound_thd)
+    return {k: total[k] + launches_b[k] + launches_c[k] for k in total}
+
+
 def main():
     t_start = time.perf_counter()
     # the paths run gj_kernel_carried whatever HPFX_GJ_UNROLLED says; the
@@ -1796,7 +2136,7 @@ def main():
               phase13(), phase14()]
     gen = torch.Generator(device=DEV).manual_seed(15)
     launches15, k4_shapes = phase15(gen)
-    paths += [launches15, phase16(gen)]
+    paths += [launches15, phase16(gen), phase17()]
     row = rows["gj_panel_kernel"]
     row["shapes"] += k4_shapes
     row["max_abs_err"] = max([row["max_abs_err"]]
@@ -1810,7 +2150,10 @@ def main():
             if k == name}
         check(sum(row["launches_by_shape"].values()) == row["launches"],
               f"{name}: launches by shape do not add up")
-    log(f"[10] whole run {time.perf_counter() - t_start:.1f} s")
+    t_run = time.perf_counter() - t_start
+    lo, hi = BEFORE_17_RUN_S
+    log(f"[10] whole run {t_run:.1f} s; before phase 17 the runs took "
+        f"{lo}-{hi} s: {t_run - hi:+.1f} to {t_run - lo:+.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

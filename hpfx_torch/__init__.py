@@ -5,7 +5,10 @@ reference.  Module names follow ``hpfx``; this package never imports JAX
 or ``hpfx``, and reads the shared data files under ``hpfx/data/`` by
 path.  The loaders (``load_network``, ``network_from_arrays``,
 ``synthetic_feeder``, ``from_hpfx_arrays``, ``load_device_library``,
-``library_from_hpfx_arrays``, ``Scenarios.uniform``) put their tensors on
+``library_from_hpfx_arrays``, ``Scenarios.uniform``, ``load_result``) and
+the study functions that make tensors from plain numbers
+(``monte_carlo_scenarios``, ``profile_scenarios``, ``daily_profile``,
+``device_outage_scenarios``, the filter admittances) put their tensors on
 the CUDA card unless given ``device=``, and raise when there is no card:
 pass ``device="cpu"`` to run on the CPU.  Everything downstream follows the
 device of its input tensors.
@@ -51,24 +54,84 @@ from .solve import (Scenarios, SweepSummary,  # noqa: E402
                     summarize_thd)
 from .warmstart import harmonic_linear_seed, norton_warm_start  # noqa: E402
 from .ybus import build_ybus  # noqa: E402
+from .checkpoint import load_result, save_result, warm_start  # noqa: E402
+from .flows import (IEEE519CurrentReport, IEEE519Report,  # noqa: E402
+                    IEEE519Summary, LineFlows, PowerIndices, check_en50160,
+                    check_ieee519, check_ieee519_current, en50160_screen,
+                    ieee519_screen, k_factor, line_flows, line_power_indices,
+                    power_indices)
+from .iec import (aggregate_contributions,  # noqa: E402
+                  apportion_planning_level, summation_alpha, summation_law)
+from .capacity import (HostingCapacityResult,  # noqa: E402
+                       compliance_fraction, find_hosting_capacity,
+                       monte_carlo_scenarios, scale_scenarios)
+from .studies import (PercentileComplianceReport,  # noqa: E402
+                      PlanningLevelReport, QuantileAssessment,
+                      assess_quantiles, check_planning_levels, daily_profile,
+                      metric_quantiles, percentile_compliance,
+                      profile_scenarios, run_timeseries, summarize_quantiles)
+from .impedance import (ctype_filter_admittance,  # noqa: E402
+                        distortion_contributions, driving_point_impedance,
+                        frequency_scan, highpass_filter_admittance,
+                        impedance_scan, install_shunt, install_shunts,
+                        resonance_peaks, tuned_filter_admittance)
+from .sensitivity import (FilterParams, LineParams,  # noqa: E402
+                          ScenarioParams, Sensitivity, filter_sensitivity,
+                          injection_sensitivity, line_sensitivity,
+                          mix_sensitivity, scenario_sensitivity,
+                          sweep_filter_sensitivity, sweep_sensitivity)
+from .contingency import (ContingencyReport,  # noqa: E402
+                          ContingencySweepReport, ResonanceShiftReport,
+                          device_outage_scenarios, islanded_lines,
+                          outage_impedance_shift, screen_device_outages,
+                          screen_line_outages, screen_line_outages_sweep,
+                          screen_shunt_outages)
+from .trajlog import (read_ilog, read_vlog,  # noqa: E402
+                      trajectory_injections, write_ilog, write_vlog)
 
 __all__ = [
-    "AnalyticDeviceSet", "Cx", "DATA_DIR", "DeviceLibrary", "DeviceSet",
-    "FundResult", "HPFReport", "HPFResult", "LAUNCHES", "LAUNCHES_BY_SHAPE",
-    "Network", "PhaseLog", "Scenarios", "Settings", "SweepSummary",
-    "WaveformMetrics", "background_from_harmonics", "background_sweep",
-    "batched_solve", "batched_solve_lanes", "build_ybus",
-    "cleanup_voltages", "current_source", "cx", "default_harmonics",
-    "device_set_from_arrays", "expand_panel", "from_hpfx_arrays",
-    "gauss_solve_lanes", "get_thd", "gj_panel_lanes", "gj_panel_ref",
-    "gj_solve_lanes_ref", "grid_source", "harmonic_linear_seed",
+    "AnalyticDeviceSet", "ContingencyReport", "ContingencySweepReport",
+    "Cx", "DATA_DIR", "DeviceLibrary", "DeviceSet", "FilterParams",
+    "FundResult", "HPFReport", "HPFResult", "HostingCapacityResult",
+    "IEEE519CurrentReport", "IEEE519Report", "IEEE519Summary", "LAUNCHES",
+    "LAUNCHES_BY_SHAPE", "LineFlows", "LineParams", "Network",
+    "PercentileComplianceReport", "PhaseLog", "PlanningLevelReport",
+    "PowerIndices", "QuantileAssessment", "ResonanceShiftReport",
+    "ScenarioParams", "Scenarios", "Sensitivity", "Settings",
+    "SweepSummary", "WaveformMetrics", "aggregate_contributions",
+    "apportion_planning_level", "assess_quantiles",
+    "background_from_harmonics", "background_sweep", "batched_solve",
+    "batched_solve_lanes", "build_ybus", "check_en50160", "check_ieee519",
+    "check_ieee519_current", "check_planning_levels", "cleanup_voltages",
+    "compliance_fraction", "ctype_filter_admittance", "current_source",
+    "cx", "daily_profile", "default_harmonics", "device_outage_scenarios",
+    "device_set_from_arrays", "distortion_contributions",
+    "driving_point_impedance", "en50160_screen", "expand_panel",
+    "filter_sensitivity", "find_hosting_capacity", "frequency_scan",
+    "from_hpfx_arrays", "gauss_solve_lanes", "get_thd", "gj_panel_lanes",
+    "gj_panel_ref", "gj_solve_lanes_ref", "grid_source",
+    "harmonic_linear_seed", "highpass_filter_admittance",
     "hosting_capacity_sweep", "hpf", "hpf_single", "hpf_sweep",
     "hpf_sweep_adaptive", "hpf_sweep_adaptive_lanes", "hpf_sweep_device",
-    "hpf_sweep_stream", "library_from_hpfx_arrays", "load_device_library",
-    "load_device_set", "load_network", "network_from_arrays",
-    "norton_inject", "norton_warm_start", "nr_solve",
-    "panel_gj_solve_lanes", "pf", "report", "settings_for_hmax",
-    "shunt_admittance", "solve_blocks", "solve_fundamental",
-    "solve_harmonic", "summarize_thd", "synthetic_feeder",
-    "validate_network", "voltage_phasors", "waveform", "waveform_metrics"
+    "hpf_sweep_stream", "ieee519_screen", "impedance_scan",
+    "injection_sensitivity", "install_shunt", "install_shunts",
+    "islanded_lines", "k_factor", "library_from_hpfx_arrays",
+    "line_flows", "line_power_indices", "line_sensitivity",
+    "load_device_library", "load_device_set", "load_network",
+    "load_result", "metric_quantiles", "mix_sensitivity",
+    "monte_carlo_scenarios", "network_from_arrays", "norton_inject",
+    "norton_warm_start", "nr_solve", "outage_impedance_shift",
+    "panel_gj_solve_lanes", "percentile_compliance", "pf",
+    "power_indices", "profile_scenarios", "read_ilog", "read_vlog",
+    "report", "resonance_peaks", "run_timeseries", "save_result",
+    "scale_scenarios", "scenario_sensitivity", "screen_device_outages",
+    "screen_line_outages", "screen_line_outages_sweep",
+    "screen_shunt_outages", "settings_for_hmax", "shunt_admittance",
+    "solve_blocks", "solve_fundamental", "solve_harmonic",
+    "summarize_quantiles", "summarize_thd", "summation_alpha",
+    "summation_law", "sweep_filter_sensitivity", "sweep_sensitivity",
+    "synthetic_feeder", "trajectory_injections",
+    "tuned_filter_admittance", "validate_network", "voltage_phasors",
+    "warm_start", "waveform", "waveform_metrics", "write_ilog",
+    "write_vlog"
 ]

@@ -147,7 +147,7 @@ def build_arrow_pieces(V_m, V_a, Y: Cx, devices,
     M_V = fold(Y * row(Vn), K_V)                        # (..., H, n, n)
     M_A = fold((Y * row(V_c)).jmul(), K_A)
     dS1dA1, dS1dV1 = _power_jacobian_blocks(V_c[..., 0, :], Vn[..., 0, :],
-                                            Y[0], n)
+                                            Y[..., 0, :, :], n)
     hcat = lambda a, b: torch.cat([a, b], dim=-1)
     D0 = torch.cat([
         hcat(dS1dA1.re[..., 1:m, 1:], dS1dV1.re[..., 1:m, c:]),

@@ -149,19 +149,21 @@ def _add_plan(x: torch.Tensor, idx):
 
 
 def _add(x: torch.Tensor, idx, val, plan=None) -> torch.Tensor:
-    out = x.clone()
     if plan is None:
         plan = _add_plan(x, idx)
     if plan is None:
+        out = x.clone()
         out[idx] += val                          # basic slicing: a view
         return out
     positions, entries, shape = plan
-    val = torch.as_tensor(val, dtype=out.dtype, device=out.device)
+    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
     val = val.expand(shape).reshape(-1)
-    flat = out.view(-1)
+    flat = x.reshape(-1)
     for p, e in zip(positions, entries):
-        flat[p] += val[e]                        # distinct positions
-    return out
+        # distinct positions; out of place, so that torch.func transforms
+        # can carry a batched or dual ``val`` into a plain ``x``
+        flat = flat.index_put((p,), flat[p] + val[e])
+    return flat.view(x.shape)
 
 
 # -- constructors -----------------------------------------------------------

@@ -105,7 +105,9 @@ def solve_fundamental(Y1: Cx, net: Network, settings: Settings,
                       dtype=rd, device=dv)
 
     eps = torch.finfo(rd).eps
-    rows = V_m.abs() * torch.einsum("ij,...j->...i", Y1.abs(), V_m.abs())
+    rows = V_m.abs() * torch.einsum(
+        "ij,...j->...i" if Y1.ndim == 2 else "...ij,...j->...i",
+        Y1.abs(), V_m.abs())
     thresh = torch.clamp_min(
         settings.floor_kappa * eps * (rows + S.abs()).amax(dim=-1),
         settings.thresh_f)
@@ -135,4 +137,4 @@ def solve_fundamental(Y1: Cx, net: Network, settings: Settings,
 def pf(Y: Cx, net: Network, settings: Settings) -> FundResult:
     """:func:`solve_fundamental` on the fundamental block of the (H, n, n)
     admittance tensor."""
-    return solve_fundamental(Y[0], net, settings)
+    return solve_fundamental(Y[..., 0, :, :], net, settings)

@@ -36,6 +36,7 @@ from .harmonic import HPFResult, cleanup_voltages
 from .lanes import (_lanes_result, _sweep_setup, mismatch_lanes,
                     supports_lanes)
 from .ops import batched_solve as _bs
+from .ybus import incidence
 
 #: (n, n_nl) pairs the CUDA kernel is instantiated for: net2 and net3
 #: (4 buses, one nonlinear)
@@ -164,7 +165,8 @@ def _polar_diff(mu_a, th_a, mu_b, th_b):
 
 def _stable_matvec(k: TripConsts, Vm, Va):
     """Cancellation-free Y·V: per-line flows from the endpoint voltages
-    (``index_select``), summed into the buses (``index_add``)."""
+    (``index_select``), summed into the buses by the one-hot incidence
+    product (:func:`hpfx_torch.ybus.incidence`)."""
     a_ff, inv_tau, shift = (x[:, None] for x in k.lineP)   # (L, 1)
     at = lambda X, idx: X.index_select(1, idx)             # (H, L, B)
     Vm_f, Va_f = at(Vm, k.f_idx), at(Va, k.f_idx)
@@ -175,7 +177,8 @@ def _stable_matvec(k: TripConsts, Vm, Va):
     ft = _cmul(*Ys, *_polar_diff(Vm_t, Va_t, Vm_f * inv_tau, Va_f - shift))
     out = _cmul(k.dr[..., None], k.di[..., None], Vm * torch.cos(Va),
                 Vm * torch.sin(Va))
-    return tuple(o.index_add(1, k.f_idx, a).index_add(1, k.t_idx, b)
+    inc = incidence(k.f_idx, k.t_idx, Vm.shape[1], Vm.dtype)
+    return tuple(o + torch.einsum("nl,hlb->hnb", inc, torch.cat([a, b], 1))
                  for o, a, b in zip(out, ff, ft))
 
 

@@ -58,6 +58,13 @@ def current_injections(V_c: Cx, devices, m: int, V_m=None, V_a=None) -> Cx:
     return devices.I_N - devices.Y_N * V_nl.mT
 
 
+def _per_order(Y) -> str:
+    """The einsum of one Y·V product per harmonic order: Y (H, n, n)
+    shared by every scenario, or (..., H, n, n), one network per
+    scenario."""
+    return "hij,...hj->...hi" if Y.ndim == 3 else "...hij,...hj->...hi"
+
+
 def current_balance(V_c: Cx, Y: Cx, devices, m: int, n: int,
                     V_m=None, V_a=None, YV: Optional[Cx] = None,
                     I_bg: Optional[Cx] = None) -> Cx:
@@ -69,8 +76,8 @@ def current_balance(V_c: Cx, Y: Cx, devices, m: int, n: int,
     rows."""
     I_inj = current_injections(V_c, devices, m, V_m, V_a)  # (..., n_nl, H)
     if YV is None:
-        dI_f = cx.matvec(Y[0, m:, :], V_c[..., 0, :]) + I_inj[..., :, 0]
-        dI_h = cx.einsum("hij,...hj->...hi", Y[1:], V_c[..., 1:, :])
+        dI_f = cx.matvec(Y[..., 0, m:, :], V_c[..., 0, :]) + I_inj[..., :, 0]
+        dI_h = cx.einsum(_per_order(Y), Y[..., 1:, :, :], V_c[..., 1:, :])
     else:
         dI_f = YV[..., 0, m:] + I_inj[..., :, 0]
         dI_h = YV[..., 1:, :]
@@ -91,7 +98,7 @@ def harmonic_mismatch(V_m, V_a, Y: Cx, S: Cx, devices,
     cancellation-free form.  ``I_bg``: as in :func:`current_balance`."""
     V_c = cx.polar(V_m, V_a)
     YV = None if lineY is None else stable_matvec(lineY, V_m, V_a)
-    I1 = cx.matvec(Y[0, 1:m, :], V_c[..., 0, :]) if YV is None \
+    I1 = cx.matvec(Y[..., 0, 1:m, :], V_c[..., 0, :]) if YV is None \
         else YV[..., 0, 1:m]
     dS = S[..., 1:m] + V_c[..., 0, 1:m] * I1.conj()
     dI = current_balance(V_c, Y, devices, m, n, V_m, V_a, YV=YV, I_bg=I_bg)
@@ -218,7 +225,7 @@ def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
     row = lambda z: Cx(z.re[..., :, None, :], z.im[..., :, None, :])
     K_V, K_A = norton_coupling(V_m, V_a, devices, m)
     dSdA, dSdV = _power_jacobian_blocks(V_c[..., 0, :], Vn[..., 0, :],
-                                        Y[0], n)
+                                        Y[..., 0, :, :], n)
     pieces = {"A": (Y * row(V_c)).jmul(), "V": Y * row(Vn),
               "KA": K_A, "KV": K_V, "SA": dSdA, "SV": dSdV}
     part = lambda w, p: getattr(pieces[w], p).flatten(-3 if w[0] != "S"
@@ -240,7 +247,7 @@ def mismatch_floor(V_m, Y: Cx, devices, m: int, settings: Settings,
     and of the background injections |I_bg|."""
     eps = torch.finfo(settings.real_dtype).eps
     vmax = V_m.abs()                                    # (..., H, n)
-    scale = torch.einsum("hij,...hj->...hi", Y.abs(), vmax).amax(dim=(-2, -1))
+    scale = torch.einsum(_per_order(Y), Y.abs(), vmax).amax(dim=(-2, -1))
     if isinstance(devices, DeviceSet) and devices.n_devices > 0:
         v_nl = vmax[..., :, m:]                         # (..., H, n_nl)
         if devices.coupled:
@@ -384,7 +391,7 @@ def hpf(net: Network, devices, settings: Settings, Y=None,
                 lineY_f = lineY_f._replace(d=lineY_f.d + Y_diag[:1])
     else:
         Y, lineY, lineY_f = resolve_ybus(net, settings, Y)
-    fund = solve_fundamental(Y[0], net, settings, lineY=lineY_f)
+    fund = solve_fundamental(Y[..., 0, :, :], net, settings, lineY=lineY_f)
     return solve_harmonic(Y, fund, net, devices, settings, V0=V0,
                           record_trajectory=record_trajectory, lineY=lineY,
                           I_bg=I_bg)

@@ -36,7 +36,7 @@ from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
 from .ops.batched_solve import SchurNotPorted, batched_solve_lanes
 from .warmstart import _floor_seed_mag
-from .ybus import LineYbus, _polar_diff, resolve_ybus
+from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
 
 #: memory budget for the warm-seed embedded matrix (2N, 2N, chunk): the
 #: seed assembly and solve chunk the lane axis to stay under it
@@ -184,10 +184,7 @@ def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
     flow_t = lineY.Ys[..., None] * _polar_diff(
         V_m[:, t], V_a[:, t], V_m[:, f] * inv_tau, V_a[:, f] - shift)
     out = lineY.d[..., None] * cx.polar(V_m, V_a)
-    n = V_m.shape[1]
-    arange_n = torch.arange(n, device=V_m.device)[:, None]
-    Minc = torch.cat([f[None, :] == arange_n, t[None, :] == arange_n],
-                     dim=1).to(V_m.dtype)              # (n, 2L)
+    Minc = incidence(f, t, V_m.shape[1], V_m.dtype)    # (n, 2L)
     flows = cx.concatenate([flow_f, flow_t], axis=1)   # (H, 2L, B)
     acc = lambda x: torch.einsum("nl,hlb->hnb", Minc, x)
     return out + Cx(acc(flows.re), acc(flows.im))

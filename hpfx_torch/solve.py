@@ -152,7 +152,7 @@ def _hpf_sweep_vmap(net: Network, devices, settings: Settings,
     if scenarios.device_mix is not None:
         devices = devices.mixed(scenarios.device_mix)
     dev_s = devices.scale(col(inj))
-    fund = solve_fundamental(Y[0], net_s, settings, lineY=lineY_f)
+    fund = solve_fundamental(Y[..., 0, :, :], net_s, settings, lineY=lineY_f)
     return solve_harmonic(Y, fund, net_s, dev_s, settings, V0=V0,
                           lineY=lineY, I_bg=I_bg)
 

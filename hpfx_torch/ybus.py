@@ -178,12 +178,25 @@ def _polar_diff(mu_a, th_a, mu_b, th_b) -> Cx:
     return cx.expj(th_a) * Cx(re_local, im_local)
 
 
+def incidence(f_idx, t_idx, n: int, dtype) -> torch.Tensor:
+    """The (n, 2L) one-hot bus incidence of the lines' from ends, then
+    their to ends: a product with it sums line flows into buses in an
+    order that does not change from call to call on any device (a CUDA
+    ``index_add`` adds repeated buses atomically, in a racing order).
+    Built from the index tensors on their device, with no host sync."""
+    buses = torch.arange(n, device=f_idx.device)[:, None]
+    return torch.cat([f_idx[None, :] == buses, t_idx[None, :] == buses],
+                     dim=1).to(dtype)
+
+
 def stable_matvec(lineY: LineYbus, V_m, V_a) -> Cx:
     """Cancellation-free Y·V for (..., H, n) polar voltage spectra
     (``hpfx.ybus.stable_matvec``): per line Ys·(V_f/tau² − V_t·e^{j s}/tau)
     into the from bus and the mirror flow into the to bus, each voltage
-    difference taken by :func:`_polar_diff`, plus the diagonal-only terms
-    d·V.  Leading axes are scenarios."""
+    difference taken by :func:`_polar_diff` and summed into the buses by
+    the :func:`incidence` product, plus the diagonal-only terms d·V.
+    Leading axes are scenarios; ``Ys`` (..., H, L) and ``d`` (..., H, n)
+    may carry them too (one network per scenario on shared endpoints)."""
     f, t = lineY.f_idx, lineY.t_idx
     Vm_f, Va_f = V_m[..., f], V_a[..., f]
     Vm_t, Va_t = V_m[..., t], V_a[..., t]
@@ -192,6 +205,7 @@ def stable_matvec(lineY: LineYbus, V_m, V_a) -> Cx:
     flow_t = lineY.Ys * _polar_diff(Vm_t, Va_t, Vm_f * lineY.inv_tau,
                                     Va_f - lineY.shift)
     out = lineY.d * cx.polar(V_m, V_a)
-    add = lambda o, i, v: o.index_add(-1, i, v)
-    return Cx(add(add(out.re, f, flow_f.re), t, flow_t.re),
-              add(add(out.im, f, flow_f.im), t, flow_t.im))
+    inc = incidence(f, t, V_m.shape[-1], V_m.dtype)
+    acc = lambda a, b: torch.einsum("nl,...l->...n", inc,
+                                    torch.cat([a, b], dim=-1))
+    return out + Cx(acc(flow_f.re, flow_t.re), acc(flow_f.im, flow_t.im))
