@@ -129,7 +129,52 @@ kernels, and checks them:
      calls on the same draws, the float64 verification pass (infeasible
      count, conv among feasible pairs) and worst_thd of 64 converged
      pairs, drawn with a seeded generator, against a float64 re-solve
-     within THD_BOUND.
+     within THD_BOUND;
+ 18. the continuation and Kron stages of bench.py and
+     validation/bench_continuation.py: (a) the device continuation
+     (lanes.hpf_sweep_continuation_lanes, 8 stages) at net2 H<=25 B=16384,
+     warm-up, one logged rep (stages and rescue), 3 reps interleaved with
+     hpf_sweep_device(phase_iters=24, warm="linear") on the same
+     scenarios, conv >= 0.999 for hpf_sweep_device; the continuation has
+     no host rescue and starts its first chunk cold, so it is held to
+     phase 8's cold-start limit (COLD_STALLS) and its stalls of rep 0
+     must converge in float64; a launch of gj_kernel at (26, 1, 2048), phasors within 5e-4 pu of hpf_sweep_device's where both
+     converge, float32 against the float64 continuation on 64 scenarios to
+     phase 4's bounds; (b) the host continuation (hpf_sweep_continuation,
+     8 stages, phase_iters=24) at net2 H<=25 B=16384 with a dense phase 2
+     (3 reps) and at net1 H<=25 B=512 with an arrow one (2 reps), conv >=
+     0.999, launches of gj_kernel (and gj_panel_kernel on net1), net1's
+     float32 against float64 to phase 6's bounds; (c) hpf_sweep_kron at
+     net2 H<=25 B=16384 (bus 3 eliminated) from the cold start, 3 reps
+     interleaved with the unreduced hpf_sweep: neither rescues, so both
+     are held to phase 8's cold-start limits (COLD_STALLS, COLD_RATE_GAP),
+     all four buses within 5e-4 pu of the unreduced sweep where both
+     converge, float64 on 64 scenarios converging all and agreeing with
+     float32 where it converged to phase 4's bounds;
+ 19. the admittance-override and converter studies of
+     validation/bench_seq.py, bench_longline.py and bench_converters.py at
+     net2 H<=25 B=4096 through hpf_sweep_adaptive (the harnesses'
+     settings: the arrow solver, the plain mismatch), seeded draws:
+     plain, damped (linear_load_admittance on buses 1-2), seqaware
+     (r0 2.5, x0 3.0, a 0.1 pu grounding at bus 1), nominal and longline
+     on net2 charged to |theta(25)| = 0.8, skin, and a six-pulse converter
+     from converter_warm_start; a warm-up each (launches of gj_kernel), 3
+     interleaved reps, conv >= 0.999 but for the converter (printed),
+     float32 against float64 on 64 scenarios to phase 4's bounds (the
+     sequence-aware network to phase 6's, STUDY_F32_TOL), and each
+     override's voltages different from its baseline's;
+ 20. the analysis layers: (a) modal_scan on a 128-point grid over orders
+     2-25 (16 steps) on net1 H<=25 with its devices and the synthetic
+     64-bus feeder, modes/s, the peaks of the float64 scan and its
+     critical |z| within 1e-3; (b) solve_unbalanced over 1024 seeded draws
+     at net1 H<=13 uncoupled, draws/s, float32 against float64 on 64
+     draws within 1e-4 pu, and one allocation_study; (c) hpf_extended with
+     tests/test_extended.py's controlled device and (d) hpf_sequence at
+     net2 H<=25, both in float64 on the card against the CPU: identical
+     iterations, voltages (and u) within 1e-10;
+ 21. gj_kernel, gj_kernel_carried and gj_panel_kernel at every shape that
+     phases 18-20 launched and no earlier check covers, against the plain
+     twin and timed as in phase 2 (their rows' "shapes").
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
@@ -161,6 +206,7 @@ JSON object per kernel: its first shape's numbers, every shape's under
 """
 import collections
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -195,14 +241,15 @@ KERNELS = {
     # phase-2 bucket sizes, and net1's fundamental Jacobian (the bucket
     # sizes vary from run to run with the lanes left after phase 1); the
     # net2 capacitance system of phase 17's studies: at the assessment's
-    # batch, the time series' steps and their cold restarts' widths
+    # batch, the time series' steps and their cold restarts' widths; at the
+    # device continuation's chunk width (phase 18a: B over 8 stages)
     "gj_kernel": ("hpfx/ops/batched_solve.py:63",
                   "hpfx_torch/ops/csrc/gj_solve.cu",
                   [(26, 1, B), (26, 1, 1024), (40, 15, 13 * B_NET1),
                    (40, 15, 6656), (40, 15, 3200), (40, 15, 1600),
                    (40, 15, 800), (38, 1, B_NET1), (38, 1, 256),
                    (26, 1, 4096), (26, 1, 1008), (26, 1, 256),
-                   (26, 1, 128)]),
+                   (26, 1, 128), (26, 1, B // 8)]),
     # the net2 seed; the synthetic 64-bus blocks (13 x 256, and a phase-2
     # bucket) and its fundamental Jacobian; the seed of phase 17's studies
     # (the assessment's batch, the time series' steps)
@@ -294,9 +341,9 @@ GRAD_FD_RTOL = 2e-4
 #: phase 4's float32 bound on |V_m| (pu), from which phase 17 derives its
 #: bound on THD_F (thd_bound)
 VM_TOL_NET2 = 5e-5
-#: the range of the whole run's time before phase 17 was added (PERF.md
-#: §6), against which the run prints its growth
-BEFORE_17_RUN_S = (87.1, 150.1)
+#: the range of the whole run's time before phases 18-20 were added
+#: (PERF.md §6), against which the run prints its growth
+BEFORE_18_RUN_S = (122.5, 190.6)
 #: the batch-major solves of the dense path (phase 12), (kernel, n, R, B),
 #: as batched_solve receives them: the fundamental Jacobians of net2 (6)
 #: and net1 (38), the dense Jacobians of net2 H<=5 (22) and H<=25 (102);
@@ -659,72 +706,80 @@ def check_instances(gen):
     check(len(seen) == n_inst, f"{len(seen)} of {n_inst} instantiations run")
 
 
-def check_solve_kernel(name, gen):
-    """gj_kernel / gj_kernel_carried / gj_kernel_unrolled against the plain
-    twin; the unrolled kernel runs with GJ_UNROLLED set, beside
-    gj_kernel_carried at the same shape.  Each is also held, with the
-    equilibration inside, against equilibrated_lanes around the twin.
-    Returns (max errors, one dict per shape)."""
-    errs, shapes = [], []
+def solve_case(name, n, R, Bt, gen, tag="2"):
+    """gj_kernel / gj_kernel_carried / gj_kernel_unrolled at one (n, R, Bt)
+    against the plain twin (the unrolled kernel with GJ_UNROLLED set,
+    beside gj_kernel_carried at the same shape), also with the
+    equilibration inside against equilibrated_lanes around the twin; the
+    kernel, the twin and torch.linalg.solve timed beside the bound.
+    Returns (max error, the shape's dict)."""
     unrolled = name == "gj_kernel_unrolled"
-    for (n, R, Bt) in KERNELS[name][2]:
-        A, b = systems(n, R, Bt, gen, pivot_case=True)
-        bs.GJ_UNROLLED = unrolled
-        try:
-            before = ht.LAUNCHES[name]
-            x = ht.gauss_solve_lanes(A, b)
-            torch.cuda.synchronize()
-            check(ht.LAUNCHES[name] > before, f"{name} was not launched")
-            k_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
-        finally:
-            bs.GJ_UNROLLED = False
-        x_ref = ht.gj_solve_lanes_ref(A, b)
-        scale = x_ref.abs().max().item()
-        err = (x - x_ref).abs().max().item()
-        pv = (x[:, :, 0] - x_ref[:, :, 0]).abs().max().item()
-        check(np.isfinite(err) and err <= KERNEL_TOL * scale,
-              f"{name} at {(n, R, Bt)}: max err {err} > "
-              f"{KERNEL_TOL} * {scale}")
-        p_ms = time_ms(lambda: ht.gj_solve_lanes_ref(A, b),
-                       3 if n > 32 else 10)
-        msg = (f"[2] {name} n={n} R={R} B={Bt}: max|dx| {err:.3e} (scale "
-               f"{scale:.3e}; pivot system {pv:.3e}) kernel {k_ms:.4f} ms, "
-               f"plain {p_ms:.4f} ms")
-        if unrolled:
-            c_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
-            msg += f", gj_kernel_carried at this shape {c_ms:.4f} ms"
-        elif (n, R, Bt) == (26, 1, B) or (n, R, Bt) == (96, 1, B):
-            # the layout alternative: transpose to batch-major first
-            A_bm = A.permute(2, 0, 1).contiguous()
-            x_bm = torch.empty_like(x)
+    A, b = systems(n, R, Bt, gen, pivot_case=True)
+    bs.GJ_UNROLLED = unrolled
+    try:
+        before = ht.LAUNCHES[name]
+        x = ht.gauss_solve_lanes(A, b)
+        torch.cuda.synchronize()
+        check(ht.LAUNCHES[name] > before, f"{name} was not launched")
+        k_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
+    finally:
+        bs.GJ_UNROLLED = False
+    x_ref = ht.gj_solve_lanes_ref(A, b)
+    scale = x_ref.abs().max().item()
+    err = (x - x_ref).abs().max().item()
+    pv = (x[:, :, 0] - x_ref[:, :, 0]).abs().max().item()
+    check(np.isfinite(err) and err <= KERNEL_TOL * scale,
+          f"{name} at {(n, R, Bt)}: max err {err} > "
+          f"{KERNEL_TOL} * {scale}")
+    p_ms = time_ms(lambda: ht.gj_solve_lanes_ref(A, b),
+                   3 if n > 32 else 10)
+    msg = (f"[{tag}] {name} n={n} R={R} B={Bt}: max|dx| {err:.3e} (scale "
+           f"{scale:.3e}; pivot system {pv:.3e}) kernel {k_ms:.4f} ms, "
+           f"plain {p_ms:.4f} ms")
+    if unrolled:
+        c_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
+        msg += f", gj_kernel_carried at this shape {c_ms:.4f} ms"
+    elif (n, R, Bt) == (26, 1, B) or (n, R, Bt) == (96, 1, B):
+        # the layout alternative: transpose to batch-major first
+        A_bm = A.permute(2, 0, 1).contiguous()
+        x_bm = torch.empty_like(x)
 
-            def batch_major():
-                A_bm.copy_(A.permute(2, 0, 1))
-                bs._launch(A_bm.permute(1, 2, 0), b, x_bm)
-            t_ms = time_ms(batch_major, 20)
-            check((x_bm - x).abs().max().item() <= KERNEL_TOL * scale,
-                  f"{name}: batch-major operands disagree")
-            msg += f", kernel on a batch-major copy incl. transpose {t_ms:.4f} ms"
-            del A_bm, x_bm
-        lib_ms = library_solve_ms(A, b)
-        b_ms, b_by = bound(*solve_work(n, R, Bt))
-        log(f"{msg}, torch.linalg.solve {lib_ms:.4f} ms, bound {b_ms:.4f} "
-            f"ms ({b_by})")
-        del A, b, x, x_ref
-        bs.GJ_UNROLLED = unrolled
-        try:
-            e_err, f_ms, w_ms = check_equilibrated(n, R, Bt, gen)
-        finally:
-            bs.GJ_UNROLLED = False
-        log(f"[2] {name} n={n} R={R} B={Bt}, rows scaled over 1e-3..1e3: "
-            f"the equilibration inside the kernel (batched_solve_lanes) "
-            f"{f_ms:.4f} ms, equilibrated_lanes around the kernel "
-            f"{w_ms:.4f} ms; max|dx| {e_err:.3e} from "
-            f"equilibrated_lanes around the twin")
+        def batch_major():
+            A_bm.copy_(A.permute(2, 0, 1))
+            bs._launch(A_bm.permute(1, 2, 0), b, x_bm)
+        t_ms = time_ms(batch_major, 20)
+        check((x_bm - x).abs().max().item() <= KERNEL_TOL * scale,
+              f"{name}: batch-major operands disagree")
+        msg += f", kernel on a batch-major copy incl. transpose {t_ms:.4f} ms"
+        del A_bm, x_bm
+    lib_ms = library_solve_ms(A, b)
+    b_ms, b_by = bound(*solve_work(n, R, Bt))
+    log(f"{msg}, torch.linalg.solve {lib_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by})")
+    del A, b, x, x_ref
+    bs.GJ_UNROLLED = unrolled
+    try:
+        e_err, f_ms, w_ms = check_equilibrated(n, R, Bt, gen)
+    finally:
+        bs.GJ_UNROLLED = False
+    log(f"[{tag}] {name} n={n} R={R} B={Bt}, rows scaled over 1e-3..1e3: "
+        f"the equilibration inside the kernel (batched_solve_lanes) "
+        f"{f_ms:.4f} ms, equilibrated_lanes around the kernel "
+        f"{w_ms:.4f} ms; max|dx| {e_err:.3e} from "
+        f"equilibrated_lanes around the twin")
+    return err, dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     max_abs_err=err)
+
+
+def check_solve_kernel(name, gen):
+    """:func:`solve_case` at each of the kernel's KERNELS shapes.  Returns
+    (max errors, one dict per shape)."""
+    errs, shapes = [], []
+    for (n, R, Bt) in KERNELS[name][2]:
+        err, shape = solve_case(name, n, R, Bt, gen)
         errs.append(err)
-        shapes.append(dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                           max_abs_err=err))
+        shapes.append(shape)
     torch.cuda.empty_cache()
     return errs, shapes
 
@@ -2123,6 +2178,533 @@ def phase17():
     return {k: total[k] + launches_b[k] + launches_c[k] for k in total}
 
 
+def interleaved(runs, make_sc, reps, tag, Bt, s, net, min_conv=None,
+                max_stalls=None):
+    """``reps`` rounds of every run in ``runs`` ({name: fn(scenarios)}), in
+    turns on the same scenario set ``make_sc(k)``, each closed by a device
+    sync; conv held to ``min_conv[name]`` and the unconverged count to
+    ``max_stalls[name]`` where given.  Returns ({name: times}, {name: rep
+    0's result})."""
+    min_conv = min_conv or {}
+    max_stalls = max_stalls or {}
+    times = collections.defaultdict(list)
+    first = {}
+    for k in range(reps):
+        sc = make_sc(k)
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(sc)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            conv = check_result(res, Bt, s, net, f"{tag} {name} rep {k}",
+                                min_conv.get(name, 0.0))
+            it = res.n_iter.float()
+            stalls = int((~res.converged).sum())
+            times[name].append(dt)
+            log(f"[{tag}] {name} rep {k}: {dt:.4f} s, "
+                f"{conv * Bt / dt:.1f} converged solves/s, conv {conv:.6f} "
+                f"({stalls} not converged), n_iter mean "
+                f"{it.mean().item():.3f} max {int(it.max().item())}")
+            check(stalls <= max_stalls.get(name, Bt), f"[{tag}] {name} rep "
+                  f"{k}: {stalls} not converged > {max_stalls.get(name)}")
+            first.setdefault(name, res)
+    for name, t in times.items():
+        log(f"[{tag}] {name}: median {np.median(t):.4f} s")
+    return times, first
+
+
+def phasor_gap(a, b):
+    """Max phasor |dV| (pu) between two results on the scenarios both
+    converged, and their count."""
+    ok = a.converged & b.converged
+    d = torch.hypot(
+        a.V_m[ok] * torch.cos(a.V_a[ok]) - b.V_m[ok] * torch.cos(b.V_a[ok]),
+        a.V_m[ok] * torch.sin(a.V_a[ok]) - b.V_m[ok] * torch.sin(b.V_a[ok]))
+    return (d.max().item() if d.numel() else 0.0), int(ok.sum())
+
+
+#: phase 18: the continuation's stages (bench.py's HPFX_BENCH_CONTDEV=8
+#: and HPFX_BENCH_CONTINUATION=8), the net1 batch of
+#: validation/bench_continuation.py, and phase 8's bound on two paths to
+#: the same roots (phasor pu)
+N_STAGES = 8
+B_CONT_NET1 = 512
+SAME_ROOT_TOL = 5e-4
+
+
+def phase18a():
+    """The device continuation at net2 H<=25 B=16384 interleaved with the
+    main path on the same scenario sets; float32 against float64."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    cont = lambda sc, lg=None: lanes.hpf_sweep_continuation_lanes(
+        net, dev, s, sc, n_stages=N_STAGES, log=lg)
+    main_path = lambda sc: ht.hpf_sweep_device(
+        net, dev, s, sc, phase_iters=PHASE_ITERS, warm="linear")
+    launches = warm_up(cont, B, None, ("gj_kernel",), "18a")
+    key = ("gj_kernel", (26, 1, B // N_STAGES))
+    check(ht.LAUNCHES_BY_SHAPE[key] > 0, f"[18a] no launch of {key}")
+    logged_rep(cont, B, "18a", ("stages", "rescue"))
+    # the continuation has no host rescue: its first chunk starts cold and
+    # its rescue ends cold, so its float32 stalls are held to the cold
+    # start's limit (phase 8), and shown to be float32's below
+    _, first = interleaved({"continuation": cont, "hpf_sweep_device":
+                            main_path}, lambda k: scen(k, B), 3, "18a", B, s,
+                           net, {"hpf_sweep_device": 0.999},
+                           {"continuation": COLD_STALLS})
+    stalled = torch.nonzero(~first["continuation"].converged).flatten()
+    if stalled.numel():
+        sub = ht.Scenarios(*(x[stalled] for x in scen(0, B)[:3]))
+        r64 = ht.solve._f64_resolve(net, dev, s, sub)
+        log(f"[18a] the {stalled.numel()} scenarios rep 0 left unconverged, "
+            f"re-solved cold in float64: {int(r64.converged.sum())} "
+            f"converge")
+        check(bool(r64.converged.all()), "[18a] a stall of the continuation "
+              "does not converge in float64 either")
+    gap, n_ok = phasor_gap(first["continuation"], first["hpf_sweep_device"])
+    log(f"[18a] continuation against hpf_sweep_device on the {n_ok} "
+        f"scenarios both converged: max phasor |dV| {gap:.3e} pu")
+    check(gap <= SAME_ROOT_TOL, f"[18a] {gap} > {SAME_ROOT_TOL}")
+    f64 = torch.float64
+    net64, dev64, s64 = net.to(dtype=f64), dev.to(dtype=f64), \
+        s.with_(dtype="float64")
+    compare_f64(first["continuation"], lambda sub:
+                lanes.hpf_sweep_continuation_lanes(net64, dev64, s64, sub,
+                                                   n_stages=N_STAGES),
+                B, 5e-5, 1e-4, "18a")
+    return launches
+
+
+def phase18b():
+    """The host continuation: net2 H<=25 B=16384 with a dense phase 2
+    (HPFX_BENCH_CONTINUATION=8), net1 H<=25 B=512 with an arrow one;
+    float32 against float64 on net1."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    run = lambda sc, lg=None: ht.hpf_sweep_continuation(
+        net, dev, s, sc, n_stages=N_STAGES, phase_iters=PHASE_ITERS,
+        phase2_settings=s.with_(solver="dense"))
+    launches = warm_up(run, B, None, ("gj_kernel",), "18b net2")
+    timed_reps(run, B, s, net, "18b net2", 3)
+    s1, net1, dev1 = fixture_net("net1", H_MAX)
+    def cont1(s_, n_, d_):
+        return lambda sc, lg=None: ht.hpf_sweep_continuation(
+            n_, d_, s_, sc, n_stages=N_STAGES, phase_iters=PHASE_ITERS,
+            phase2_settings=s_)
+    launches1 = warm_up(cont1(s1, net1, dev1), B_CONT_NET1, None,
+                        ("gj_kernel", "gj_panel_kernel"), "18b net1")
+    _, rep0 = timed_reps(cont1(s1, net1, dev1), B_CONT_NET1, s1, net1,
+                         "18b net1", 2)
+    f64 = torch.float64
+    compare_f64(rep0, cont1(s1.with_(dtype="float64"), net1.to(dtype=f64),
+                            dev1.to(dtype=f64)),
+                B_CONT_NET1, 3e-4, 5e-4, "18b net1")
+    return {k: launches[k] + launches1[k] for k in launches}
+
+
+def phase18c():
+    """hpf_sweep_kron at net2 H<=25 B=16384 from the cold start beside the
+    unreduced hpf_sweep on the same scenarios.  Neither has a rescue, and
+    from the cold start about 1% of the scenarios stall in float32 (phase
+    8), so each is held to phase 8's cold-start limits (COLD_STALLS
+    unconverged, rates within COLD_RATE_GAP), and the reduced sweep in
+    float64 must converge all of 64 scenarios and agree with float32 on
+    those float32 converged to phase 4's bounds."""
+    s, net, dev = fixture_net("net2", H_MAX)
+    red = ht.kron_reduce(net, s)
+    log(f"[18c] passive buses {red.elim.tolist()}: n {net.n} -> "
+        f"{red.net.n}, Newton dim {2 * s.n_harmonics * net.n - 1 - net.c} "
+        f"-> {2 * s.n_harmonics * red.net.n - 1 - red.net.c}")
+    kron = lambda sc, lg=None: ht.solve.hpf_sweep_kron(net, dev, s, sc)
+    full = lambda sc: ht.hpf_sweep(net, dev, s, sc)
+    launches = warm_up(kron, B, None, ("gj_kernel",), "18c")
+    _, first = interleaved({"kron": kron, "hpf_sweep": full},
+                           lambda k: scen(k, B), 3, "18c", B, s, net,
+                           max_stalls={"kron": COLD_STALLS,
+                                       "hpf_sweep": COLD_STALLS})
+    stalls = {k: int((~r.converged).sum()) for k, r in first.items()}
+    gap_rate = abs(stalls["kron"] - stalls["hpf_sweep"]) / B
+    log(f"[18c] rep 0 unconverged: {stalls} (limit {COLD_STALLS} each), "
+        f"rates apart by {gap_rate:.6f} (limit {COLD_RATE_GAP})")
+    check(max(stalls.values()) <= COLD_STALLS and gap_rate <= COLD_RATE_GAP,
+          f"[18c] cold-start stalls {stalls} past phase 8's limits")
+    gap, n_ok = phasor_gap(first["kron"], first["hpf_sweep"])
+    log(f"[18c] all {net.n} buses against the unreduced sweep on the {n_ok} "
+        f"scenarios both converged: max phasor |dV| {gap:.3e} pu")
+    check(gap <= SAME_ROOT_TOL, f"[18c] {gap} > {SAME_ROOT_TOL}")
+    f64 = torch.float64
+    compare_f64(first["kron"], lambda sub: ht.solve.hpf_sweep_kron(
+        net.to(dtype=f64), dev.to(dtype=f64), s.with_(dtype="float64"), sub),
+        B, 5e-5, 1e-4, "18c", converged_only=True)
+    return launches
+
+
+def phase18():
+    """The continuation sweeps and the Kron-reduced sweep at the bench's
+    widths."""
+    parts = [phase18a(), phase18b(), phase18c()]
+    torch.cuda.empty_cache()
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+#: phase 19: the studies of validation/bench_seq.py, bench_longline.py and
+#: bench_converters.py: net2 H<=25 B=4096 through hpf_sweep_adaptive, the
+#: arrow solver; the lines charged to |theta(25)| = LONGLINE_THETA
+B_STUDY = 4096
+LONGLINE_THETA = 0.8
+#: float32 against float64 (|dV_m|, phasor |dV|, pu): phase 4's bounds,
+#: but for the sequence-aware network phase 6's (net1's).  Its triplen
+#: rows see the zero-sequence impedances (3x the reactance, a 0.1 pu
+#: grounding path), so a residual at the float32 floor-aware threshold
+#: (~5e-4) moves the voltages ~14x as far as on plain net2 (float64 at
+#: thresh_h 1e-4 against 1e-10: 2.6e-5 against 1.9e-6 pu on the CPU):
+#: float32 stopped 8.1e-5 and 1.0e-4 pu from float64 there (1.2e-4 and
+#: 1.4e-4 with the stable mismatch on the card)
+STUDY_F32_TOL = {"seqaware": (3e-4, 5e-4)}
+
+
+def study_draws(k, dtype=torch.float32):
+    """The harnesses' seeded draws of B_STUDY scenarios: p and q over
+    0.6-1.4, the injection scale over 0.3-1.7."""
+    rng = np.random.default_rng(1000 + k)
+    Bt = B_STUDY
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=DEV)
+    return ht.Scenarios(p_scale=f(rng.uniform(0.6, 1.4, Bt)),
+                        q_scale=f(rng.uniform(0.6, 1.4, Bt)),
+                        injection_scale=f(rng.uniform(0.3, 1.7, Bt)))
+
+
+def study_variants(dtype):
+    """(settings, {name: (network, devices, Y, V0 of Bt)}) of phase 19's
+    studies in ``dtype``."""
+    s = ht.settings_for_hmax(H_MAX, coupled=True).with_(
+        solver="arrow", dtype=dtype)
+    net = ht.load_network(os.path.join(DATA, "net2_buses.csv"),
+                          os.path.join(DATA, "net2_lines.csv"), s,
+                          device=DEV)
+    dev = ht.load_device_set(net, s)
+    probe = dataclasses.replace(net, line_B=torch.ones_like(net.line_B)
+                                * 1e-3)
+    th = ht.electrical_length(probe, s)[-1].max().item()
+    charged = dataclasses.replace(net, line_B=torch.ones_like(net.line_B)
+                                  * 1e-3 * (LONGLINE_THETA / th) ** 2)
+    conv_dev = ht.converter_device_set(
+        net, s, [{"kind": "six_pulse", "I1": 0.3, "alpha": np.deg2rad(20.0),
+                  "mu": np.deg2rad(10.0)}] * net.n_nonlinear)
+    v0 = ht.converter_warm_start(net, s, conv_dev)
+    V0 = lambda Bt: tuple(v.expand((Bt,) + v.shape) for v in v0)
+    yd = ht.linear_load_admittance(net, s, buses=[1, 2])
+    return s, {
+        "plain": (net, dev, None, None),
+        "damped": (net, dev, ht.damped_structures(net, s, yd), None),
+        "seqaware": (net, dev, ht.sequence_structures(
+            net, s, r0_scale=2.5, x0_scale=3.0, bus_Xg={1: 0.1}), None),
+        "nominal": (charged, dev, None, None),
+        "longline": (charged, dev, ht.longline_structures(charged, s), None),
+        "skin": (net, dev, ht.skin_structures(net, s), None),
+        "converter": (net, conv_dev, None, V0),
+    }
+
+
+def study_run(s, net, dev, Y, V0):
+    return lambda sc, lg=None: ht.hpf_sweep_adaptive(
+        net, dev, s, sc, Y=Y, V0=None if V0 is None else V0(sc.batch),
+        log=lg)
+
+
+def phase19():
+    """The admittance-override and converter studies, interleaved, 3 reps
+    each; float32 against float64 on 64 scenarios each; every override's
+    voltages differ from its baseline's."""
+    s, variants = study_variants("float32")
+    s64, variants64 = study_variants("float64")
+    total = {k: 0 for k in ht.LAUNCHES}
+    runs = {}
+    for name, (net, dev, Y, V0) in variants.items():
+        runs[name] = study_run(s, net, dev, Y, V0)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[name](study_draws(999))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"[19] {name} warm-up {time.perf_counter() - t0:.3f} s, "
+            f"launches {launches}")
+        log_shapes(f"19 {name}")
+        check(launches["gj_kernel"] > 0, f"[19] {name} never launched "
+              "gj_kernel")
+        for k in total:
+            total[k] += launches[k]
+    net = variants["plain"][0]
+    min_conv = {name: 0.999 for name in runs if name != "converter"}
+    _, first = interleaved(runs, study_draws, 3, "19", B_STUDY, s, net,
+                           min_conv)
+    idx = torch.arange(0, B_STUDY, B_STUDY // 64, device=DEV)
+    sub = ht.Scenarios(*(x[idx] for x in study_draws(0)[:3])).to(
+        torch.float64)
+    for name, (n64, d64, Y64, V064) in variants64.items():
+        r64 = study_run(s64, n64, d64, Y64, V064)(sub)
+        r32 = first[name]
+        ok = r32.converged[idx] & r64.converged
+        Vm32, Va32 = r32.V_m[idx][ok].double(), r32.V_a[idx][ok].double()
+        dVm = (Vm32 - r64.V_m[ok]).abs().max().item()
+        dV = torch.hypot(
+            Vm32 * torch.cos(Va32) - r64.V_m[ok] * torch.cos(r64.V_a[ok]),
+            Vm32 * torch.sin(Va32) - r64.V_m[ok] * torch.sin(r64.V_a[ok])
+        ).max().item()
+        log(f"[19] {name}: float32 against float64 on the {int(ok.sum())} "
+            f"of 64 scenarios both converged (float64 converged "
+            f"{int(r64.converged.sum())}): max|dV_m| {dVm:.3e} pu, max "
+            f"phasor |dV| {dV:.3e} pu")
+        if name != "converter":
+            check(bool(r64.converged.all()), f"[19] {name}: float64 did "
+                  "not converge")
+        check(int(ok.sum()) > 0, f"[19] {name}: no scenario converged in "
+              "both")
+        tol = STUDY_F32_TOL.get(name, (5e-5, 1e-4))
+        check(dVm <= tol[0] and dV <= tol[1], f"[19] {name}: float32 "
+              f"against float64 {dVm}, {dV} > {tol}")
+    for name, base in (("damped", "plain"), ("seqaware", "plain"),
+                       ("skin", "plain"), ("longline", "nominal")):
+        gap, n_ok = phasor_gap(first[name], first[base])
+        log(f"[19] {name} against {base}: max phasor |dV| {gap:.3e} pu on "
+            f"{n_ok} scenarios")
+        check(gap > 0.0, f"[19] {name} equals {base}: the override did not "
+              "reach the solve")
+    torch.cuda.empty_cache()
+    return total
+
+
+#: phase 20: validation/bench_modes3p.py's settings: a 128-point modal
+#: grid over orders 2-25 at 16 inverse-iteration steps; 1024 three-phase
+#: draws at net1 H<=13; the tolerances of its checks
+MODAL_GRID = tuple(np.round(np.linspace(2.0, 25.0, 128), 6))
+MODAL_ITERS = 16
+MODAL_RTOL = 1e-3
+B_ABC = 1024
+ABC_KW = dict(r0_scale=2.5, x0_scale=3.0)
+ABC_TOL = 1e-4
+#: phases 20c-d: the card against the CPU in float64
+CARD_CPU_TOL = 1e-10
+#: the controlled device of tests/test_extended.py:56: its setpoint
+EXT_P_SET = 9.2
+
+
+def phase20a():
+    """modal_scan on net1 H<=25 with its devices and the 64-bus synthetic
+    feeder: modes/s, the float64 scan's peaks and critical |z|."""
+    s = ht.settings_for_hmax(H_MAX, coupled=True)
+    net1 = ht.load_network(os.path.join(DATA, "net1_buses.csv"),
+                           os.path.join(DATA, "net1_lines.csv"), s,
+                           device=DEV)
+    net64 = ht.synthetic_feeder(64, 7, s, components=("SMPS",), seed=1,
+                                device=DEV)
+    f64 = torch.float64
+    for tag, net in (("net1", net1), ("synthetic n64", net64)):
+        dev = ht.load_device_set(net, s)
+        scan = lambda: ht.modal_scan(net, s, h_grid=MODAL_GRID, devices=dev,
+                                     iters=MODAL_ITERS)
+        res = scan()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = scan()
+            res.residual.cpu()
+            times.append(time.perf_counter() - t0)
+        r64 = ht.modal_scan(net.to(dtype=f64), s.with_(dtype="float64"),
+                            h_grid=MODAL_GRID, devices=dev.to(dtype=f64),
+                            iters=MODAL_ITERS)
+        p32, h32, b32 = ht.modal_peaks(res)
+        p64, h64, b64 = ht.modal_peaks(r64)
+        # the peaks by grid index (the float32 grid's orders are the
+        # float64 grid's rounded)
+        peaks32 = torch.nonzero(p32).flatten().tolist()
+        peaks64 = torch.nonzero(p64).flatten().tolist()
+        orders = [float(MODAL_GRID[i]) for i in peaks64]
+        z32, z64 = res.z_modal.max().item(), r64.z_modal.max().item()
+        rel = abs(z32 - z64) / z64
+        log(f"[20a] {tag}: modal_scan reps "
+            f"{', '.join(f'{t:.4f}' for t in times)} s -> "
+            f"{len(MODAL_GRID) / min(times):.1f} modes/s; median residual "
+            f"{res.residual.median().item():.3e}; peaks at grid points "
+            f"{peaks32} (float64 {peaks64}: orders {orders}), critical at h "
+            f"{h32.item():.4f} bus "
+            f"{int(b32)} |z| {z32:.6e} (float64 {z64:.6e}, rel {rel:.3e})")
+        check(peaks32 == peaks64, f"[20a] {tag}: peaks {peaks32} != "
+              f"float64's {peaks64}")
+        check(rel <= MODAL_RTOL, f"[20a] {tag}: critical |z| rel {rel} > "
+              f"{MODAL_RTOL}")
+
+
+def abc_draws(k, n_nl, dtype=torch.float32):
+    rng = np.random.default_rng(2000 + k)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=DEV)
+    return (f(1.0 + 0.3 * rng.standard_normal((B_ABC, n_nl, 3))),
+            f(0.2 * rng.standard_normal((B_ABC, n_nl, 3))))
+
+
+def phase20b():
+    """solve_unbalanced over 1024 draws at net1 H<=13, uncoupled: draws/s,
+    float32 against float64 on 64 draws; one allocation_study."""
+    s = ht.settings_for_hmax(13, coupled=False)
+    net = ht.load_network(os.path.join(DATA, "net1_buses.csv"),
+                          os.path.join(DATA, "net1_lines.csv"), s,
+                          device=DEV)
+    dev = ht.load_device_set(net, s)
+    n_nl = dev.n_devices
+    run = lambda mag, ang: ht.solve_unbalanced(net, dev, s, mag=mag, ang=ang,
+                                               **ABC_KW).V
+    run(*abc_draws(999, n_nl))
+    times = []
+    for k in range(3):
+        draws = abc_draws(k, n_nl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        V = run(*draws)
+        V.re.cpu()
+        times.append(time.perf_counter() - t0)
+        if k == 0:
+            V0 = V
+    f64 = torch.float64
+    mag, ang = abc_draws(0, n_nl, f64)
+    V64 = ht.solve_unbalanced(net.to(dtype=f64), dev.to(dtype=f64),
+                              s.with_(dtype="float64"), mag=mag[:64],
+                              ang=ang[:64], **ABC_KW).V
+    d = torch.hypot(V0.re[:64].double() - V64.re,
+                    V0.im[:64].double() - V64.im).max().item()
+    log(f"[20b] solve_unbalanced B={B_ABC} reps "
+        f"{', '.join(f'{t:.4f}' for t in times)} s -> "
+        f"{B_ABC / min(times):.1f} draws/s; float32 against float64 on 64 "
+        f"draws: max |dV| {d:.3e} pu")
+    check(d <= ABC_TOL, f"[20b] float32 against float64 {d} > {ABC_TOL}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = ht.allocation_study(net, dev, s, **ABC_KW)
+    st.vmag_q.cpu()
+    log(f"[20b] allocation_study (256 draws) {time.perf_counter() - t0:.4f} "
+        f"s: worst-phase |V| q95 max {st.vmag_q[-1].max().item():.4e} pu, "
+        f"u0 q95 max {st.u0_q[-1].max().item():.4e}")
+    check(bool(torch.isfinite(st.vmag_q).all()), "[20b] allocation_study "
+          "not finite")
+
+
+def controlled_device(dev):
+    """tests/test_extended.py:56's device: the Norton injection scaled by
+    (1 + u), u closed by the fundamental active power draw at EXT_P_SET."""
+    def inject(params, V_m, V_a, u):
+        I_N, Y_N, _ = params
+        return ht.norton_inject((I_N, Y_N), V_m, V_a) * (1.0 + u[0])
+
+    def constraint(params, V_m, V_a, u):
+        I = inject(params, V_m, V_a, u)
+        V1 = ht.cx.polar(V_m[0:1], V_a[0:1])
+        return (-(V1 * I[0:1].conj()).re[0] - params[2])[None]
+
+    p_set = torch.tensor([EXT_P_SET], dtype=dev.I_N.dtype,
+                         device=dev.I_N.device)
+    return ht.ControlledDeviceSet(
+        params=(dev.I_N[0:1], dev.Y_N[0:1], p_set),
+        u0=torch.zeros((1, 1), dtype=dev.I_N.dtype, device=dev.I_N.device),
+        inject=inject, constraint=constraint, n_nl=1, n_u=1)
+
+
+def card_and_cpu(solve, tag, fields):
+    """``solve(device)`` on the card and on the CPU in float64: identical
+    iterations, ``fields`` and the voltage phasors within CARD_CPU_TOL
+    (phasors, not angles: an angle near 0 may wrap to near 2pi)."""
+    out = {}
+    for label, where in (("card", DEV), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = r = solve(where)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {label}: {time.perf_counter() - t0:.3f} s, "
+            f"{int(r.n_iter)} iterations, converged {bool(r.converged)}")
+    a, b = out["card"], out["cpu"]
+    gaps = {f: (getattr(a, f).cpu() - getattr(b, f)).abs().max().item()
+            for f in fields}
+    pa = torch.polar(a.V_m.cpu(), a.V_a.cpu())
+    gaps["phasor"] = (pa - torch.polar(b.V_m, b.V_a)).abs().max().item()
+    log(f"[{tag}] card against CPU: " + ", ".join(
+        f"max |d{f}| {g:.3e}" for f, g in gaps.items()))
+    check(int(a.n_iter) == int(b.n_iter) and bool(a.converged)
+          and bool(b.converged), f"[{tag}] iterations or convergence differ")
+    check(max(gaps.values()) <= CARD_CPU_TOL,
+          f"[{tag}] card against CPU {gaps} > {CARD_CPU_TOL}")
+
+
+def phase20c():
+    """hpf_extended at net2 H<=5 with the controlled device, float64, the
+    card against the CPU."""
+    s = ht.settings_for_hmax(5, coupled=True, dtype="float64")
+
+    def solve(where):
+        net = ht.load_network(os.path.join(DATA, "net2_buses.csv"),
+                              os.path.join(DATA, "net2_lines.csv"), s,
+                              device=where)
+        return ht.hpf_extended(net, controlled_device(
+            ht.load_device_set(net, s)), s)
+    card_and_cpu(solve, "20c", ("V_m", "u"))
+
+
+def phase20d():
+    """hpf_sequence at net2 H<=25 (bench_seq.py's sequence network),
+    float64, the card against the CPU."""
+    s = ht.settings_for_hmax(H_MAX, coupled=True, dtype="float64").with_(
+        solver="arrow")
+
+    def solve(where):
+        net = ht.load_network(os.path.join(DATA, "net2_buses.csv"),
+                              os.path.join(DATA, "net2_lines.csv"), s,
+                              device=where)
+        return ht.hpf_sequence(net, ht.load_device_set(net, s), s,
+                               r0_scale=2.5, x0_scale=3.0, bus_Xg={1: 0.1})
+    card_and_cpu(solve, "20d", ("V_m",))
+
+
+def phase20():
+    """The analysis layers: modes, three-phase, extended, sequence.  They
+    run no hand-written kernel (their solves are torch.linalg.solve, or
+    float64 LU)."""
+    reset_launches()
+    phase20a()
+    phase20b()
+    phase20c()
+    phase20d()
+    launches = read_launches()
+    log(f"[20] launches {launches}")
+    return launches
+
+
+def new_shapes(before, gen):
+    """Each direct or panel kernel at the shapes phases 18-20 launched that
+    no earlier check covers, against its plain twin and timed (the
+    rescue's and phase 2's bucket widths vary from run to run).  Returns
+    {kernel: [shape dicts]}."""
+    checked = {(k, tuple(sh)) for k, (_, _, shapes) in KERNELS.items()
+               for sh in shapes}
+    checked |= {(k, (n, R, Bt)) for k, n, R, Bt in BATCH_MAJOR}
+    out = collections.defaultdict(list)
+    for key in sorted(set(PATH_SHAPES) - before - checked):
+        name, shape = key
+        if name == "gj_panel_kernel":
+            out[name].append(panel_case(*shape, gen, tag="21")[1])
+        elif name in ("gj_kernel", "gj_kernel_carried"):
+            out[name].append(solve_case(name, *shape, gen, tag="21")[1])
+    torch.cuda.empty_cache()
+    log(f"[21] kernels at the shapes phases 18-20 first launched: "
+        + ", ".join(f"{k} {[sh['shape'] for sh in v]}"
+                    for k, v in out.items()))
+    return out
+
+
+def add_shapes(row, shapes):
+    """Shapes checked outside phase 2 join a kernel's row."""
+    row["shapes"] += shapes
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [sh["max_abs_err"] for sh in shapes])
+
+
 def main():
     t_start = time.perf_counter()
     # the paths run gj_kernel_carried whatever HPFX_GJ_UNROLLED says; the
@@ -2137,10 +2719,11 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(15)
     launches15, k4_shapes = phase15(gen)
     paths += [launches15, phase16(gen), phase17()]
-    row = rows["gj_panel_kernel"]
-    row["shapes"] += k4_shapes
-    row["max_abs_err"] = max([row["max_abs_err"]]
-                             + [sh["max_abs_err"] for sh in k4_shapes])
+    add_shapes(rows["gj_panel_kernel"], k4_shapes)
+    before_18 = set(PATH_SHAPES)
+    paths += [phase18(), phase19(), phase20()]
+    for name, shapes in new_shapes(before_18, gen).items():
+        add_shapes(rows[name], shapes)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
         check(row["launches"] > 0, f"no path launched {name}")
@@ -2151,8 +2734,8 @@ def main():
         check(sum(row["launches_by_shape"].values()) == row["launches"],
               f"{name}: launches by shape do not add up")
     t_run = time.perf_counter() - t_start
-    lo, hi = BEFORE_17_RUN_S
-    log(f"[10] whole run {t_run:.1f} s; before phase 17 the runs took "
+    lo, hi = BEFORE_18_RUN_S
+    log(f"[10] whole run {t_run:.1f} s; before phase 18 the runs took "
         f"{lo}-{hi} s: {t_run - hi:+.1f} to {t_run - lo:+.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

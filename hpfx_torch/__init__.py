@@ -37,7 +37,8 @@ from .fundamental import FundResult, pf, solve_fundamental  # noqa: E402
 from .generators import synthetic_feeder  # noqa: E402
 from .harmonic import (HPFResult, cleanup_voltages, hpf,  # noqa: E402
                        solve_harmonic)
-from .lanes import PhaseLog, hpf_sweep_adaptive_lanes  # noqa: E402
+from .lanes import (PhaseLog, hpf_sweep_adaptive_lanes,  # noqa: E402
+                    hpf_sweep_continuation_lanes)
 from .network import (Network, load_network, network_from_arrays,  # noqa: E402
                       validate_network)
 from .ops.batched_solve import (LAUNCHES, LAUNCHES_BY_SHAPE,  # noqa: E402
@@ -88,8 +89,59 @@ from .contingency import (ContingencyReport,  # noqa: E402
                           screen_shunt_outages)
 from .trajlog import (read_ilog, read_vlog,  # noqa: E402
                       trajectory_injections, write_ilog, write_vlog)
+from .solve import hpf_sweep_continuation  # noqa: E402
+from .kron import (KronReduction, kron_reduce,  # noqa: E402
+                   passive_buses, recover_voltages)
+from .loadmodel import damped_structures, linear_load_admittance  # noqa: E402
+from .lineskin import (line_resistance, skin_ratio,  # noqa: E402
+                       skin_structures)
+from .longline import (electrical_length, longline_factors,  # noqa: E402
+                       longline_structures)
+from .sequence import (SequenceSet, balanced_phases,  # noqa: E402
+                       classify_orders, delta_blocked, delta_device_set,
+                       hpf_sequence, neutral_current, phase_components,
+                       sequence_components, sequence_structures,
+                       triplen_mask, zero_sequence_network)
+from .converters import (NotchReport, converter_device_set,  # noqa: E402
+                         converter_warm_start, notch_analysis,
+                         six_pulse_spectrum, synth_waveform, table_spectrum,
+                         twelve_pulse_spectrum)
+from .matpower import load_matpower, parse_matpower  # noqa: E402
+from .opendss import (device_spectra_at_nominal,  # noqa: E402
+                      export_opendss_case)
+from .modes import (CriticalMode, ModalScan, critical_mode,  # noqa: E402
+                    eigen_sensitivity, modal_peaks, modal_scan,
+                    modal_spectrum)
+from .threephase import (AllocationStudy, PhaseFlows,  # noqa: E402
+                         ThreePhaseResult, abc_admittance, allocation_study,
+                         line_phase_flows, phase_injections,
+                         sequence_voltages, solve_unbalanced,
+                         unbalance_factors)
+from .extended import (ControlledDeviceSet, ExtendedResult,  # noqa: E402
+                       hpf_extended, solve_harmonic_extended)
+from .convert import controlled_from_hpfx_arrays  # noqa: E402
+from .ybus import fold_ydiag  # noqa: E402
 
 __all__ = [
+    "AllocationStudy", "ControlledDeviceSet", "CriticalMode",
+    "ExtendedResult", "KronReduction", "ModalScan", "NotchReport",
+    "PhaseFlows", "SequenceSet", "ThreePhaseResult", "abc_admittance",
+    "allocation_study", "balanced_phases", "classify_orders",
+    "controlled_from_hpfx_arrays", "converter_device_set",
+    "converter_warm_start", "critical_mode", "damped_structures",
+    "delta_blocked", "delta_device_set", "device_spectra_at_nominal",
+    "eigen_sensitivity", "electrical_length", "export_opendss_case",
+    "fold_ydiag", "hpf_extended", "hpf_sequence", "hpf_sweep_continuation",
+    "kron_reduce", "line_phase_flows", "line_resistance",
+    "linear_load_admittance", "load_matpower", "longline_factors",
+    "longline_structures", "modal_peaks", "modal_scan", "modal_spectrum",
+    "neutral_current", "notch_analysis", "parse_matpower", "passive_buses",
+    "phase_components", "phase_injections", "recover_voltages",
+    "sequence_components", "sequence_structures", "sequence_voltages",
+    "six_pulse_spectrum", "skin_ratio", "skin_structures",
+    "solve_harmonic_extended", "solve_unbalanced", "synth_waveform",
+    "table_spectrum", "triplen_mask", "twelve_pulse_spectrum",
+    "unbalance_factors", "zero_sequence_network",
     "AnalyticDeviceSet", "ContingencyReport", "ContingencySweepReport",
     "Cx", "DATA_DIR", "DeviceLibrary", "DeviceSet", "FilterParams",
     "FundResult", "HPFReport", "HPFResult", "HostingCapacityResult",
@@ -112,7 +164,8 @@ __all__ = [
     "gj_panel_ref", "gj_solve_lanes_ref", "grid_source",
     "harmonic_linear_seed", "highpass_filter_admittance",
     "hosting_capacity_sweep", "hpf", "hpf_single", "hpf_sweep",
-    "hpf_sweep_adaptive", "hpf_sweep_adaptive_lanes", "hpf_sweep_device",
+    "hpf_sweep_adaptive", "hpf_sweep_adaptive_lanes",
+    "hpf_sweep_continuation_lanes", "hpf_sweep_device",
     "hpf_sweep_stream", "ieee519_screen", "impedance_scan",
     "injection_sensitivity", "install_shunt", "install_shunts",
     "islanded_lines", "k_factor", "library_from_hpfx_arrays",

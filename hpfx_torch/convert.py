@@ -15,6 +15,7 @@ import torch
 from ._device import resolve_device
 from .cx import Cx
 from .devices import DeviceLibrary, DeviceSet
+from .extended import ControlledDeviceSet
 from .network import ARRAY_FIELDS, Network
 
 
@@ -56,3 +57,29 @@ def library_from_hpfx_arrays(lib_leaves: dict, device=None) -> DeviceLibrary:
                          Y_lib=Cx(*map(t, lib_leaves["Y_lib"])),
                          coupled=bool(lib_leaves["coupled"]),
                          names=tuple(lib_leaves["names"]))
+
+
+def controlled_from_hpfx_arrays(params, u0, inject, constraint, n_nl: int,
+                                n_u: int, device=None) -> ControlledDeviceSet:
+    """A ``ControlledDeviceSet`` on ``device`` (default: the CUDA card)
+    from ``hpfx.extended.ControlledDeviceSet``'s data: ``params`` a nested
+    tuple of numpy arrays, complex ones becoming split-complex ``Cx``
+    (flatten a JAX ``Cx`` with its ``to_numpy()``), and ``u0`` (n_nl, n_u).
+    ``inject`` and ``constraint`` are the port's own torch functions of
+    the same device."""
+    device = resolve_device(device)
+
+    def t(a):
+        a = np.asarray(a)
+        if isinstance(a, np.ndarray) and a.dtype.kind == "c":
+            return Cx(torch.tensor(a.real.copy(), device=device),
+                      torch.tensor(a.imag.copy(), device=device))
+        return torch.tensor(a, device=device)
+
+    def tree(p):
+        if isinstance(p, (tuple, list)):
+            return type(p)(tree(q) for q in p)
+        return t(p)
+
+    return ControlledDeviceSet(params=tree(params), u0=t(u0), inject=inject,
+                               constraint=constraint, n_nl=n_nl, n_u=n_u)

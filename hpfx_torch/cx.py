@@ -77,6 +77,9 @@ class Cx(NamedTuple):
             return Cx(self.re - o.re, self.im - o.im)
         return Cx(self.re - o, self.im)
 
+    def __rsub__(self, o):
+        return (-self) + o
+
     def __neg__(self):
         return Cx(-self.re, -self.im)
 
@@ -88,12 +91,24 @@ class Cx(NamedTuple):
 
     __rmul__ = __mul__
 
+    def __truediv__(self, o):
+        if isinstance(o, Cx):
+            return self * o.reciprocal()
+        return Cx(self.re / o, self.im / o)
+
+    def __rtruediv__(self, o):
+        return self.reciprocal() * o
+
     def conj(self) -> "Cx":
         return Cx(self.re, -self.im)
 
     def jmul(self) -> "Cx":
         """Multiply by the imaginary unit."""
         return Cx(-self.im, self.re)
+
+    def reciprocal(self) -> "Cx":
+        d = self.re * self.re + self.im * self.im
+        return Cx(self.re / d, -self.im / d)
 
     def abs2(self) -> torch.Tensor:
         return self.re * self.re + self.im * self.im
@@ -186,6 +201,24 @@ def expj(ang) -> Cx:
     return Cx(torch.cos(ang), torch.sin(ang))
 
 
+def sqrt(w: Cx) -> Cx:
+    """Principal complex square root (branch cut on the negative real
+    axis, as numpy's): |w|^{1/2}·e^{j·arg(w)/2}."""
+    return polar(w.abs2() ** 0.25, 0.5 * torch.atan2(w.im, w.re))
+
+
+def sinh(w: Cx) -> Cx:
+    """sinh(a+jb) = sinh a·cos b + j·cosh a·sin b."""
+    return Cx(torch.sinh(w.re) * torch.cos(w.im),
+              torch.cosh(w.re) * torch.sin(w.im))
+
+
+def cosh(w: Cx) -> Cx:
+    """cosh(a+jb) = cosh a·cos b + j·sinh a·sin b."""
+    return Cx(torch.cosh(w.re) * torch.cos(w.im),
+              torch.sinh(w.re) * torch.sin(w.im))
+
+
 def zeros(shape, dtype, device=None) -> Cx:
     return Cx(torch.zeros(shape, dtype=dtype, device=device),
               torch.zeros(shape, dtype=dtype, device=device))
@@ -196,6 +229,13 @@ def zeros(shape, dtype, device=None) -> Cx:
 # float32 matmuls must run in full float32: the package pins TF32 off at
 # import (hpfx_torch/__init__.py) — a TF32 contraction keeps ~3 decimal
 # digits and stalls Newton at a residual floor far above thresh_h.
+
+def matmul(a: Cx, b: Cx) -> Cx:
+    """Batched complex matmul over the last two axes."""
+    mm = torch.matmul
+    return Cx(mm(a.re, b.re) - mm(a.im, b.im),
+              mm(a.re, b.im) + mm(a.im, b.re))
+
 
 def matvec(A: Cx, v: Cx) -> Cx:
     """A·v over the last axes: A (..., m, n), v (..., n) -> (..., m),

@@ -889,3 +889,188 @@ def _lanes_result(V_m, V_a, err, n_iter, hist, thresh_eff,
                      V_a=torch.movedim(V_a, -1, 0), err=err, n_iter=n_iter,
                      err_hist=hist.T, converged=err <= thresh_eff,
                      fund=fund_bm)
+
+
+def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, K, gather,
+                         cold_state, Y, lineY, m: int, settings: Settings,
+                         consts, log):
+    """The device continuation's rescue: up to ``K`` unconverged lanes
+    gathered (a stable sort: the padding's choice is deterministic), then
+    two passes, warm from their own final state (cold where it is not
+    finite), which breaks floor-hover stalls, and cold, for what a bad
+    continuation seed stalled; scattered back."""
+    rd = V_m.dtype
+    bad = torch.argsort(conv.to(rd), stable=True)[:K]
+    was_bad = ~conv[bad]
+    g = lambda x: x.index_select(-1, bad)
+    S_k, inj_k, dev_k = gather(bad)
+    coldVm, coldVa = cold_state(S_k, K)
+    thresh_k = _thresh_lanes(coldVm, Y, dev_k, inj_k, m, settings)
+
+    def rescue_pass(Vmk, Vak, errk, nitk, histk, convk, Vm0, Va0):
+        # converged lanes stay inactive: their threshold is lifted to
+        # their achieved error
+        thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
+                               thresh_k)
+        Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
+            Y, lineY, S_k, dev_k, inj_k, Vm0, Va0, settings, consts,
+            thresh_r, log=log)
+        redo = ~convk
+        return (torch.where(redo[None, None, :], Vm2, Vmk),
+                torch.where(redo[None, None, :], Va2, Vak),
+                torch.where(redo, err2, errk),
+                nitk + torch.where(redo, nit2, 0),
+                torch.where(redo[None, :], hist2, histk),
+                convk | (redo & (err2 <= thresh_r)))
+
+    Vmk, Vak = g(V_m), g(V_a)
+    finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
+              & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
+    use_self = (finite | conv[bad])[None, None, :]
+    state = (Vmk, Vak, err[bad], n_iter[bad], g(hist), conv[bad])
+    state = rescue_pass(*state, torch.where(use_self, Vmk, coldVm),
+                        torch.where(use_self, Vak, coldVa))
+    state = rescue_pass(*state, coldVm, coldVa)
+
+    def sc(full, kk, mask):
+        out = full.clone()
+        out[..., bad] = torch.where(mask, kk, g(full))
+        return out
+
+    lane = was_bad[None, None, :]
+    return (sc(V_m, state[0], lane), sc(V_a, state[1], lane),
+            sc(err, state[2], was_bad), sc(n_iter, state[3], was_bad),
+            sc(hist, state[4], was_bad[None, :]),
+            sc(conv, state[5], was_bad))
+
+
+def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
+                                 scenarios, n_stages: int = 8,
+                                 rescue: bool = True, vsharding=None,
+                                 log: Optional[PhaseLog] = None
+                                 ) -> HPFResult:
+    """The warm-start continuation with its whole schedule on the device
+    (``hpfx.lanes.hpf_sweep_continuation_lanes``): the key sort, the
+    chunks, each stage seeded from the nearest CONVERGED scenario of the
+    previous chunk, and two gathered rescue passes.  The stages are a
+    host loop around :func:`nr_trip_lanes`; beyond the one sync a Newton
+    trip makes, nothing comes back to the host (the seed's choice is a
+    ``torch.where`` on the device).
+
+    The key: the injection scale (per-device scales averaged), else the
+    summed device mix, else ``p_scale``; sorted stably, split into
+    ``n_stages`` chunks, the last padded with repeats of the last sorted
+    index.  Every stage's floor-aware threshold is taken at its cold
+    state, as the plain sweep's.  With ``rescue``, the up to one chunk
+    width of unconverged scenarios are gathered (stably) and re-solved,
+    first warm from their own final state (cold where it is not finite),
+    then cold.  ``vsharding`` (a multi-card mesh) is ROADMAP item 9 and
+    raises ``NotImplementedError``.  ``log``: optional :class:`PhaseLog`
+    with the phases "stages" and "rescue"."""
+    if vsharding is not None:
+        raise NotImplementedError(
+            "vsharding shards the chunks over a mesh of cards, which is "
+            "ROADMAP item 9 (multi-GPU) and not ported")
+    H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
+    rd, dv = settings.real_dtype, net.device
+    B = scenarios.p_scale.shape[0]
+    n_stages = max(1, min(n_stages, B))
+    Y, lineY, lineY_f = resolve_ybus(net, settings)
+
+    q_scale = scenarios.q_scale if scenarios.q_scale is not None \
+        else scenarios.p_scale
+    inj = scenarios.injection_scale if scenarios.injection_scale is not None \
+        else torch.ones((B,), dtype=rd, device=dv)
+    inj = inj.to(rd)
+    inj_db = _as_inj_db(inj.T if inj.ndim == 2 else inj, n - m, B)
+    mix = getattr(scenarios, "device_mix", None)
+    if (mix is not None) != isinstance(devices, DeviceLibrary):
+        raise ValueError(
+            "Scenarios.device_mix requires passing a DeviceLibrary as "
+            "devices (and vice versa)")
+    dev = (_mix_lane_devices(devices, mix, rd) if mix is not None
+           else _as_lane_devices(devices))
+    S = Cx(_scale_cols(net.bus_P, scenarios.p_scale),
+           _scale_cols(net.bus_Q, q_scale))
+
+    # the continuation key (the device-side twin of the host version's)
+    if scenarios.injection_scale is not None:
+        key = inj if inj.ndim == 1 else inj.mean(dim=1)
+    elif mix is not None:
+        key = mix.to(rd).sum(dim=(1, 2))
+    else:
+        p = scenarios.p_scale.to(rd)
+        key = p if p.ndim == 1 else p.mean(dim=1)
+    order = torch.argsort(key, stable=True)
+    Bc = -(-B // n_stages)
+    Bp = n_stages * Bc
+    order_p = torch.cat([order, order[-1:].expand(Bp - B)])
+    batched = isinstance(dev, LaneDevices) and dev.batched
+
+    def gather(sel):
+        """The lanes ``sel`` of the loads, scales and batched devices."""
+        g = lambda x: x.index_select(-1, sel)
+        gcx = lambda z: Cx(g(z.re), g(z.im))
+        dev_s = (dev._replace(I_N=gcx(dev.I_N), Y_N=gcx(dev.Y_N))
+                 if batched else dev)
+        return gcx(S), g(inj_db), dev_s
+
+    def cold_state(S_k, Bk):
+        fund = solve_fundamental_lanes(Y[0], S_k, net, settings, Bk,
+                                       lineY_f, log=log)
+        Vm = torch.full((H, n, Bk), settings.v_init_h, dtype=rd, device=dv)
+        Va = torch.full((H, n, Bk), settings.a_init_h, dtype=rd, device=dv)
+        Vm[0], Va[0] = fund.V_m, fund.V_a
+        return Vm, Va
+
+    consts = _make_arrow_consts(H, n, m, c, rd, dv)
+    pVm = torch.zeros((H, n, Bc), dtype=rd, device=dv)
+    pVa = torch.zeros_like(pVm)
+    pK = torch.zeros((Bc,), dtype=rd, device=dv)
+    pConv = torch.zeros((Bc,), dtype=rd, device=dv)
+    outs = []
+    with _phase(log, "stages", dv):
+        for st in range(n_stages):
+            sel = order_p[st * Bc:(st + 1) * Bc]
+            S_c, inj_c, dev_c = gather(sel)
+            kc = key.index_select(0, sel)
+            coldVm, coldVa = cold_state(S_c, Bc)
+            # the nearest CONVERGED scenario of the previous chunk
+            dist = (kc[:, None] - pK[None, :]).abs() \
+                + 1e30 * (1.0 - pConv)[None, :]
+            j = torch.argmin(dist, dim=1)
+            haveprev = (pConv > 0).any()
+            Vm0 = torch.where(haveprev, pVm[:, :, j], coldVm)
+            Va0 = torch.where(haveprev, pVa[:, :, j], coldVa)
+            # the floor-aware threshold at the COLD state, the plain
+            # sweep's bar: a warm seed sits where the harmonic |V|, and
+            # with it the floor, is ~10x smaller, which would hold
+            # knife-edge scenarios to a stricter test than the plain and
+            # adaptive paths
+            thresh = _thresh_lanes(coldVm, Y, dev_c, inj_c, m, settings)
+            Vm, Va, err, n_it, hist = nr_trip_lanes(
+                Y, lineY, S_c, dev_c, inj_c, Vm0, Va0, settings, consts,
+                thresh, log=log)
+            conv = err <= thresh
+            pVm, pVa, pK, pConv = Vm, Va, kc, conv.to(rd)
+            outs.append((Vm, Va, err, n_it, hist, conv))
+
+    def unchunk(xs):
+        """The stages' (..., Bc) pieces -> (..., B) in the original order."""
+        flat = torch.cat(xs, dim=-1)[..., :B]
+        out = torch.zeros_like(flat)
+        out[..., order] = flat
+        return out
+
+    V_m, V_a, err, n_iter, hist, conv = map(unchunk, zip(*outs))
+
+    if rescue:
+        with _phase(log, "rescue", dv):
+            V_m, V_a, err, n_iter, hist, conv = _continuation_rescue(
+                V_m, V_a, err, n_iter, hist, conv, min(Bc, B), gather,
+                cold_state, Y, lineY, m, settings, consts, log)
+
+    V_m, V_a = cleanup_voltages(V_m, V_a)
+    return HPFResult(V_m=torch.movedim(V_m, -1, 0),
+                     V_a=torch.movedim(V_a, -1, 0), err=err, n_iter=n_iter,
+                     err_hist=hist.T, converged=conv, fund=None)

@@ -60,6 +60,10 @@ class Network:
         return self.bus_P.device
 
     @property
+    def n_lines(self) -> int:
+        return self.line_R.shape[0]
+
+    @property
     def n_nonlinear(self) -> int:
         return self.n - self.m
 

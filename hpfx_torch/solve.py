@@ -12,7 +12,9 @@ when lanes remain unconverged, by the deterministic host-driven rescue
 stragglers in float64 on the same device (:func:`_f64_resolve`).
 :func:`hpf_sweep_stream` runs it over a stream of batches.
 :func:`hpf_sweep_adaptive` is the host-driven two-phase schedule of the
-net1-class sweeps, ending in the same rescue.
+net1-class sweeps, ending in the same rescue; :func:`hpf_sweep_continuation`
+runs it (or :func:`hpf_sweep`) in key-sorted warm-started stages, and
+:func:`hpf_sweep_kron` sweeps with the passive buses Kron-reduced out.
 
 Every sweep takes a Norton :class:`DeviceSet`, an
 :class:`AnalyticDeviceSet`, or a :class:`DeviceLibrary` with
@@ -28,6 +30,7 @@ import functools
 import warnings
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ._device import resolve_device
@@ -440,6 +443,124 @@ def hpf_sweep_adaptive(net: Network, devices, settings: Settings,
         err_hist=hist, converged=_put(r1.converged, idx, r2.converged),
         fund=r1.fund)
     return rescue_(merged) if rescue else merged
+
+
+def _key_host(x) -> np.ndarray:
+    """A (B,) or (B, k) scale as the continuation key on the host: float64,
+    per-device scales averaged."""
+    k = x.detach().to("cpu", torch.float64).numpy()
+    return k if k.ndim == 1 else k.mean(axis=1)
+
+
+def hpf_sweep_continuation(net: Network, devices, settings: Settings,
+                           scenarios: Scenarios, n_stages: int = 4,
+                           key=None, phase_iters: Optional[int] = None,
+                           phase2_settings: Optional[Settings] = None,
+                           rescue: bool = True) -> HPFResult:
+    """Warm-start continuation sweep (``hpfx.solve.hpf_sweep_continuation``),
+    driven from the host.
+
+    The scenarios are sorted (stably) by ``key``, float64 on the host
+    (default: the mean injection scale; else the summed device mix; else
+    the mean ``p_scale``), split into ``n_stages`` equal chunks (the last
+    padded with repeats of the last sorted index), and each chunk starts
+    from the solved state of the nearest-key CONVERGED scenario of the
+    earlier chunks (the first from the cold start).  Each stage runs
+    :func:`hpf_sweep`, or with ``phase_iters`` :func:`hpf_sweep_adaptive`
+    with ``rescue=False`` and ``phase2_settings``.  The stages are merged
+    back into the original order (the padding's duplicates dropped at
+    their first occurrence, ``fund=None``), then one :func:`_rescue_sweep`
+    (self-warm, cold, float64) runs over the merged result when
+    ``rescue``."""
+    B = scenarios.batch
+    n_stages = max(1, min(n_stages, B))
+    if key is None:
+        if scenarios.injection_scale is not None:
+            key = _key_host(scenarios.injection_scale)
+        elif scenarios.device_mix is not None:
+            # total installed device weight: the continuation axis of a
+            # device-mix Monte-Carlo
+            key = scenarios.device_mix.detach().to(
+                "cpu", torch.float64).numpy().sum(axis=(1, 2))
+        else:
+            key = _key_host(scenarios.p_scale)
+    key = np.asarray(key, np.float64)
+    order = np.argsort(key, kind="stable")
+
+    # uniform chunks; the last padded with repeats of the last index
+    Bc = -(-B // n_stages)
+    pad = n_stages * Bc - B
+    chunks = np.concatenate([order, np.repeat(order[-1:], pad)]) \
+        .reshape(n_stages, Bc)
+    dv = scenarios.p_scale.device
+
+    def run(sub, V0):
+        if phase_iters is not None:
+            # one rescue over the merged result, none per stage
+            return hpf_sweep_adaptive(net, devices, settings, sub,
+                                      phase_iters=phase_iters, V0=V0,
+                                      phase2_settings=phase2_settings,
+                                      rescue=False)
+        return hpf_sweep(net, devices, settings, sub, V0=V0)
+
+    solved_keys, solved_Vm, solved_Va, parts = [], [], [], []
+    for idx in chunks:
+        sub = _take_scen(scenarios, torch.as_tensor(idx, device=dv))
+        V0 = None
+        if solved_keys:
+            sk = np.concatenate(solved_keys)
+            near = torch.as_tensor(
+                np.abs(key[idx][:, None] - sk[None, :]).argmin(axis=1),
+                device=dv)
+            V0 = (torch.cat(solved_Vm)[near], torch.cat(solved_Va)[near])
+        res = run(sub, V0)
+        parts.append(res)
+        # only converged (finite) states seed later stages: a NaN start
+        # makes the Newton mask false at iteration 0
+        good = res.converged.cpu().numpy()
+        if good.any():
+            gi = torch.as_tensor(np.nonzero(good)[0], device=dv)
+            solved_keys.append(key[idx][good])
+            solved_Vm.append(res.V_m[gi])
+            solved_Va.append(res.V_a[gi])
+
+    # back to the original order, the padding's duplicates dropped
+    flat = chunks.reshape(-1)
+    _, rows = np.unique(flat, return_index=True)
+    rows_t = torch.as_tensor(rows, device=dv)
+    inv = torch.as_tensor(flat[rows], device=dv)
+
+    def merge(*xs):
+        x = torch.cat(xs, dim=0)
+        out = torch.zeros((B,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        out[inv] = x[rows_t]
+        return out
+
+    out = HPFResult(*(merge(*xs) for xs in zip(*(p[:6] for p in parts))))
+    if not rescue:
+        return out
+    return _rescue_sweep(settings, scenarios, out, run,
+                         run64=lambda sub: _f64_resolve(
+                             net, devices, settings, sub))
+
+
+def hpf_sweep_kron(net: Network, devices, settings: Settings,
+                   scenarios: Scenarios) -> HPFResult:
+    """Batched sweep with the passive buses Kron-reduced out
+    (``hpfx.solve.hpf_sweep_kron``): with no passive bus this is
+    :func:`hpf_sweep`; else the sweep runs on the reduced network with
+    its dense admittances (no line structure, so the stable mismatch is
+    off) and the eliminated buses' voltages are recovered after, so the
+    result is full size."""
+    from .kron import expand_voltages, kron_reduce, passive_buses
+
+    if passive_buses(net).size == 0:
+        return hpf_sweep(net, devices, settings, scenarios)
+    red = kron_reduce(net, settings)
+    res = hpf_sweep(red.net, devices, settings.with_(stable_mismatch=False),
+                    scenarios, Y=red.Y)
+    V_m, V_a = expand_voltages(red, res.V_m, res.V_a, net.n)
+    return res._replace(V_m=V_m, V_a=V_a)
 
 
 class SweepSummary(NamedTuple):
