@@ -11,8 +11,9 @@ kernels, and checks them:
      ptxas's registers and spills; fails if the report of any
      instantiation is missing or shows a spill: the panel kernel at each
      of its (rows a thread, width) pairs, gj_kernel, gj_kernel_carried and
-     gj_kernel_unrolled at each entry of the launch plan's tables, and the
-     fused trip at one and two capacitance rows a lane; prints the launch
+     gj_kernel_unrolled at each entry of the launch plan's tables, the
+     fused trip at one and two capacitance rows a lane, and the
+     rectifier's time loop; prints the launch
      plan, registers and blocks per SM of the direct kernels at the paths'
      shapes, and the fused trip's blocks per SM at net2 H<=25 and H<=63;
   2. runs every instantiation of gj_kernel, gj_kernel_carried and
@@ -172,9 +173,45 @@ kernels, and checks them:
      tests/test_extended.py's controlled device and (d) hpf_sequence at
      net2 H<=25, both in float64 on the card against the CPU: identical
      iterations, voltages (and u) within 1e-10;
- 21. gj_kernel, gj_kernel_carried and gj_panel_kernel at every shape that
-     phases 18-20 launched and no earlier check covers, against the plain
-     twin and timed as in phase 2 (their rows' "shapes").
+ 21. (after phase 23) gj_kernel, gj_kernel_carried and gj_panel_kernel
+     at every shape that phases 18-23 launched and no earlier check
+     covers, against the plain twin and timed as in phase 2 (their rows'
+     "shapes");
+ 22. the estimation and design loops at the JAX tests' shapes (the dense
+     solver, the plain mismatch), each in float32 (the kernels) and
+     float64 (LU) on the same inputs: (a) estimate_injections at net2
+     H<=25 (full observation, the remote bus alone) and net1 H<=9 (seven
+     sources), meters from a float64 solve at known scales, and
+     estimate_background at net2 H<=25 (orders 5, 7); (b)
+     size_active_filter at net2 H<=25, bus 3 and the bank [2, 3]; (c)
+     optimize_line_params (taps) at net2, optimize_filter at net2 (bus 3;
+     robust over 4 load levels, reduce="max") and a two-branch bank at
+     net3, all H<=25; (d) screen_filter_placement at net1 H<=25 with the
+     default grid, 171 candidates in one batch (K4 at (544, 32, 171)),
+     warm-up and 3 timed reps in candidates/s, and plan_filter_bank
+     (n_filters=2) at net2 H<=25.  Every float64 result passes its JAX
+     test's assertions, every float32 one is held to float64 within
+     F32_FIT_TOL (the measured gap printed beside it), the placement
+     winners are equal or their objectives within 1e-3 relative (the
+     candidates that converge in float64 and not in float32 counted), and
+     gj_kernel, gj_kernel_carried and gj_panel_kernel are launched;
+ 23. the offline device pipeline: (a) rectifier_kernel against its plain
+     twin on the card at 8 simulations x 2001 samples x 4 substeps (max
+     |di| <= 1e-9 max |i|), both timed with CUDA events; (b)
+     tests/test_simulate.py's smps.mat protocol through the kernel
+     against the Simulink measurements (< 3e-3 at every bin of all 10);
+     (c) the four EV models of validation/make_ev_tables.py (102
+     simulations of 80,001 samples x 8 substeps each) through the kernel
+     and fit_norton_from_measurements, the tables written under
+     build/ev_tables, every self-test < 1e-6, each table within 1e-6 of
+     its largest entry of the shipped hpfx/data/ev_*_NE.csv; (d) the full
+     circle of test_full_circle_smps (sweep, fit, device_set_from_fit,
+     hpf at H<=9) in float32 against float64, and solve_fuchs in float64
+     against validation/V_log.json and I_log.json.  Each sweep of (b)-(d)
+     is then launched again at its full shape, timed, and its first 1001
+     samples held to the twin as in (a); the kernel's row gives each
+     shape's bound and, beside it, the floor of one simulation's
+     dependent chain (chain_ms).
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
@@ -223,6 +260,9 @@ if not torch.cuda.is_available():
 import hpfx_torch as ht  # noqa: E402
 from hpfx_torch import contingency as cg, fused_trip as ft  # noqa: E402
 from hpfx_torch import lanes, ybus  # noqa: E402
+from hpfx_torch import simulate as ht_sim  # noqa: E402
+from hpfx_torch.examples import fuchs as ht_fuchs  # noqa: E402
+from hpfx_torch.network import NONLINEAR, PQ, SLACK  # noqa: E402
 from hpfx_torch.ops import _build, batched_solve as bs  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -341,9 +381,9 @@ GRAD_FD_RTOL = 2e-4
 #: phase 4's float32 bound on |V_m| (pu), from which phase 17 derives its
 #: bound on THD_F (thd_bound)
 VM_TOL_NET2 = 5e-5
-#: the range of the whole run's time before phases 18-20 were added
+#: the range of the whole run's time before phases 22-23 were added
 #: (PERF.md §6), against which the run prints its growth
-BEFORE_18_RUN_S = (122.5, 190.6)
+BEFORE_22_RUN_S = (168.6, 231.4)
 #: the batch-major solves of the dense path (phase 12), (kernel, n, R, B),
 #: as batched_solve receives them: the fundamental Jacobians of net2 (6)
 #: and net1 (38), the dense Jacobians of net2 H<=5 (22) and H<=25 (102);
@@ -437,6 +477,8 @@ def solve_work(n, R, Bt):
 
 #: launches by (kernel, shape) over the paths' warm-up runs
 PATH_SHAPES = collections.Counter()
+#: the card's top SM clock (Hz), read by phase 0
+SM_CLOCK_HZ = [None]
 #: the lanes paths' median rates of this run (phases 3 and 5), printed
 #: beside the dense sweeps' (phase 12)
 LANES_RATES = {}
@@ -468,6 +510,11 @@ def phase0():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"nvidia-smi: {smi}")
+    SM_CLOCK_HZ[0] = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    log(f"nvidia-smi: top SM clock {SM_CLOCK_HZ[0] / 1e6:.0f} MHz")
     return smi
 
 
@@ -589,6 +636,12 @@ def phase1():
         log(f"[1] {name}<{rows}, {slots}, {'b in smem' if smem else 'b in slots'}"
             f">: {regs} registers, spill stores {st} B, spill loads {ld} B")
         check(st == 0 and ld == 0, f"{name}<{rows}, {slots}, {smem}> spills")
+    rect = {sym: v for sym, v in report.items() if "rectifier_kernel" in sym}
+    check(len(rect) == 1, f"ptxas reports rectifier_kernel as {sorted(rect)}")
+    for sym, (regs, st, ld) in rect.items():
+        log(f"[1] rectifier_kernel: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+        check(st == 0 and ld == 0, "rectifier_kernel spills")
     for n, R in OCCUPANCY_SHAPES:
         p = bs.launch_plan(n, R)
         for k in (p.kernel,) + (("gj_kernel_unrolled",)
@@ -2676,8 +2729,579 @@ def phase20():
     return launches
 
 
-def new_shapes(before, gen):
-    """Each direct or panel kernel at the shapes phases 18-20 launched that
+#: phase 22: the estimation and design loops (the JAX tests' shapes and
+#: examples_demo.py's calls), each in float32 (the kernels) and float64
+#: (LU) on the same inputs.  The float32 results are held to the float64
+#: ones within these bounds, predicted in PERF.md (§6) from CPU
+#: rehearsals of the same loops in float32, before the first card run:
+#: fitted scales and mix weights (absolute), background and compensating
+#: spectra (relative to their largest entry), objectives (relative), and
+#: the design parameters (relative)
+F32_FIT_TOL = {"scales": 2e-3, "spectrum": 3e-3, "objective": 1e-3,
+               "params": 1e-2}
+#: the load levels of 22c's robust filter design
+ROBUST_P = (0.9, 0.9667, 1.0333, 1.1)
+#: phase 22d: the placement screen's timed reps after its warm-up
+PLACEMENT_REPS = 3
+
+
+def dtype_pair(name, h_max, **kw):
+    """The JAX tests' setup (``make_setup``: the dense solver, the plain
+    mismatch) on the card, {dtype: (net, devices, settings)}."""
+    out = {}
+    for dt in ("float32", "float64"):
+        s = ht.settings_for_hmax(h_max, coupled=True, dtype=dt, **kw)
+        net = ht.load_network(os.path.join(DATA, f"{name}_buses.csv"),
+                              os.path.join(DATA, f"{name}_lines.csv"), s,
+                              device=DEV)
+        out[dt] = (net, ht.load_device_set(net, s), s)
+    return out
+
+
+def both(tag, run):
+    """``run(dtype)`` in float32 with the launch counts reset just before
+    and read just after, then in float64; returns (f32 result, f64
+    result, launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    r32 = run("float32")
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    r64 = run("float64")
+    torch.cuda.synchronize()
+    log(f"[{tag}] float32 {t32:.3f} s, float64 "
+        f"{time.perf_counter() - t0:.3f} s; float32 launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    log_shapes(tag)
+    return r32, r64, launches
+
+
+def gap(a, b, relative=True):
+    """max |a - b|, relative to max |b| when ``relative``."""
+    a = torch.as_tensor(np.asarray(a, dtype=np.float64))
+    b = torch.as_tensor(np.asarray(b, dtype=np.float64))
+    d = (a - b).abs().max().item()
+    return d / max(b.abs().max().item(), 1e-300) if relative else d
+
+
+def held(tag, what, value, key):
+    """Print a float32-against-float64 gap beside its bound and hold it."""
+    bound_ = F32_FIT_TOL[key]
+    log(f"[{tag}] float32 against float64, {what}: {value:.3e} "
+        f"(bound {bound_:g})")
+    check(value <= bound_, f"[{tag}] {what}: float32 against float64 "
+          f"{value} > {bound_}")
+
+
+def cx_host(c):
+    return c.re.double().cpu().numpy() + 1j * c.im.double().cpu().numpy()
+
+
+def phase22a():
+    """estimate_injections at net2 H<=25 (full observation and the
+    remote bus alone, thresh_h 1e-8 as tests/test_estimate.py's feeder)
+    and net1 H<=9 (all seven sources), estimate_background at net2 H<=25
+    (orders 5, 7); the meters from a float64 solve at known scales."""
+    paths = []
+    P = dtype_pair("net2", H_MAX, thresh_h=1e-8)
+    net64, dev64, s64 = P["float64"]
+    true = torch.tensor([0.7], dtype=torch.float64, device=DEV)
+    V = ht.hpf(net64, dev64.scale(true), s64).V_m
+    V_part = torch.zeros_like(V)
+    V_part[:, 1] = V[:, 1]
+    for tag, meters, kw, tol, floor in (
+            ("22a net2 full", V, {}, 1e-5, 1e-8),
+            ("22a net2 remote", V_part, dict(buses=[1]), 1e-4, 1e-9)):
+        r32, r64, launches = both(tag, lambda dt: ht.estimate_injections(
+            *P[dt], meters, scales0=1.0, **kw))
+        paths.append(launches)
+        log(f"[{tag}] float64: scales {r64.scales.tolist()}, misfit "
+            f"{r64.misfit:.3e} (start {r64.misfit0:.3e}), {r64.n_solves} "
+            f"solves; float32: scales {r32.scales.tolist()}, misfit "
+            f"{r32.misfit:.3e}, {r32.n_solves} solves")
+        check(gap(r64.scales.cpu(), true.cpu(), False) <= tol
+              and r64.misfit < floor < r64.misfit0,
+              f"[{tag}] float64 fit {r64.scales.tolist()} misfit "
+              f"{r64.misfit}")
+        held(tag, "scales", gap(r32.scales.cpu(), r64.scales.cpu(), False),
+             "scales")
+
+    Q = dtype_pair("net1", 9)
+    net64, dev64, s64 = Q["float64"]
+    true = torch.tensor(np.random.default_rng(7).uniform(0.6, 1.4, 7),
+                        device=DEV)
+    V1 = ht.hpf(net64, dev64.scale(true), s64).V_m
+    tag = "22a net1 seven"
+    r32, r64, launches = both(tag, lambda dt: ht.estimate_injections(
+        *Q[dt], V1, scales0=1.0))
+    paths.append(launches)
+    log(f"[{tag}] float64 misfit {r64.misfit:.3e}, {r64.n_solves} solves, "
+        f"|scales - true| {gap(r64.scales.cpu(), true.cpu(), False):.3e}; "
+        f"float32 misfit {r32.misfit:.3e}, {r32.n_solves} solves")
+    check(gap(r64.scales.cpu(), true.cpu(), False) <= 1e-5
+          and r64.misfit < 1e-7, f"[{tag}] float64 fit misfit {r64.misfit}")
+    held(tag, "scales", gap(r32.scales.cpu(), r64.scales.cpu(), False),
+         "scales")
+
+    R = dtype_pair("net2", H_MAX)
+    net64, dev64, s64 = R["float64"]
+    spec = {5: (0.02, 0.4), 7: (0.012, -1.1)}
+    Vb = ht.hpf(net64, dev64, s64, I_bg=ht.background_from_harmonics(
+        net64, s64, spec)).V_m
+    tag = "22a background"
+    r32, r64, launches = both(tag, lambda dt: ht.estimate_background(
+        *R[dt], Vb, orders=(5, 7)))
+    paths.append(launches)
+    want = np.array([m * np.exp(1j * a) for m, a in spec.values()])
+    log(f"[{tag}] float64 misfit {r64.misfit:.3e}, |v_bg - truth| "
+        f"{np.abs(r64.v_bg - want).max():.3e}; float32 misfit "
+        f"{r32.misfit:.3e}")
+    check(r64.misfit < 1e-14 and np.abs(r64.v_bg - want).max() < 1e-8,
+          f"[{tag}] float64 background {r64.v_bg} misfit {r64.misfit}")
+    held(tag, "spectrum", float(np.abs(r32.v_bg - r64.v_bg).max()
+                                / np.abs(r64.v_bg).max()), "spectrum")
+    return paths
+
+
+def phase22b():
+    """size_active_filter at net2 H<=25, bus 3 and the bank [2, 3]."""
+    paths = []
+    P = dtype_pair("net2", H_MAX)
+    net64, dev64, s64 = P["float64"]
+    base = ht.hpf(net64, dev64, s64).V_m.cpu().numpy()
+    for tag, bus in (("22b bus 3", 3), ("22b bank", [2, 3])):
+        r32, r64, launches = both(tag, lambda dt: ht.size_active_filter(
+            *P[dt], bus=bus, residual=0.05))
+        paths.append(launches)
+        cols = [bus] if np.isscalar(bus) else bus
+        va = r64.result.V_m.cpu().numpy()[1:][:, cols]
+        rel = np.abs(va / (0.05 * base[1:][:, cols]) - 1.0).max()
+        res2 = ht.hpf(net64, dev64, s64, I_bg=r64.I_bg)
+        again = (res2.V_m - r64.result.V_m).abs().max().item()
+        log(f"[{tag}] float64: THD {r64.thd_before} -> {r64.thd_after}, "
+            f"misfit {r64.misfit:.3e}, {r64.n_solves} solves, targeted "
+            f"|V_h| within {rel:.3e} of 0.05 base, re-solve {again:.1e}; "
+            f"float32: THD -> {r32.thd_after}, {r32.n_solves} solves")
+        check(bool(r64.result.converged) and rel <= 1e-3
+              and r64.misfit < 1e-10 and again <= 1e-12
+              and np.all(np.asarray(r64.thd_after)
+                         < 0.1 * np.asarray(r64.thd_before))
+              and np.all(np.asarray(r64.rating_rms) > 0),
+              f"[{tag}] float64 sizing fails its test's assertions")
+        held(tag, "compensating spectrum", gap(cx_host(r32.I_c).view(
+            np.float64), cx_host(r64.I_c).view(np.float64)), "spectrum")
+    return paths
+
+
+def design_checks(tag, r64, res, v_limits=(0.5, 2.0), tol=1e-7):
+    """tests/test_optimize.py's assertions on a float64 design: a
+    converged optimum no worse than the start whose cold re-solve ``res``
+    reproduces ``value`` to ``tol`` (that test's: 1e-6 for the taps'
+    warm-started loop, 1e-7 for the filters' cold one), the voltage
+    barrier added where ``v_limits``."""
+    value = ht.get_thd(res.V_m).THD_F.amax().item()
+    if v_limits:
+        v1 = res.V_m[0]
+        value += 100.0 * float((torch.clamp_min(v1 - v_limits[1], 0) ** 2
+                                + torch.clamp_min(v_limits[0] - v1, 0) ** 2)
+                               .sum())
+    log(f"[{tag}] float64 value {r64.value:.6e} (start {r64.value0:.6e}), "
+        f"{r64.n_solves} solves, history {len(r64.history)}; its cold "
+        f"re-solve {value:.6e}")
+    check(bool(res.converged) and r64.value <= r64.value0
+          and abs(value - r64.value) <= tol,
+          f"[{tag}] float64 design fails its test's assertions")
+
+
+def phase22c():
+    """optimize_line_params (tau) and optimize_filter (single, robust over
+    4 load levels with reduce="max", a two-branch bank) at net2/net3
+    H<=25."""
+    paths = []
+    P = dtype_pair("net2", H_MAX)
+    tag = "22c taps"
+    r32, r64, launches = both(tag, lambda dt: ht.optimize_line_params(
+        *P[dt], vary=("tau",), steps=10, learning_rate=0.01))
+    paths.append(launches)
+    design_checks(tag, r64, ht.hpf(r64.net, *P["float64"][1:]), None, 1e-6)
+    held(tag, "objective", abs(r32.value - r64.value) / r64.value,
+         "objective")
+    held(tag, "taps", gap(r32.params.tau.cpu(), r64.params.tau.cpu()),
+         "params")
+
+    cases = (("22c filter", "net2", dict(bus=3, steps=10)),
+             ("22c robust", "net2", dict(bus=3, steps=5, reduce="max")),
+             ("22c bank", "net3", dict(bus=[2, 3], steps=5)))
+    for tag, name, kw in cases:
+        Q = dtype_pair(name, H_MAX)
+
+        def run(dt):
+            k = dict(kw)
+            if tag == "22c robust":
+                k["scenarios"] = ht.Scenarios(p_scale=torch.tensor(
+                    ROBUST_P, dtype=getattr(torch, dt), device=DEV))
+            return ht.optimize_filter(*Q[dt], **k)
+
+        r32, r64, launches = both(tag, run)
+        paths.append(launches)
+        net64, dev64, s64 = Q["float64"]
+        if tag == "22c robust":
+            sc = ht.Scenarios(p_scale=torch.tensor(
+                ROBUST_P, dtype=torch.float64, device=DEV))
+            res = ht.hpf_sweep(net64, dev64, s64, sc, Y=r64.Y)
+            thd = ht.get_thd(res.V_m.movedim(1, 0)).THD_F.amax(dim=-1)
+            log(f"[{tag}] float64 value {r64.value:.6e} (start "
+                f"{r64.value0:.6e}), cold re-solve's worst scenario "
+                f"{thd.max().item():.6e}")
+            check(bool(res.converged.all()) and r64.value <= r64.value0
+                  and abs(thd.max().item() - r64.value) <= 1e-7,
+                  f"[{tag}] float64 design fails its test's assertions")
+        else:
+            design_checks(tag, r64, ht.hpf(net64, dev64, s64, Y=r64.Y))
+        held(tag, "objective", abs(r32.value - r64.value) / r64.value,
+             "objective")
+        held(tag, "filter parameters", max(
+            gap(a.cpu(), b.cpu()) for a, b in zip(r32.params, r64.params)),
+            "params")
+    return paths
+
+
+def phase22d():
+    """screen_filter_placement at net1 H<=25 with the default grid (19
+    buses x 3 dominant orders x 3 capacitor sizes, one batch), warm-up
+    and timed reps in float32, once in float64; plan_filter_bank
+    (n_filters=2) at net2 H<=25."""
+    P = dtype_pair("net1", H_MAX)
+    tag = "22d screen"
+    screen = lambda dt: ht.screen_filter_placement(*P[dt])
+    r32, r64, launches = both(tag, screen)
+    K = len(r32.bus)
+    check(K == 171 and (r32.bus == r64.bus).all()
+          and (r32.h_tune == r64.h_tune).all(),
+          f"[{tag}] the grids differ or K = {K} != 171")
+    check(ht.LAUNCHES_BY_SHAPE[("gj_panel_kernel", (544, 32, K))] > 0,
+          f"[{tag}] no launch of gj_panel_kernel at (544, 32, {K})")
+    times = []
+    for _ in range(PLACEMENT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        screen("float32")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"[{tag}] K = {K} candidates, reps "
+        f"{', '.join(f'{t:.4f}' for t in times)} s -> "
+        f"{', '.join(f'{K / t:.1f}' for t in times)} candidates/s")
+    acc = r64.accepted
+    obj = r64.objective[r64.order]
+    check(bool((np.diff(obj[acc[r64.order]]) >= 0).all())
+          and r64.objective[r64.best] < r64.base_objective
+          and abs(r64.base_thd_worst - r64.base_objective) <= 1e-12,
+          f"[{tag}] float64 screen fails its test's assertions")
+    lost = int((r64.converged & ~r32.converged).sum())
+    b32, b64 = r32.best, r64.best
+    rel = abs(r32.objective[b32] - r64.objective[b64]) \
+        / r64.objective[b64]
+    log(f"[{tag}] converged float64 {int(r64.converged.sum())}, float32 "
+        f"{int(r32.converged.sum())} of {K}; converged in float64 and not "
+        f"in float32: {lost}; accepted float64 {int(acc.sum())}, float32 "
+        f"{int(r32.accepted.sum())}; winners {b32} / {b64} (bus "
+        f"{r32.bus[b32]}, h {r32.h_tune[b32]:.3f}, x {r32.x_cap[b32]}), "
+        f"objectives {r32.objective[b32]:.6e} / {r64.objective[b64]:.6e} "
+        f"(relative {rel:.3e})")
+    check(b32 == b64 or rel <= 1e-3, f"[{tag}] float32 winner {b32} "
+          f"against float64 {b64}, objectives {rel} apart")
+
+    Q = dtype_pair("net2", H_MAX)
+    tag = "22d plan"
+    p32, p64, launches2 = both(tag, lambda dt: ht.plan_filter_bank(
+        *Q[dt], n_filters=2))
+    net64, dev64, s64 = Q["float64"]
+    res = ht.hpf(net64, dev64, s64, Y_diag=p64.Y_diag)
+    thd = ht.get_thd(res.V_m).THD_F.amax().item()
+    log(f"[{tag}] float64 buses {p64.buses.tolist()} h {p64.h_tunes} x "
+        f"{p64.x_caps}, history {p64.history}; float32 buses "
+        f"{p32.buses.tolist()}, history {p32.history}")
+    check(len(p64.buses) >= 1 and bool((np.diff(p64.history) < 0).all())
+          and abs(thd - p64.history[-1]) <= 1e-10
+          and (len(p64.reports) < 2 or abs(
+              p64.reports[1].base_objective - p64.history[1]) <= 1e-10),
+          f"[{tag}] float64 plan fails its test's assertions")
+    held(tag, "objective", abs(p32.history[-1] - p64.history[-1])
+         / p64.history[-1], "objective")
+    return [launches, launches2]
+
+
+def phase22():
+    """The estimation and design loops; requires launches of gj_kernel,
+    gj_kernel_carried and gj_panel_kernel (printed by shape)."""
+    paths = phase22a() + phase22b() + phase22c() + phase22d()
+    total = {k: sum(p[k] for p in paths) for k in ht.LAUNCHES}
+    log(f"[22] float32 launches over the phase: {total}")
+    for k in ("gj_kernel", "gj_kernel_carried", "gj_panel_kernel"):
+        check(total[k] > 0, f"[22] no launch of {k}")
+    return total
+
+
+#: phase 23: the offline device pipeline.  23a holds rectifier_kernel to
+#: its plain twin on the card at RECT_CHECK (sims, samples, substeps), to
+#: RECT_TOL of max |i|; each sweep of 23b-23d is then launched again at
+#: its full shape, timed, and its first RECT_PREFIX samples held to the
+#: twin on the same inputs in the same way (a simulation's first samples
+#: do not depend on how many follow).  23b holds the smps.mat protocol to
+#: the Simulink measurements (SIMULINK_TOL, tests/test_simulate.py's
+#: gate); 23c fits the four EV models (validation/make_ev_tables.py's
+#: sweep) and holds each table to the shipped one within EV_TABLE_REL of
+#: its largest entry: the JAX package reproduces its shipped tables bit
+#: for bit, and the port computes its float32 supply bit for bit
+#: (tests/test_torch_pipeline.py holds both)
+RECT_CHECK = (8, 2001, 4)
+RECT_PREFIX = 1001
+RECT_TOL = 1e-9
+SIMULINK_TOL = 3e-3
+EV_MODELS = ("EV_1", "EV_2", "EV_4", "EV_5")
+EV_TABLE_REL = 1e-6
+EV_SELFTEST = 1e-6
+EV_DIR = os.path.join(REPO, "build", "ev_tables")
+#: 23d: the full circle's float32 solve against the float64 one (pu)
+CIRCLE_TOL = 1e-4
+#: the card's float64 peak outside the tensor cores (NVIDIA H100 SXM data
+#: sheet), FLOP/s
+PEAK_FLOPS_F64 = 34e12
+#: rectifier_kernel's float64 operations, counted in rectifier.cu with a
+#: division or an exp as one: a supply evaluation (the two arguments, two
+#: sinf on their reduced path, the sum), a substep's state update, a
+#: step's bridge current; and the longest dependent chain of a substep
+#: through the state (v_drift, the turn-on fraction, h_c, the exp, u_end,
+#: v_e_new, drive, i_l_new)
+RECT_SUPPLY_OPS, RECT_SUBSTEP_OPS, RECT_STEP_OPS = 33, 39, 5
+RECT_CHAIN_OPS = 22
+
+
+def rect_bound(S, n1, substeps):
+    """(bound_ms, bound_by, chain_ms) of rectifier_kernel: the bytes it
+    must move (its (6, S) supply read once, its two (S, n1) float64
+    outputs written once) over the memory rate and its float64 operations
+    over the float64 peak, the larger; and the floor of one simulation's
+    dependent chain, one cycle an operation at the card's top SM clock."""
+    steps = n1 - 1
+    nbytes = 8 * (6 * S + 2 * S * n1)
+    ops = S * (n1 * (RECT_SUPPLY_OPS + RECT_STEP_OPS) + steps * substeps
+               * (2 * RECT_SUPPLY_OPS + RECT_SUBSTEP_OPS))
+    t_b, t_f = nbytes / PEAK_BYTES, ops / PEAK_FLOPS_F64
+    chain_ms = steps * substeps * RECT_CHAIN_OPS / SM_CLOCK_HZ[0] * 1e3
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            chain_ms)
+
+
+def held_to_twin(params, src, i_k, v_k, dt, substeps, tag):
+    """The kernel's first samples (i_k, v_k) against the plain twin's on
+    the same supply: (max |di|, max |i|, the twin's seconds)."""
+    n1 = i_k.shape[1]
+    t0 = time.perf_counter()
+    i_p, v_p = ht_sim._simulate_ref(params, src, n1, dt, substeps)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    scale = i_p.abs().max().item()
+    err = (i_k - i_p).abs().max().item()
+    verr = (v_k - v_p).abs().max().item()
+    check(np.isfinite(err) and err <= RECT_TOL * scale
+          and verr <= RECT_TOL * v_p.abs().max().item(),
+          f"[{tag}] rectifier_kernel against the twin: max|di| {err} > "
+          f"{RECT_TOL} * {scale} (or the supply {verr})")
+    log(f"[{tag}] rectifier_kernel against its twin over {n1} samples: "
+        f"max|di| {err:.3e} (scale {scale:.3e}), supply {verr:.1e}; "
+        f"twin {p_s:.1f} s")
+    return err, scale, p_s
+
+
+def rect_case(params, proto, tag, circuit):
+    """rectifier_kernel at a sweep's full shape: one launch timed with
+    CUDA events, its first RECT_PREFIX samples held to the twin; the
+    shape's dict (plain_ms None: the twin runs the prefix only)."""
+    src = ht_sim.sweep_source(proto, DEV)
+    S, dt, sub = src.a1.shape[0], proto.dt, proto.substeps
+    t_end = proto.t_start + proto.cycles / proto.net_freq
+    n1 = int(round(t_end / dt)) + 1
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    i_k, v_k = ht_sim.simulate_rectifier(params, src, t_end, dt, sub)
+    e1.record()
+    e1.synchronize()
+    k_ms = e0.elapsed_time(e1)
+    check(i_k.shape == (S, n1) and bool(torch.isfinite(i_k).all()),
+          f"[{tag}] rectifier_kernel output {tuple(i_k.shape)}")
+    err, _, _ = held_to_twin(params, src, i_k[:, :RECT_PREFIX],
+                             v_k[:, :RECT_PREFIX], dt, sub, tag)
+    b_ms, b_by, c_ms = rect_bound(S, n1, sub)
+    log(f"[{tag}] rectifier_kernel {circuit} S={S} n={n1} substeps={sub}: "
+        f"{k_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), dependent-chain "
+        f"floor {c_ms:.3f} ms")
+    return dict(shape=[S, n1, sub], circuit=circuit, ms=k_ms, plain_ms=None,
+                bound_ms=b_ms, bound_by=b_by, chain_ms=c_ms, library_ms=None,
+                max_abs_err=err)
+
+
+def phase23a():
+    """rectifier_kernel against its plain twin on the card; the row of
+    the kernels line (its first shape: this check's)."""
+    S, n1, sub = RECT_CHECK
+    dt = 1e-5
+    params = ht_sim.smps_params()
+    proto = ht_sim.SweepProtocol(harm_freqs=(150.0, 250.0, 350.0), dt=dt,
+                                 substeps=sub)
+    src = ht_sim.sweep_source(proto, device=DEV)
+    check(src.a1.shape[0] == S, f"[23a] {src.a1.shape[0]} sims, not {S}")
+    t_end = (n1 - 1) * dt
+    before = ht.LAUNCHES["rectifier_kernel"]
+    i_k, v_k = ht_sim.simulate_rectifier(params, src, t_end, dt, sub)
+    torch.cuda.synchronize()
+    check(ht.LAUNCHES["rectifier_kernel"] == before + 1,
+          "[23a] simulate_rectifier did not launch rectifier_kernel")
+    err, scale, _ = held_to_twin(params, src, i_k, v_k, dt, sub, "23a")
+    k_ms = time_ms(lambda: ht_sim.simulate_rectifier(params, src, t_end,
+                                                     dt, sub), 5)
+    p_ms = time_ms(lambda: ht_sim._simulate_ref(params, src, n1, dt, sub),
+                   1)
+    b_ms, b_by, c_ms = rect_bound(S, n1, sub)
+    log(f"[23a] rectifier_kernel S={S} n={n1} substeps={sub}: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"dependent-chain floor {c_ms:.4f} ms")
+    shape = dict(shape=[S, n1, sub], circuit="smps", ms=k_ms, plain_ms=p_ms,
+                 bound_ms=b_ms, bound_by=b_by, chain_ms=c_ms,
+                 library_ms=None, max_abs_err=err)
+    return dict(name="rectifier_kernel", route="cuda",
+                source="hpfx_torch/ops/csrc/rectifier.cu",
+                replaces="lax.scan in hpfx/simulate.py:245-266, not a "
+                         "Pallas kernel",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shapes=[shape])
+
+
+def phase23():
+    """The offline device pipeline on the card: 23a the kernel against its
+    twin, 23b the Simulink measurements, 23c the EV tables, 23d the full
+    circle and the Fuchs example.  Returns (the kernel's row, the
+    launches of 23b-23d)."""
+    row = phase23a()
+    reset_launches()
+    t0 = time.perf_counter()
+    ref = ht.load_measurements_mat(os.path.join(DATA, "smps.mat"))
+    proto = ht_sim.SweepProtocol(
+        fund_mags=(230.0, 200.0), fund_phases_deg=(0.0, 10.0),
+        harm_freqs=(150.0, 250.0, 350.0, 450.0), harm_mags=(2.3, 23.0),
+        harm_phase_deg=20.0, h_max=500.0, cycles=2, substeps=8,
+        harm_fund_mag=200.0, harm_fund_phase_deg=0.0)
+    ms = ht_sim.characterize_rectifier(ht_sim.smps_params(), proto,
+                                       device=DEV)
+    cols, rcols = ms.harmonic_cols, ref.harmonic_cols
+    pairs = [(ms.fund_I[k, cols], ref.fund_I[k, rcols]) for k in range(2)]
+    pairs += [(ms.harm_I[i, j, cols], ref.harm_I[i, j, rcols])
+              for i in range(4) for j in range(2)]
+    errs = [np.max(np.abs(a - b)) / np.abs(b).max() for a, b in pairs]
+    log(f"[23b] smps.mat protocol ({time.perf_counter() - t0:.3f} s): "
+        f"errors against Simulink {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(gate {SIMULINK_TOL})")
+    check(max(errs) < SIMULINK_TOL, f"[23b] {max(errs)} >= {SIMULINK_TOL}")
+    sweeps = [(ht_sim.smps_params(), proto, "23b", "smps")]
+
+    os.makedirs(EV_DIR, exist_ok=True)
+    for model in EV_MODELS:
+        t0 = time.perf_counter()
+        p = ht_sim.ev_protocol(model, substeps=8)
+        fit = ht.fit_norton_from_measurements(ht_sim.characterize_rectifier(
+            ht_sim.ev_params(model), p, device=DEV))
+        path = os.path.join(EV_DIR, f"{model.lower()}_NE.csv")
+        ht.export_ne_csv(fit, path)
+        ours = ht.devices.read_ne_csv(path)
+        shipped = ht.devices.read_ne_csv(
+            os.path.join(DATA, f"{model.lower()}_NE.csv"))
+        gaps = {k: np.abs(np.asarray(ours[k]) - np.asarray(shipped[k])).max()
+                / np.abs(np.asarray(shipped[k])).max()
+                for k in ("Y_c", "I_c", "Y_uc", "I_uc")}
+        log(f"[23c] {model} ({time.perf_counter() - t0:.3f} s): self-tests "
+            f"{fit.err_uncoupled:.2e} / {fit.err_coupled:.2e}; against the "
+            f"shipped table "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+            + f" of its largest entry (gate {EV_TABLE_REL}) -> {path}")
+        check(fit.passed and max(fit.err_uncoupled, fit.err_coupled)
+              < EV_SELFTEST, f"[23c] {model} self-test fails")
+        check(max(gaps.values()) <= EV_TABLE_REL,
+              f"[23c] {model}: {gaps} > {EV_TABLE_REL}")
+        sweeps.append((ht_sim.ev_params(model), p, "23c", model))
+
+    t0 = time.perf_counter()
+    proto = ht_sim.SweepProtocol(harm_freqs=(150.0, 250.0, 350.0, 450.0))
+    ms = ht_sim.characterize_rectifier(ht_sim.smps_params(), proto,
+                                       device=DEV)
+    sweeps.append((ht_sim.smps_params(), proto, "23d", "smps"))
+    fit = ht.fit_norton_from_measurements(ms)
+    check(fit.passed, "[23d] the fit's self-test fails")
+    out = {}
+    for dt in ("float32", "float64"):
+        s = ht.settings_for_hmax(9, coupled=True, dtype=dt).with_(
+            base_power=10000.0, base_voltage=230.0)
+        net = ht.network_from_arrays(
+            bus_types=(SLACK, PQ, NONLINEAR),
+            components=("gen", "load", "sim_smps"),
+            P=[0, 1000, 7000], Q=[0, 500, 1000], X_sh=[0.01, 0, 0],
+            line_from=[0, 1], line_to=[1, 2], R=[0.4, 0.2], X=[0.8, 0.4],
+            settings=s, per_unit=False, device=DEV)
+        dev = ht.device_set_from_fit(fit, s, n_nl=net.n_nonlinear,
+                                     device=DEV)
+        out[dt] = ht.hpf(net, dev, s)
+    r32, r64 = out["float32"], out["float64"]
+    thd = ht.get_thd(r64.V_m).THD_F.amax().item()
+    dv = (r32.V_m.double() - r64.V_m).abs().max().item()
+    log(f"[23d] full circle ({time.perf_counter() - t0:.3f} s): float64 "
+        f"converged {bool(r64.converged)}, {int(r64.n_iter)} iterations, "
+        f"max THD {thd:.4e}; float32 converged {bool(r32.converged)}, "
+        f"max|dV_m| {dv:.3e} pu (bound {CIRCLE_TOL})")
+    check(bool(r64.converged) and 0.001 < thd < 1.0,
+          "[23d] float64 full circle fails its test's assertions")
+    check(bool(r32.converged) and dv <= CIRCLE_TOL,
+          f"[23d] float32 full circle {dv} pu from float64")
+    launches = read_launches()
+    log_shapes("23")
+    check(launches["rectifier_kernel"] == 6,
+          f"[23] {launches['rectifier_kernel']} rectifier launches, not 6 "
+          "(23b, the four EV models, 23d)")
+    add_shapes(row, [rect_case(*t) for t in sweeps])
+
+    res = ht_fuchs.solve_fuchs(device=DEV)
+    dev = ht_fuchs.fuchs_device_set(ht_fuchs.fuchs_settings(), device=DEV)
+    with open(os.path.join(REPO, "validation", "I_log.json")) as fh:
+        ilog = json.load(fh)["data"]
+    with open(os.path.join(REPO, "validation", "V_log.json")) as fh:
+        vlog = json.load(fh)["data"]
+    states, inj = {}, {}
+    for r in vlog:
+        V = states.setdefault(r["iteration"], np.zeros((2, 4, 2)))
+        V[0 if r["harmonic"] == 1 else 1, int(r["bus"][3:]) - 1] = \
+            (r["V_m"], r["V_a"])
+    for r in ilog:
+        inj.setdefault(r["iteration"], np.zeros(2, complex))[
+            0 if r["harmonic"] == 1 else 1] = r["0"] + 1j * r["1"]
+    ierr = max(np.abs(cx_host(dev.injections(
+        torch.tensor(V[:, 3, 0], device=DEV)[:, None],
+        torch.tensor(V[:, 3, 1], device=DEV)[:, None]))[0] - inj[it]).max()
+        for it, V in states.items() if it in inj)
+    last = states[max(states)]
+    ref = last[..., 0] * np.exp(1j * last[..., 1])
+    ours = cx_host(ht.cx.polar(res.V_m, res.V_a))
+    verr = np.abs(ours - ref).max()
+    log(f"[23d] solve_fuchs float64: converged {bool(res.converged)}, "
+        f"{int(res.n_iter)} iterations, {verr:.3e} from V_log.json's last "
+        f"state; injections at the logged states {ierr:.3e} from "
+        f"I_log.json")
+    check(bool(res.converged) and int(res.n_iter) < 20 and verr < 5e-4
+          and ierr < 2e-9, "[23d] solve_fuchs fails its test's assertions")
+    return row, launches
+
+
+def new_shapes(before, gen, phases="18-23", tag="21"):
+    """Each direct or panel kernel at the shapes ``phases`` launched that
     no earlier check covers, against its plain twin and timed (the
     rescue's and phase 2's bucket widths vary from run to run).  Returns
     {kernel: [shape dicts]}."""
@@ -2688,11 +3312,11 @@ def new_shapes(before, gen):
     for key in sorted(set(PATH_SHAPES) - before - checked):
         name, shape = key
         if name == "gj_panel_kernel":
-            out[name].append(panel_case(*shape, gen, tag="21")[1])
+            out[name].append(panel_case(*shape, gen, tag=tag)[1])
         elif name in ("gj_kernel", "gj_kernel_carried"):
-            out[name].append(solve_case(name, *shape, gen, tag="21")[1])
+            out[name].append(solve_case(name, *shape, gen, tag=tag)[1])
     torch.cuda.empty_cache()
-    log(f"[21] kernels at the shapes phases 18-20 first launched: "
+    log(f"[{tag}] kernels at the shapes phases {phases} first launched: "
         + ", ".join(f"{k} {[sh['shape'] for sh in v]}"
                     for k, v in out.items()))
     return out
@@ -2721,7 +3345,9 @@ def main():
     paths += [launches15, phase16(gen), phase17()]
     add_shapes(rows["gj_panel_kernel"], k4_shapes)
     before_18 = set(PATH_SHAPES)
-    paths += [phase18(), phase19(), phase20()]
+    paths += [phase18(), phase19(), phase20(), phase22()]
+    rows["rectifier_kernel"], launches23 = phase23()
+    paths.append(launches23)
     for name, shapes in new_shapes(before_18, gen).items():
         add_shapes(rows[name], shapes)
     for name, row in rows.items():
@@ -2734,8 +3360,8 @@ def main():
         check(sum(row["launches_by_shape"].values()) == row["launches"],
               f"{name}: launches by shape do not add up")
     t_run = time.perf_counter() - t_start
-    lo, hi = BEFORE_18_RUN_S
-    log(f"[10] whole run {t_run:.1f} s; before phase 18 the runs took "
+    lo, hi = BEFORE_22_RUN_S
+    log(f"[10] whole run {t_run:.1f} s; before phase 22 the runs took "
         f"{lo}-{hi} s: {t_run - hi:+.1f} to {t_run - lo:+.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

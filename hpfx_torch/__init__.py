@@ -121,8 +121,38 @@ from .extended import (ControlledDeviceSet, ExtendedResult,  # noqa: E402
                        hpf_extended, solve_harmonic_extended)
 from .convert import controlled_from_hpfx_arrays  # noqa: E402
 from .ybus import fold_ydiag  # noqa: E402
+from .results import THD  # noqa: E402
+from .arrow import (arrow_solve, build_arrow_pieces,  # noqa: E402
+                    make_arrow_index)
+from .devices import (fit_coupled_ne, fit_uncoupled_ne,  # noqa: E402
+                      load_norton_equivalent, ne_injection, ne_selftest)
+from .estimate import (BackgroundEstimate, EstimateResult,  # noqa: E402
+                       estimate_background, estimate_injections)
+from .activefilter import ActiveFilterSizing, size_active_filter  # noqa: E402
+from .optimize import (FilterOptResult, OptimizeResult,  # noqa: E402
+                       apply_line_params, optimize_filter,
+                       optimize_line_params)
+from .placement import (FilterPlan, PlacementReport,  # noqa: E402
+                        dominant_orders, filter_ydiag, plan_filter_bank,
+                        screen_filter_placement)
+from .ne_pipeline import (MeasurementSet, NortonFit,  # noqa: E402
+                          device_set_from_fit, export_ne_csv,
+                          export_opendss_spectrum,
+                          fit_norton_from_measurements,
+                          load_measurements_mat)
 
 __all__ = [
+    "THD", "arrow_solve", "build_arrow_pieces", "make_arrow_index",
+    "fit_coupled_ne", "fit_uncoupled_ne", "load_norton_equivalent",
+    "ne_injection", "ne_selftest", "BackgroundEstimate", "EstimateResult",
+    "estimate_background", "estimate_injections", "ActiveFilterSizing",
+    "size_active_filter", "FilterOptResult", "OptimizeResult",
+    "apply_line_params", "optimize_filter", "optimize_line_params",
+    "FilterPlan", "PlacementReport", "dominant_orders", "filter_ydiag",
+    "plan_filter_bank", "screen_filter_placement", "MeasurementSet",
+    "NortonFit", "device_set_from_fit", "export_ne_csv",
+    "export_opendss_spectrum", "fit_norton_from_measurements",
+    "load_measurements_mat",
     "AllocationStudy", "ControlledDeviceSet", "CriticalMode",
     "ExtendedResult", "KronReduction", "ModalScan", "NotchReport",
     "PhaseFlows", "SequenceSet", "ThreePhaseResult", "abc_admittance",

@@ -316,6 +316,84 @@ def norton_inject(params, V_m, V_a) -> Cx:
     return I_N - cx.matvec(Y_N, cx.polar(V_m, V_a))
 
 
+# ---------------------------------------------------------------------------
+# Norton-equivalent fitting (differentiable; hpfx.devices:324-386)
+# ---------------------------------------------------------------------------
+
+def _as_cx(x, device=None) -> Cx:
+    """``x`` as a Cx: a Cx stays as it is; a numpy (complex) array goes to
+    ``device`` (default: the CUDA card) in its own precision, float64
+    unless it is complex64/float32."""
+    if isinstance(x, Cx):
+        return x
+    arr = np.asarray(x)
+    dt = (torch.float32 if arr.dtype in (np.complex64, np.float32)
+          else torch.float64)
+    return cx.from_numpy(arr, dt, resolve_device(device))
+
+
+def fit_coupled_ne(V_mes, I_mes, device=None):
+    """Coupled HCNE fit (Almeida 2010; ``hpfx.devices.fit_coupled_ne``).
+
+    Given M = H+1 measurements of applied voltage spectra ``V_mes (M, H)``
+    and injected current spectra ``I_mes (M, H)``, solve for each output
+    harmonic j the linear system I[k,j] = I_N[j] − Σ_p Y_N[j,p] V[k,p],
+    i.e. [−V | 1] @ [Y_N[j,:] ; I_N[j]] = I[:,j], with one
+    ``torch.linalg.solve`` (:func:`hpfx_torch.cx.solve`, as the JAX
+    package takes ``jnp.linalg.solve``).  Accepts complex numpy arrays
+    (put on ``device``) or ``Cx``; returns (I_N (H,), Y_N (H,H)) as Cx.
+    """
+    V_mes, I_mes = _as_cx(V_mes, device), _as_cx(I_mes, device)
+    M, H = V_mes.shape
+    if M != H + 1:
+        raise ValueError(f"coupled fit needs H+1={H + 1} measurements, got {M}")
+    kw = dict(dtype=V_mes.dtype, device=V_mes.device)
+    ones = Cx(torch.ones((M, 1), **kw), torch.zeros((M, 1), **kw))
+    A = cx.concatenate([-V_mes, ones], axis=1)
+    X = cx.solve(A, I_mes)               # (H+1, H): rows = [Y_N^T ; I_N]
+    Y_N = X[:-1].T
+    I_N = X[-1]
+    return I_N, Y_N
+
+
+def fit_uncoupled_ne(V_m1, I_m1, V_m2, I_m2, device=None):
+    """Uncoupled NE fit (Thunberg 1999; ``hpfx.devices.fit_uncoupled_ne``).
+
+    Per harmonic h, from two measurements (V1[h], I1[h]) and (V2[h], I2[h]):
+        Y_N[h] = (I2[h] − I1[h]) / (V1[h] − V2[h])
+        I_N[h] = Y_N[h]·V1[h] + I1[h]
+    All arguments shape (H,).  Returns (I_N (H,), Y_N (H,)) as Cx.
+    """
+    V_m1, I_m1 = _as_cx(V_m1, device), _as_cx(I_m1, device)
+    V_m2, I_m2 = _as_cx(V_m2, device), _as_cx(I_m2, device)
+    Y_N = (I_m2 - I_m1) / (V_m1 - V_m2)
+    I_N = Y_N * V_m1 + I_m1
+    return I_N, Y_N
+
+
+def ne_injection(I_N, Y_N, V, device=None) -> Cx:
+    """Model current injection I = I_N − Y_N·V (coupled or uncoupled),
+    the sign convention of hcne_generalized.py:320-322."""
+    I_N, Y_N, V = (_as_cx(a, device) for a in (I_N, Y_N, V))
+    if Y_N.ndim == 2:
+        return I_N - cx.matvec(Y_N, V)
+    return I_N - Y_N * V
+
+
+def ne_selftest(I_N, Y_N, V_mes, I_mes, device=None) -> torch.Tensor:
+    """Max |model − measurement| over a measurement set; the reference
+    warns above 1e-6 (NE_from_sim.py:132-135, 190-193)."""
+    I_N, Y_N = _as_cx(I_N, device), _as_cx(Y_N, device)
+    V, I = _as_cx(V_mes, device), _as_cx(I_mes, device)
+    if V.ndim == 1:
+        V, I = V[None], I[None]
+    if Y_N.ndim == 2:
+        pred = I_N[None, :] - cx.einsum("hp,mp->mh", Y_N, V)
+    else:
+        pred = I_N[None, :] - Y_N[None, :] * V
+    return (pred - I).abs().max()
+
+
 def check_devices(devices, library: bool = False) -> None:
     """Raise ``TypeError`` unless ``devices`` is a DeviceSet, an
     AnalyticDeviceSet or, where ``library``, a DeviceLibrary."""

@@ -112,7 +112,10 @@ def resonance_peaks(zmag: torch.Tensor, settings: Settings
 def _filter_inputs(settings: Settings, device, *params):
     """The harmonic orders and the parameters as tensors in the settings'
     dtype: on the parameters' device when one is a tensor, else on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card).  Plain numbers (the quality
+    factor too) become tensors: torch.func's forward mode gives a 0-d
+    float32 parameter divided by a Python float a float64 tangent, which
+    a float32 solve then refuses."""
     rd = settings.real_dtype
     dv = next((p.device for p in params if isinstance(p, torch.Tensor)),
               None)
@@ -130,7 +133,8 @@ def tuned_filter_admittance(settings: Settings, h_tune, x_cap,
     h_tune²``, ``R = sqrt(X_L·x_cap) / quality``.  (K,) parameters give a
     (K, H) bank.  On the parameters' device, or ``device`` (default: the
     CUDA card) for plain numbers."""
-    h, h_tune, x_cap = _filter_inputs(settings, device, h_tune, x_cap)
+    h, h_tune, x_cap, quality = _filter_inputs(settings, device, h_tune,
+                                               x_cap, quality)
     lead = torch.broadcast_shapes(h_tune.shape, x_cap.shape)
     x_l = x_cap / (h_tune * h_tune)
     r = (torch.sqrt(x_l * x_cap) / quality)[..., None]
@@ -146,7 +150,8 @@ def highpass_filter_admittance(settings: Settings, h_corner, x_cap,
     a series capacitor (``x_cap`` at the fundamental) into R parallel L,
     ``X_L = x_cap / h_corner²``, ``R = m·h_corner·X_L``.  Conventions of
     :func:`tuned_filter_admittance`."""
-    h, h_corner, x_cap = _filter_inputs(settings, device, h_corner, x_cap)
+    h, h_corner, x_cap, m = _filter_inputs(settings, device, h_corner,
+                                           x_cap, m)
     lead = torch.broadcast_shapes(h_corner.shape, x_cap.shape)
     x_l = x_cap / (h_corner * h_corner)
     R = (m * h_corner * x_l)[..., None]
@@ -167,7 +172,8 @@ def ctype_filter_admittance(settings: Settings, h_tune, x_cap,
     fundamental, the filter series-resonant at ``h_tune``
     (``x_l = x_cap / (h_tune² − 1)``), ``R = quality·h_tune·x_l``.
     Conventions of :func:`tuned_filter_admittance`."""
-    h, h_tune, x_cap = _filter_inputs(settings, device, h_tune, x_cap)
+    h, h_tune, x_cap, quality = _filter_inputs(settings, device, h_tune,
+                                               x_cap, quality)
     lead = torch.broadcast_shapes(h_tune.shape, x_cap.shape)
     x_l = x_cap / (h_tune * h_tune - 1.0)
     R = (quality * h_tune * x_l)[..., None]

@@ -18,7 +18,8 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", f)
-                for f in ("gj_solve.cu", "gj_panel.cu", "fused_trip.cu"))
+                for f in ("gj_solve.cu", "gj_panel.cu", "fused_trip.cu",
+                          "rectifier.cu"))
 HEADERS = (os.path.join(_HERE, "csrc", "gj_common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
                          "build", "hpfx_torch_kernels")
@@ -70,6 +71,11 @@ def _declare(lib):
     # shared-memory bytes, blocks per SM
     lib.hpfx_fused_trip_occupancy.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
     lib.hpfx_fused_trip_occupancy.restype = i
+    # sources, i, v, S, steps + 1, substeps, the circuit's constants
+    # (v_drop, R_on, C_emi, C_dc, R1, tau, el, e_dc, h, dt), stream
+    lib.hpfx_rectifier.argtypes = [vp] * 3 + [i, ll, i] \
+        + [ctypes.c_double] * 10 + [vp]
+    lib.hpfx_rectifier.restype = i
     lib.hpfx_error_string.argtypes = [i]
     lib.hpfx_error_string.restype = ctypes.c_char_p
 

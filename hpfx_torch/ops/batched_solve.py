@@ -99,10 +99,11 @@ GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
 
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
 LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_kernel_unrolled": 0,
-            "gj_panel_kernel": 0, "fused_trip_kernel": 0}
+            "gj_panel_kernel": 0, "fused_trip_kernel": 0,
+            "rectifier_kernel": 0}
 #: the same launches by (kernel, shape) since the last ``clear()``: shape
 #: (n, R, B) of a direct solve, (N, Pw, B) of a panel, (H, n, B) of a
-#: fused trip
+#: fused trip, (S, steps + 1, substeps) of a rectifier time loop
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 

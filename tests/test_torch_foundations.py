@@ -224,13 +224,24 @@ def test_resolve_device():
 
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, %r); import hpfx_torch, "
-            "hpfx_torch.solve, hpfx_torch.ops._build; "
+            "hpfx_torch.solve, hpfx_torch.ops._build, hpfx_torch.simulate, "
+            "hpfx_torch.examples; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hpfx')); print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_exports_cover_the_reference():
+    """Every name the JAX package exports is an attribute of the port and
+    listed in its ``__all__``."""
+    missing = [n for n in hpfx.__all__ if not hasattr(ht, n)]
+    unlisted = [n for n in hpfx.__all__ if n not in ht.__all__]
+    assert not missing and not unlisted, (missing, unlisted)
+    assert len(set(ht.__all__)) == len(ht.__all__)
+    assert all(hasattr(ht, n) for n in ht.__all__)
 
 
 def test_at_add_repeats_accumulate_in_index_order():

@@ -128,7 +128,7 @@ def test_cpu_dispatch_takes_plain_path(n):
     torch.testing.assert_close(x, want, rtol=0, atol=0)
     assert tbs.LAUNCHES == {"gj_kernel": 0, "gj_kernel_carried": 0,
                             "gj_kernel_unrolled": 0, "gj_panel_kernel": 0,
-                            "fused_trip_kernel": 0}
+                            "fused_trip_kernel": 0, "rectifier_kernel": 0}
 
 
 @pytest.mark.parametrize("unrolled", [False, True], ids=["carried",
