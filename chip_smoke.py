@@ -173,8 +173,8 @@ kernels, and checks them:
      tests/test_extended.py's controlled device and (d) hpf_sequence at
      net2 H<=25, both in float64 on the card against the CPU: identical
      iterations, voltages (and u) within 1e-10;
- 21. (after phase 23) gj_kernel, gj_kernel_carried and gj_panel_kernel
-     at every shape that phases 18-23 launched and no earlier check
+ 21. (after phase 24) gj_kernel, gj_kernel_carried and gj_panel_kernel
+     at every shape that phases 18-24 launched and no earlier check
      covers, against the plain twin and timed as in phase 2 (their rows'
      "shapes");
  22. the estimation and design loops at the JAX tests' shapes (the dense
@@ -212,6 +212,23 @@ kernels, and checks them:
      samples held to the twin as in (a); the kernel's row gives each
      shape's bound and, beside it, the floor of one simulation's
      dependent chain (chain_ms).
+
+ 24. how users start the port: (a) every command of python -m hpfx_torch
+     once, in this process, with tests/test_cli.py's arguments, each exit
+     code against the one its library result implies; then the sweep
+     command at full width (net1 H<=25 B=2048 and net2 B=4096, the arrow
+     solver), its printed conv and quantiles equal to those of
+     hpf_sweep_adaptive on the same seeded scenarios, both wall times
+     printed; (b) over a 1-rank NCCL group, the README's
+     hosting_capacity_sharded (net2 H<=25, 10,240 scenarios, injection
+     scales 0.1-2.0) and hpf_sweep_adaptive_sharded at the net2 main
+     path's settings (B=16384, warm="linear", phase_iters=24), each bit
+     for bit against hosting_capacity_sweep and hpf_sweep_adaptive_lanes,
+     sharded and unsharded wall times interleaved, three pairs; (c)
+     entry()'s step on the card, dryrun_multichip(2) (gloo ranks on the
+     CPU) and a net2 H<=25 B=4096 sweep under profile_trace, whose Chrome
+     trace must name gj_kernel and gj_kernel_carried; (d) the demo's 29
+     sections on the card.
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
@@ -1785,21 +1802,22 @@ def phase14():
 
 def seed_solve_ms(net, dev, s, sc):
     """torch.linalg.solve on the first chunk of norton_warm_start's seed
-    systems, caught as cx.solve passes them, timed beside the bound."""
+    systems, caught as cx.solve passes them to the port's LU route
+    (batched_solve._lu), timed beside the bound."""
     caught = {}
-    solve = torch.linalg.solve
+    lu = bs._lu
 
     def catch(A, b):
         caught.setdefault("Ab", (A, b))
-        return solve(A, b)
+        return lu(A, b)
 
-    torch.linalg.solve = catch
+    bs._lu = catch
     try:
         ht.norton_warm_start(net, dev, s, sc)
     finally:
-        torch.linalg.solve = solve
+        bs._lu = lu
     A, b = caught["Ab"]
-    ms = time_ms(lambda: solve(A, b), 3)
+    ms = time_ms(lambda: torch.linalg.solve(A, b), 3)
     Bt, n = A.shape[0], A.shape[-1]
     b_ms, b_by = bound(*solve_work(n, 1, Bt))
     log(f"[15] torch.linalg.solve on one seed chunk ({Bt} systems of dim "
@@ -3300,7 +3318,339 @@ def phase23():
     return row, launches
 
 
-def new_shapes(before, gen, phases="18-23", tag="21"):
+# ---------------------------------------------------------------------------
+# phase 24: how users start the port: the CLI, the sharded sweeps, the
+# entry points and the demo
+# ---------------------------------------------------------------------------
+
+NET2_ARGS = ("--buses", os.path.join(DATA, "net2_buses.csv"),
+             "--lines", os.path.join(DATA, "net2_lines.csv"))
+NET1_ARGS = ("--buses", os.path.join(DATA, "net1_buses.csv"),
+             "--lines", os.path.join(DATA, "net1_lines.csv"))
+#: the README's sharded example: net2 H<=25, injection scales 0.1-2.0
+B_README = 10240
+#: the README's command-line sweep (net2, the arrow solver)
+B_CLI_NET2 = 4096
+#: interleaved (sharded, unsharded) pairs of 24b
+SHARD_PAIRS = 3
+
+
+def cli(argv):
+    """``python -m hpfx_torch`` in this process, on the card: (exit code,
+    stdout, wall seconds)."""
+    import contextlib
+    import io
+    from hpfx_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_case(h_max=25, name="net2", **kw):
+    """The CLI's own setup: float32 on the card (float64 on the CPU), its
+    solver default."""
+    dtype = "float64" if DEV.type == "cpu" else "float32"
+    s = ht.settings_for_hmax(h_max, coupled=True, dtype=dtype, **kw)
+    net = ht.load_network(os.path.join(DATA, f"{name}_buses.csv"),
+                          os.path.join(DATA, f"{name}_lines.csv"), s,
+                          device=DEV)
+    return s, net, ht.load_device_set(net, s)
+
+
+def cli_sweep_draws(s, net, batch, seed=0, p_range=(0.8, 1.2),
+                    inj_range=(0.5, 1.5)):
+    """The sweep command's seeded scenarios."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=s.real_dtype, device=DEV)
+    return ht.Scenarios(t(rng.uniform(*p_range, batch)),
+                        t(rng.uniform(*p_range, batch)),
+                        t(rng.uniform(*inj_range, batch)))
+
+
+def sweep_lines(res, batch):
+    """The two lines the sweep command prints for ``res``, its wall time
+    left out."""
+    conv = res.converged.cpu().numpy()
+    thd = ht.get_thd(res.V_m.movedim(0, -1)).THD_F.amax(dim=0).cpu().numpy()
+    ok = thd[conv]
+    q = np.quantile(ok, [0.05, 0.5, 0.95])
+    return [f"B={batch} conv={conv.mean():.4f} ({int(conv.sum())}/{batch})",
+            f"worst-bus THD_F over converged scenarios: p5={q[0]:.4f} "
+            f"median={q[1]:.4f} p95={q[2]:.4f} max={ok.max():.4f}"]
+
+
+def cli_expectations(tmp):
+    """Each command once, with tests/test_cli.py's arguments (modes and
+    capacity, which it does not run, with the parity test's), beside the
+    exit code its library result implies."""
+    s, net, dev = cli_case()
+    sol, dss = os.path.join(tmp, "s.json"), os.path.join(tmp, "case.dss")
+    prof, ts = os.path.join(tmp, "profile.csv"), os.path.join(tmp, "ts.json")
+    np.savetxt(prof, np.linspace(0.8, 1.1, 6), delimiter=",")
+
+    def sweep_rc():
+        res = ht.hpf_sweep_adaptive(net, dev, s, cli_sweep_draws(
+            s, net, 16, seed=3))
+        return 0 if bool(res.converged.all()) else 2
+
+    def report_rc():
+        res = ht.hpf(net, dev, s)
+        if not bool(res.converged):
+            return 2
+        return 0 if bool(ht.check_ieee519(res, s).compliant.all()) else 3
+
+    def afilter_rc():
+        out = ht.size_active_filter(net, dev, s, bus=3, orders=[5, 7])
+        return 0 if bool(out.result.converged) else 2
+
+    def capacity_rc():
+        s5, n5, d5 = cli_case(5)
+        out = ht.find_hosting_capacity(
+            n5, d5, s5, ht.monte_carlo_scenarios(0, 16, n5, s5, device=DEV),
+            thd_limit=0.5, tol=0.02, sweep=ht.hpf_sweep_adaptive)
+        return 0 if out.feasible else 2
+
+    def assess_rc():
+        qa = ht.assess_quantiles(
+            net, dev, s, ht.monte_carlo_scenarios(0, 8, net, s, device=DEV),
+            sweep=ht.hpf_sweep_adaptive)
+        return 0 if ht.check_planning_levels(qa, {5: 0.01}).compliant else 3
+
+    def timeseries_rc():
+        res = ht.run_timeseries(net, dev, s, np.linspace(0.8, 1.1, 6),
+                                chunk=3)
+        return 0 if ht.percentile_compliance(res, s).compliant else 3
+
+    def contingency_rc():
+        s5, n5, d5 = cli_case(5)
+        rep = ht.screen_line_outages(n5, d5, s5)
+        solved = rep.converged & ~rep.islanded
+        return 3 if solved.any() and np.nanmax(
+            rep.delta_thd[solved]) > 1e9 else 0
+
+    solve_rc = lambda: 0 if bool(ht.hpf(net, dev, s).converged) else 2
+    always = lambda: 0
+    return [
+        (("solve", *NET2_ARGS, "--hmax", "25", "--json", sol), solve_rc),
+        (("scan", *NET2_ARGS, "--operational"), always),
+        (("modes", *NET2_ARGS, "--operational", "--sensitivity"), always),
+        (("sweep", *NET2_ARGS, "--batch", "16", "--seed", "3"), sweep_rc),
+        (("report", *NET2_ARGS), report_rc),
+        (("estimate", *NET2_ARGS, "--measurements", sol, "--meter", "1",
+          "--scales0", "0.5"), always),
+        (("filter", *NET2_ARGS, "--bus", "2", "--steps", "3"), always),
+        (("afilter", *NET2_ARGS, "--bus", "3", "--orders", "5", "7"),
+         afilter_rc),
+        (("export", *NET2_ARGS, "--dss", dss), always),
+        (("place", *NET2_ARGS, "--bus", "2", "3", "--h-tune", "4.85",
+          "--x-cap", "0.5", "1.0", "--n-filters", "2"), always),
+        (("capacity", *NET2_ARGS, "--batch", "16", "--hmax", "5",
+          "--limit", "0.5"), capacity_rc),
+        (("assess", *NET2_ARGS, "--batch", "8", "--levels", "5:0.01"),
+         assess_rc),
+        (("timeseries", *NET2_ARGS, "--profile", prof, "--chunk", "3",
+          "--json", ts), timeseries_rc),
+        (("contingency", *NET2_ARGS, "--hmax", "5", "--alert", "1e9"),
+         contingency_rc),
+    ]
+
+
+def phase24a():
+    """The CLI on the card: every command once, its exit code against
+    its library result; then the sweep at full width (net1 H<=25 B=2048
+    and net2 B=4096 with the arrow solver), its printed conv and
+    quantiles against the library call on the same seeded scenarios."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = cli_expectations(tmp)
+        reset_launches()
+        runs = [(argv, *cli(argv)) for argv, _ in cases]
+        launches = read_launches()
+        for (argv, rc, out, dt), (_, expected) in zip(runs, cases):
+            want = expected()
+            log(f"[24a] {argv[0]:11s} exit {rc} (library: {want}), "
+                f"{dt:.3f} s: {out.splitlines()[0][:96]}")
+            check(rc == want, f"[24a] {argv[0]} exited {rc}, its library "
+                  f"result implies {want}")
+        check("fitted 1 device scale(s)" in runs[5][2],
+              "[24a] estimate printed no fit")
+    log_shapes("24a")
+    for name, args, Bt in (("net1", NET1_ARGS, B_NET1),
+                           ("net2", NET2_ARGS, B_CLI_NET2)):
+        reset_launches()
+        rc, out, dt_cli = cli(("sweep", *args, "--solver", "arrow",
+                               "--hmax", "25", "--batch", str(Bt)))
+        for k, v in read_launches().items():
+            launches[k] += v
+        s, net, dev = cli_case(name=name, solver="arrow")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ht.hpf_sweep_adaptive(net, dev, s, cli_sweep_draws(s, net, Bt))
+        torch.cuda.synchronize()
+        dt_lib = time.perf_counter() - t0
+        printed = out.splitlines()
+        printed[0] = printed[0].split("  ")[0]
+        want = sweep_lines(res, Bt)
+        log(f"[24a] sweep {name} H<=25 B={Bt} (arrow): CLI {dt_cli:.3f} s "
+            f"(exit {rc}), library {dt_lib:.3f} s; {printed[0]}; "
+            f"{printed[1]}")
+        check(printed == want, f"[24a] sweep {name}: the CLI printed "
+              f"{printed}, the library call gives {want}")
+        check(rc == (0 if bool(res.converged.all()) else 2),
+              f"[24a] sweep {name}: exit {rc}")
+    log_shapes("24a full width")
+    return launches
+
+
+def same_bits(a, b, tag):
+    """Every tensor of two results equal bit for bit (NaN padding equal)."""
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+                if x.is_floating_point() else (x == y)
+            check(x.shape == y.shape and bool(same.all()),
+                  f"[24b] {tag}: sharded differs from unsharded")
+        elif x is not None and hasattr(x, "_fields"):
+            same_bits(x, y, tag)
+
+
+def phase24b():
+    """The README's example at full width, sharded over a 1-rank NCCL
+    group, bit for bit against the unsharded calls; sharded and unsharded
+    wall times interleaved (at one rank, the mesh's own overhead)."""
+    import tempfile
+    import torch.distributed as dist
+    from hpfx_torch import parallel as par
+    launches = {k: 0 for k in ht.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = par.scenario_mesh()
+            check(mesh.size == 1 and mesh.device == DEV,
+                  f"[24b] mesh {mesh}")
+            s, net, dev = cli_case()
+            one = torch.ones(B_README, device=DEV)
+            readme = ht.Scenarios(one, one, torch.linspace(
+                0.1, 2.0, B_README, device=DEV))
+            sa, na, da = fixture_net("net2", H_MAX)
+            runs = [
+                ("hosting_capacity_sharded B=10240", readme,
+                 lambda sc: par.hosting_capacity_sharded(
+                     net, dev, s, sc, mesh, thd_limit=0.08),
+                 lambda sc: ht.hosting_capacity_sweep(net, dev, s, sc,
+                                                      thd_limit=0.08)),
+                (f"hpf_sweep_adaptive_sharded B={B}", scen(0, B),
+                 lambda sc: par.hpf_sweep_adaptive_sharded(
+                     na, da, sa, sc, mesh, phase_iters=PHASE_ITERS,
+                     warm="linear"),
+                 lambda sc: ht.hpf_sweep_adaptive_lanes(
+                     na, da, sa, sc, phase_iters=PHASE_ITERS,
+                     warm="linear"))]
+            for tag, sc, sharded, plain in runs:
+                reset_launches()
+                out = sharded(sc)
+                torch.cuda.synchronize()
+                for k, v in read_launches().items():
+                    launches[k] += v
+                ref = plain(sc)
+                same_bits(out, ref, tag)
+                times = {"sharded": [], "unsharded": []}
+                for _ in range(SHARD_PAIRS):
+                    for kind, fn in (("sharded", sharded),
+                                     ("unsharded", plain)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn(sc)
+                        torch.cuda.synchronize()
+                        times[kind].append(time.perf_counter() - t0)
+                conv = out.converged.float().mean().item()
+                extra = (f", frac_over_limit "
+                         f"{float(out.frac_over_limit):.6f}"
+                         if hasattr(out, "frac_over_limit") else "")
+                log(f"[24b] {tag}: bit for bit with the unsharded call; conv "
+                    f"{conv:.6f}{extra}; wall s sharded "
+                    + " ".join(f"{t:.4f}" for t in times["sharded"])
+                    + ", unsharded "
+                    + " ".join(f"{t:.4f}" for t in times["unsharded"]))
+        finally:
+            dist.destroy_process_group()
+    log_shapes("24b")
+    return launches
+
+
+def phase24c():
+    """The entry points: entry()'s step on the card, the two-rank gloo
+    dry run, and one net2 sweep under profile_trace, whose trace must
+    name gj_kernel and gj_kernel_carried."""
+    import tempfile
+    from hpfx_torch.entry import dryrun_multichip, entry
+    from hpfx_torch.utils import profile_trace
+    reset_launches()
+    fn, args = entry()
+    t0 = time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    check(res.V_m.device.type == DEV.type and res.V_m.shape[0] == 64,
+          "[24c] entry() did not run on the card")
+    log(f"[24c] entry(): net2 H<=25 B=64 on the card in "
+        f"{time.perf_counter() - t0:.3f} s, conv "
+        f"{res.converged.float().mean().item():.4f}")
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    log(f"[24c] dryrun_multichip(2): {time.perf_counter() - t0:.3f} s")
+    s, net, dev = fixture_net("net2", H_MAX)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profile_trace(tmp):
+            ht.hpf_sweep_device(net, dev, s, scen(0, 4096),
+                                phase_iters=PHASE_ITERS, warm="linear")
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+    names = collections.Counter(e["name"] for e in events
+                                if e.get("cat") == "kernel")
+    count = lambda pat: sum(c for k, c in names.items() if re.search(pat, k))
+    k1, k2 = count(r"\bgj_kernel<"), count(r"\bgj_kernel_carried<")
+    log(f"[24c] profile_trace of a net2 H<=25 B=4096 sweep "
+        f"({time.perf_counter() - t0:.3f} s): {sum(names.values())} kernel "
+        f"events, gj_kernel {k1}, gj_kernel_carried {k2}")
+    check(k1 > 0 and k2 > 0, "[24c] the trace names no gj_kernel or "
+          "gj_kernel_carried")
+    return read_launches()
+
+
+def phase24d():
+    """The demo's 29 sections on the card."""
+    import contextlib
+    import io
+    from hpfx_torch.examples import demo
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        demo.main()
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    log(out.rstrip())
+    sections = [int(m) for m in re.findall(r"^\[(\d+)\]", out, re.M)]
+    log(f"[24d] the demo on the card: {time.perf_counter() - t0:.3f} s, "
+        f"sections {sections[0]}-{sections[-1]}")
+    check(sections == list(range(1, 30)), f"[24d] sections {sections}")
+    return read_launches()
+
+
+def phase24():
+    t0 = time.perf_counter()
+    paths = [phase24a(), phase24b(), phase24c(), phase24d()]
+    log(f"[24] {time.perf_counter() - t0:.1f} s")
+    return {k: sum(p[k] for p in paths) for k in ht.LAUNCHES}
+
+
+def new_shapes(before, gen, phases="18-24", tag="21"):
     """Each direct or panel kernel at the shapes ``phases`` launched that
     no earlier check covers, against its plain twin and timed (the
     rescue's and phase 2's bucket widths vary from run to run).  Returns
@@ -3347,7 +3697,7 @@ def main():
     before_18 = set(PATH_SHAPES)
     paths += [phase18(), phase19(), phase20(), phase22()]
     rows["rectifier_kernel"], launches23 = phase23()
-    paths.append(launches23)
+    paths += [launches23, phase24()]
     for name, shapes in new_shapes(before_18, gen).items():
         add_shapes(rows[name], shapes)
     for name, row in rows.items():

@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .ops import batched_solve
+
 
 class Cx(NamedTuple):
     """A complex tensor stored as two equal-shaped real tensors."""
@@ -252,14 +254,16 @@ def einsum(pattern: str, a: Cx, b: Cx) -> Cx:
 def solve(A: Cx, B: Cx) -> Cx:
     """Solve the complex system A·X = B through the real block system
     [[Ar, −Ai], [Ai, Ar]]·[Xr; Xi] = [Br; Bi] (``hpfx.cx.solve``, which
-    takes ``jnp.linalg.solve`` outside any Pallas kernel): one
-    ``torch.linalg.solve``.  A (..., M, M); B (..., M) or (..., M, R)."""
+    takes ``jnp.linalg.solve`` outside any Pallas kernel): one LU solve,
+    :func:`hpfx_torch.ops.batched_solve._lu` (a singular system gives a
+    non-finite solution, as in JAX, instead of raising).  A (..., M, M); B (..., M)
+    or (..., M, R)."""
     M = A.shape[-1]
     A_real = torch.cat([torch.cat([A.re, -A.im], dim=-1),
                         torch.cat([A.im, A.re], dim=-1)], dim=-2)
     vec = B.re.dim() == A.re.dim() - 1
     Br, Bi = (B.re[..., None], B.im[..., None]) if vec else (B.re, B.im)
-    X = torch.linalg.solve(A_real, torch.cat([Br, Bi], dim=-2))
+    X = batched_solve._lu(A_real, torch.cat([Br, Bi], dim=-2))
     Xr, Xi = X[..., :M, :], X[..., M:, :]
     return Cx(Xr[..., 0], Xi[..., 0]) if vec else Cx(Xr, Xi)
 

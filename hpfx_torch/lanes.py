@@ -748,7 +748,8 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                              scenarios, phase_iters: int = 24,
                              rescue_width=None, warm: str = "cold",
                              V0=None, I_bg=None,
-                             log: Optional[PhaseLog] = None) -> HPFResult:
+                             log: Optional[PhaseLog] = None,
+                             mesh=None) -> HPFResult:
     """Two-phase adaptive sweep with a gathered straggler rescue
     (``hpfx.lanes.hpf_sweep_adaptive_lanes``):
 
@@ -771,8 +772,23 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     picks it on the device; with the stragglers inside it, the result is
     that of the single width of that size, bit for bit.  ``I_bg``:
     optional batch-major (B, H, n) background injections.  ``log``:
-    optional :class:`PhaseLog`."""
+    optional :class:`PhaseLog`.
+
+    ``mesh``: a scenario mesh (:func:`hpfx_torch.parallel.
+    hpf_sweep_adaptive_sharded`); every rank passes the whole batch (and
+    ``V0``, ``I_bg``), solves its contiguous piece and returns that
+    piece's result.  The straggler choice stays global: the phase-1
+    convergence masks of every rank are gathered, every rank picks the
+    same ``K`` lanes of the whole batch, and each rescues the ones it
+    holds."""
     dv = net.device
+    Bg = scenarios.p_scale.shape[0]
+    lo, hi = (0, Bg) if mesh is None else mesh.bounds(Bg)
+    if mesh is not None:
+        scenarios = type(scenarios)(*(None if x is None else x[lo:hi]
+                                      for x in scenarios))
+        V0 = None if V0 is None else tuple(v[lo:hi] for v in V0)
+        I_bg = None if I_bg is None else Cx(I_bg.re[lo:hi], I_bg.im[lo:hi])
     with _phase(log, "setup", dv):
         su = _sweep_setup(net, devices, settings, scenarios, I_bg=I_bg,
                           log=log)
@@ -802,15 +818,18 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                       device=dv)
     hist[:p1] = hist1
 
+    conv_g = conv if mesh is None else mesh.all_gather(conv, Bg, dim=-1)
     if isinstance(rescue_width, (tuple, list)):
-        widths = sorted({min(B, max(1, int(w))) for w in rescue_width})
-        n_bad = int((~conv).sum())
+        widths = sorted({min(Bg, max(1, int(w))) for w in rescue_width})
+        n_bad = int((~conv_g).sum())
         K = widths[sum(n_bad > w for w in widths[:-1])]
     else:
-        K = min(B, rescue_width if rescue_width is not None
-                else max(128, B // 16))
+        K = min(Bg, rescue_width if rescue_width is not None
+                else max(128, Bg // 16))
     # unconverged lanes first (stable: deterministic padding choice)
-    bad = torch.argsort(conv.to(rd), stable=True)[:K]
+    bad = torch.argsort(conv_g.to(rd), stable=True)[:K]
+    if mesh is not None:
+        bad = bad[(bad >= lo) & (bad < hi)] - lo
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
     gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
@@ -891,16 +910,14 @@ def _lanes_result(V_m, V_a, err, n_iter, hist, thresh_eff,
                      fund=fund_bm)
 
 
-def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, K, gather,
+def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, bad, gather,
                          cold_state, Y, lineY, m: int, settings: Settings,
                          consts, log):
-    """The device continuation's rescue: up to ``K`` unconverged lanes
-    gathered (a stable sort: the padding's choice is deterministic), then
-    two passes, warm from their own final state (cold where it is not
-    finite), which breaks floor-hover stalls, and cold, for what a bad
-    continuation seed stalled; scattered back."""
-    rd = V_m.dtype
-    bad = torch.argsort(conv.to(rd), stable=True)[:K]
+    """The device continuation's rescue of the lanes ``bad``: two passes,
+    warm from their own final state (cold where it is not finite), which
+    breaks floor-hover stalls, and cold, for what a bad continuation seed
+    stalled; scattered back."""
+    K = bad.shape[0]
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
     S_k, inj_k, dev_k = gather(bad)
@@ -947,8 +964,8 @@ def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, K, gather,
 def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
                                  scenarios, n_stages: int = 8,
                                  rescue: bool = True, vsharding=None,
-                                 log: Optional[PhaseLog] = None
-                                 ) -> HPFResult:
+                                 log: Optional[PhaseLog] = None,
+                                 mesh=None) -> HPFResult:
     """The warm-start continuation with its whole schedule on the device
     (``hpfx.lanes.hpf_sweep_continuation_lanes``): the key sort, the
     chunks, each stage seeded from the nearest CONVERGED scenario of the
@@ -964,13 +981,23 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     state, as the plain sweep's.  With ``rescue``, the up to one chunk
     width of unconverged scenarios are gathered (stably) and re-solved,
     first warm from their own final state (cold where it is not finite),
-    then cold.  ``vsharding`` (a multi-card mesh) is ROADMAP item 9 and
-    raises ``NotImplementedError``.  ``log``: optional :class:`PhaseLog`
-    with the phases "stages" and "rescue"."""
+    then cold.  ``vsharding`` (the JAX package's harmonic-axis sharding)
+    is the ROADMAP's harmonic-axis entry and raises
+    ``NotImplementedError``.  ``log``: optional :class:`PhaseLog` with the
+    phases "stages" and "rescue".
+
+    ``mesh``: a scenario mesh (:func:`hpfx_torch.parallel.
+    hpf_sweep_continuation_sharded`); every rank passes the whole batch.
+    The key sort and the chunks stay global: each rank solves its
+    contiguous piece of every chunk, and the chunk's states are gathered
+    after each stage, since the next chunk's seeds are chosen from all of
+    them.  The rescue's lanes are chosen from the whole batch and each
+    rank rescues those in its piece of it."""
     if vsharding is not None:
         raise NotImplementedError(
-            "vsharding shards the chunks over a mesh of cards, which is "
-            "ROADMAP item 9 (multi-GPU) and not ported")
+            "vsharding shards the harmonic axis over a mesh of cards, "
+            "which is not ported (the ROADMAP's harmonic-axis entry); "
+            "hpfx_torch.parallel shards the scenario axis")
     H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
     rd, dv = settings.real_dtype, net.device
     B = scenarios.p_scale.shape[0]
@@ -1029,14 +1056,15 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     pK = torch.zeros((Bc,), dtype=rd, device=dv)
     pConv = torch.zeros((Bc,), dtype=rd, device=dv)
     outs = []
+    lo, hi = (0, Bc) if mesh is None else mesh.bounds(Bc)
     with _phase(log, "stages", dv):
         for st in range(n_stages):
             sel = order_p[st * Bc:(st + 1) * Bc]
-            S_c, inj_c, dev_c = gather(sel)
+            S_c, inj_c, dev_c = gather(sel[lo:hi])
             kc = key.index_select(0, sel)
-            coldVm, coldVa = cold_state(S_c, Bc)
+            coldVm, coldVa = cold_state(S_c, hi - lo)
             # the nearest CONVERGED scenario of the previous chunk
-            dist = (kc[:, None] - pK[None, :]).abs() \
+            dist = (kc[lo:hi, None] - pK[None, :]).abs() \
                 + 1e30 * (1.0 - pConv)[None, :]
             j = torch.argmin(dist, dim=1)
             haveprev = (pConv > 0).any()
@@ -1052,6 +1080,10 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
                 Y, lineY, S_c, dev_c, inj_c, Vm0, Va0, settings, consts,
                 thresh, log=log)
             conv = err <= thresh
+            if mesh is not None:
+                Vm, Va, err, n_it, hist, conv = (
+                    mesh.all_gather(x, Bc, dim=-1)
+                    for x in (Vm, Va, err, n_it, hist, conv))
             pVm, pVa, pK, pConv = Vm, Va, kc, conv.to(rd)
             outs.append((Vm, Va, err, n_it, hist, conv))
 
@@ -1066,9 +1098,19 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
 
     if rescue:
         with _phase(log, "rescue", dv):
-            V_m, V_a, err, n_iter, hist, conv = _continuation_rescue(
-                V_m, V_a, err, n_iter, hist, conv, min(Bc, B), gather,
-                cold_state, Y, lineY, m, settings, consts, log)
+            # up to one chunk width of unconverged lanes (a stable sort:
+            # the padding's choice is deterministic)
+            bad = torch.argsort(conv.to(rd), stable=True)[:min(Bc, B)]
+            lo, hi = (0, B) if mesh is None else mesh.bounds(B)
+            if mesh is not None:
+                bad = bad[(bad >= lo) & (bad < hi)]
+            out = _continuation_rescue(V_m, V_a, err, n_iter, hist, conv,
+                                       bad, gather, cold_state, Y, lineY, m,
+                                       settings, consts, log)
+            if mesh is not None:
+                out = tuple(mesh.all_gather(x[..., lo:hi], B, dim=-1)
+                            for x in out)
+            V_m, V_a, err, n_iter, hist, conv = out
 
     V_m, V_a = cleanup_voltages(V_m, V_a)
     return HPFResult(V_m=torch.movedim(V_m, -1, 0),

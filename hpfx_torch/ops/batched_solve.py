@@ -323,9 +323,18 @@ def equilibrated_lanes(solve):
     return wrapped
 
 
+def _lu(A, b):
+    """LAPACK/cuSOLVER LU, ``torch.linalg.solve`` without its error check:
+    a singular system gives a non-finite solution, as ``jnp.linalg.solve``
+    does (the Newton loop then leaves that scenario unconverged), where
+    ``torch.linalg.solve`` raises for the whole batch (and syncs with the
+    host to find out)."""
+    return torch.linalg.solve_ex(A, b)[0]
+
+
 def _lu_solve_lanes(A, b):
     """LAPACK/cuSOLVER LU for lane-major operands (the float64 path)."""
-    x = torch.linalg.solve(A.permute(2, 0, 1), b.permute(2, 0, 1))
+    x = _lu(A.permute(2, 0, 1), b.permute(2, 0, 1))
     return x.permute(1, 2, 0)
 
 
@@ -529,7 +538,7 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
     """Lane-major batched solve: A (n, n, B), b (n, R, B) -> x (n, R, B).
 
     Routes as ``hpfx.ops.batched_solve.batched_solve_lanes`` does: float64
-    goes to LU (``torch.linalg.solve``); float32 is equilibrated and goes
+    goes to LU (:func:`_lu`); float32 is equilibrated and goes
     to the plain elimination for n <= 16, and to
     :func:`equilibrated_gauss_solve_lanes` (``gj_kernel`` for 16 < n < 64,
     ``gj_kernel_carried`` for 64 <= n <= 128, up to 192 with ``impl``
@@ -582,8 +591,8 @@ def equilibrated(solve):
 def _lu_solve(A, b):
     """LAPACK/cuSOLVER LU, batch-major; b (..., n) or (..., n, R)."""
     if b.dim() == A.dim():
-        return torch.linalg.solve(A, b)
-    return torch.linalg.solve(A, b[..., None])[..., 0]
+        return _lu(A, b)
+    return _lu(A, b[..., None])[..., 0]
 
 
 def _gauss_solve_batch_major(A, b):
@@ -618,7 +627,7 @@ def batched_solve(A, b):
     """Batch-major batched solve: A (B, n, n), b (B, n) or (B, n, R)
     (``hpfx.ops.batched_solve.batched_solve``).
 
-    float64 goes to LU (``torch.linalg.solve``) raw, as in the JAX
+    float64 goes to LU (:func:`_lu`) raw, as in the JAX
     package.  float32 takes the JAX package's TPU branch on either device:
     equilibrated, n <= 192 goes to the direct kernels
     (:func:`_gauss_solve_batch_major`: ``gj_kernel`` below 64, with no
@@ -643,7 +652,7 @@ def solve_blocks(D, rhs):
     batching rule): every leading axis joins one batch of
     :func:`batched_solve`; float64 keeps the raw LU."""
     if D.dtype == torch.float64:
-        return torch.linalg.solve(D, rhs)
+        return _lu(D, rhs)
     k, R = D.shape[-1], rhs.shape[-1]
     out = batched_solve(D.reshape(-1, k, k), rhs.reshape(-1, k, R))
     return out.reshape(rhs.shape)
@@ -655,7 +664,7 @@ def nr_solve(J, f):
     float64 keeps the raw LU; float32 sends the whole batch (a single
     system is a batch of one) through :func:`batched_solve`."""
     if J.dtype == torch.float64:
-        return torch.linalg.solve(J, f[..., None])[..., 0]
+        return _lu(J, f[..., None])[..., 0]
     n = J.shape[-1]
     out = batched_solve(J.reshape(-1, n, n), f.reshape(-1, n))
     return out.reshape(f.shape)

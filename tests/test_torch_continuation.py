@@ -225,7 +225,7 @@ def test_device_continuation_f32():
 def test_device_continuation_vsharding_raises():
     P = pair("net2", 5, **ARROW)
     _, st = scenarios(*spread(4)[:3])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="harmonic-axis entry"):
         tl.hpf_sweep_continuation_lanes(P.net, P.dev, P.ts, st,
                                         vsharding=object())
 

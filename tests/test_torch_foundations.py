@@ -225,7 +225,9 @@ def test_resolve_device():
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, %r); import hpfx_torch, "
             "hpfx_torch.solve, hpfx_torch.ops._build, hpfx_torch.simulate, "
-            "hpfx_torch.examples; "
+            "hpfx_torch.examples, hpfx_torch.examples.demo, "
+            "hpfx_torch.__main__, hpfx_torch.parallel, hpfx_torch.entry, "
+            "hpfx_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hpfx')); print(bad); "
             "sys.exit(1 if bad else 0)" % REPO)

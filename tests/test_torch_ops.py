@@ -256,6 +256,35 @@ def test_f64_goes_to_linalg_solve():
     torch.testing.assert_close(x, want, rtol=0, atol=0)
 
 
+def test_f64_singular_lane_is_nonfinite_not_an_error():
+    """A singular float64 system makes its own lane non-finite and leaves
+    the others as they were, as the JAX package's LU does (the Newton loop
+    then reports that scenario unconverged); torch.linalg.solve would
+    raise for the whole batch.  Every float64 LU route: lane-major,
+    batch-major, the block solves, the Newton solve and cx.solve."""
+    from hpfx_torch import cx
+    A, b = _systems(26, 2, 6, seed=6, dtype=np.float64)
+    A[:, 3, 2] = 0.0                       # lane 2: a zero column
+    jx = np.asarray(jbs.batched_solve_lanes(jnp.asarray(A), jnp.asarray(b)))
+    At, bt = torch.tensor(A), torch.tensor(b)
+    x = tbs.batched_solve_lanes(At, bt).numpy()
+    ok = np.arange(6) != 2
+    assert not np.isfinite(jx[..., 2]).all()
+    assert not np.isfinite(x[..., 2]).all()
+    np.testing.assert_allclose(x[..., ok], jx[..., ok], rtol=0, atol=1e-12)
+    Ab, bb = At.permute(2, 0, 1), bt.permute(2, 0, 1)
+    zero = lambda t: torch.zeros_like(t)
+    outs = [tbs.batched_solve(Ab, bb),
+            tbs.solve_blocks(Ab[None], bb[None])[0],
+            tbs.nr_solve(Ab, bb[..., 0])[..., None],
+            cx.solve(cx.Cx(Ab, zero(Ab)), cx.Cx(bb, zero(bb))).re]
+    xb = np.moveaxis(x, -1, 0)[ok]
+    for y in outs:
+        assert not torch.isfinite(y[2]).all()
+        np.testing.assert_allclose(y[ok].numpy(), xb[..., :y.shape[-1]],
+                                   rtol=0, atol=1e-12)
+
+
 def test_kernel_wrapper_rejects_bad_operands():
     A, b = _systems(26, 1, 4, seed=1)
     At, bt = torch.tensor(A), torch.tensor(b)
