@@ -173,10 +173,12 @@ kernels, and checks them:
      tests/test_extended.py's controlled device and (d) hpf_sequence at
      net2 H<=25, both in float64 on the card against the CPU: identical
      iterations, voltages (and u) within 1e-10;
- 21. (after phase 24) gj_kernel, gj_kernel_carried and gj_panel_kernel
-     at every shape that phases 18-24 launched and no earlier check
-     covers, against the plain twin and timed as in phase 2 (their rows'
-     "shapes");
+ 21. (after phase 25) gj_kernel and gj_kernel_carried at every shape
+     that phases 18-25 launched, and gj_panel_kernel at every shape any
+     phase launched (the net1-class host rescues' bucket widths of phases
+     5-7 and 16b too), that no earlier check covers, against the plain
+     twin and timed as in phase 2 (their rows' "shapes", each with its
+     launches on the paths);
  22. the estimation and design loops at the JAX tests' shapes (the dense
      solver, the plain mismatch), each in float32 (the kernels) and
      float64 (LU) on the same inputs: (a) estimate_injections at net2
@@ -229,6 +231,38 @@ kernels, and checks them:
      CPU) and a net2 H<=25 B=4096 sweep under profile_trace, whose Chrome
      trace must name gj_kernel and gj_kernel_carried; (d) the demo's 29
      sections on the card.
+ 25. the harmonic axis: 4 ranks, processes of this script (python3
+     chip_smoke.py --rank25 RANK 4 STORE DIR), gloo over CUDA tensors,
+     every rank on the one card, a file store, entry.py's timeouts; each
+     rank imports only hpfx_torch (it fails if JAX or the JAX package was
+     imported) and loads the kernels phase 1 built.  (a) the main path at
+     full width on hpf_mesh(2, 2): hpf_sweep_adaptive_sharded at net2
+     H<=25 B=16384 (warm="linear", phase_iters=24) against the unsharded
+     hpf_sweep_adaptive_lanes on rank 0: identical converged flags,
+     n_iter within 1, max |dV_m| <= 5e-5 pu over the converged, conv >=
+     0.999, 64 scenarios re-solved in float64 on the card within phase
+     4's bounds; (b) hpf_sweep_sharded2d at net1 H<=25 B=2048 on
+     hpf_mesh(1, 2) against hpf_sweep_lanes, the same checks with
+     phase 6's bounds but for conv, printed (the plain sweep has no
+     rescue, and float32 stalls from the cold start; the float64 check
+     takes the scenarios that converged); (c) hpf_single_hsharded at
+     net2 H<=25 on harmonic_mesh(2) (ranks 2-3 receive it), both
+     solvers, against hpf_single (float64: the same n_iter, 1e-10 pu;
+     float32: both converged, 5e-5 pu), and hpf_sweep_continuation_sharded on
+     hpf_mesh(2, 2), hpf_mesh(2, 1) and hpf_mesh(1, 2) at net2 H<=25
+     B=4096, each against the unsharded continuation, and the first two
+     against each other: 5e-5 pu where both converged; in float64
+     identical flags; in float32 (no rescue: the stalls at the floor move
+     with the rounding) each call within phase 18a's stall limit and at
+     most COLD_RATE_GAP of the flags apart; then, printed, the harmonic
+     split alone (hpf_sweep_sharded2d on hpf_mesh(1, 2) against the lanes
+     sweep at 256 and 512 scenarios, a chunk's piece and a chunk) and
+     batch width alone (the lanes sweep of 256, 512 and 4096 scenarios
+     against their two halves).  Each case's first sharded call is
+     the one whose launches count (every rank's, summed); sharded and
+     unsharded wall times interleaved, 3 pairs (whether each repeat of
+     the sharded call equals its first bit for bit printed), and the
+     bytes each trip's all-gathers assemble.  Any rank's failure fails the phase.
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
@@ -3650,23 +3684,375 @@ def phase24():
     return {k: sum(p[k] for p in paths) for k in ht.LAUNCHES}
 
 
-def new_shapes(before, gen, phases="18-24", tag="21"):
-    """Each direct or panel kernel at the shapes ``phases`` launched that
-    no earlier check covers, against its plain twin and timed (the
-    rescue's and phase 2's bucket widths vary from run to run).  Returns
+# ---------------------------------------------------------------------------
+# phase 25: the harmonic axis on the card, 4 gloo ranks sharing it
+# ---------------------------------------------------------------------------
+
+#: the ranks of phase 25, processes of this script on the one card
+RANKS_25 = 4
+#: 25c's continuation batch
+B_CONT_25 = 4096
+#: interleaved (sharded, unsharded) pairs of each case
+PAIRS_25 = 3
+#: 25c: the single case in float64 against hpf_single (JAX's
+#: test_hsharded_single_matches_unsharded), and in float32
+SINGLE_TOL_F64 = 1e-10
+SINGLE_TOL_F32 = 5e-5
+
+
+def gathers_per_trip(H, n, m, b):
+    """Bytes the all-gathers of one Newton trip assemble on each rank of a
+    harmonic group holding b lanes, float32: the mismatch's Y·V rows and
+    injections (H, 2n + 2 n_nl, b), V^T·z and G (H, rb + rb^2, b), y (r,
+    b) and x (H, 2n, b)."""
+    k = n - m
+    rb, r = 2 * k, 2 * H * k
+    return 4 * b * (H * (2 * n + 2 * k) + H * (rb + rb * rb) + r
+                    + H * 2 * n)
+
+
+def rank25_case(tag, say, sharded, plain, pairs=PAIRS_25):
+    """The first sharded call with the launch counts reset just before it
+    and read just after (returned with its result); then, on rank 0, the
+    unsharded call and ``pairs`` interleaved wall times of both (every
+    rank makes each sharded call)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    out = sharded()
+    torch.cuda.synchronize()
+    launches = (dict(ht.LAUNCHES), collections.Counter(ht.LAUNCHES_BY_SHAPE))
+    ref = plain() if plain is not None else None
+    times = {"sharded": [], "unsharded": []}
+    repeats = []
+    for _ in range(pairs):
+        for kind, fn in (("sharded", sharded), ("unsharded", plain)):
+            if fn is None:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = fn()
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+            if kind == "sharded":
+                repeats.append(bits_equal(again, out))
+    if plain is not None and pairs:
+        say(f"[{tag}] wall s sharded "
+            + " ".join(f"{t:.4f}" for t in times["sharded"]) + ", unsharded "
+            + " ".join(f"{t:.4f}" for t in times["unsharded"])
+            + " (4 ranks share one card and gloo stages each gather "
+            "through the host: the collectives' cost, not scaling); the "
+            f"sharded call's repeats equal its first bit for bit: {repeats}")
+    return out, ref, launches
+
+
+def bits_equal(a, b):
+    """Whether two results' first six fields are equal bit for bit (NaN
+    equal to itself)."""
+    return all(torch.equal(x, y) or (x.is_floating_point() and bool(
+        ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()))
+        for x, y in zip(a[:6], b[:6]))
+
+
+def held25(tag, say, got, want, vm_tol, *, iters=1,
+           what="sharded against unsharded"):
+    """A sharded result against the unsharded one: identical converged
+    flags, n_iter within ``iters`` (None: printed only, as JAX's
+    continuation test holds none), max |dV_m| over the converged
+    scenarios within ``vm_tol``; prints the gap and whether every tensor
+    is equal bit for bit."""
+    check(bool((got.converged == want.converged).all()),
+          f"[{tag}] converged flags differ from the unsharded call")
+    dit = (got.n_iter.long() - want.n_iter.long()).abs().max().item()
+    check(iters is None or dit <= iters, f"[{tag}] n_iter differs by {dit}")
+    ok = got.converged
+    dvm = (got.V_m[ok].double() - want.V_m[ok].double()).abs().max().item() \
+        if bool(ok.any()) else 0.0
+    check(dvm <= vm_tol, f"[{tag}] max |dV_m| {dvm} > {vm_tol}")
+    bits = bits_equal(got, want)
+    say(f"[{tag}] {what}: converged identical, n_iter "
+        f"within {dit}, max |dV_m| {dvm:.3e} pu over the converged "
+        f"({vm_tol:g} allowed), bit for bit: {bits}")
+
+
+def first(sc, n, lo=0):
+    """Scenarios ``lo`` to ``lo + n`` of ``sc``."""
+    return ht.Scenarios(*(None if x is None else x[lo:lo + n] for x in sc))
+
+
+def apart(got, want):
+    """In how many scenarios two results differ: V_m (NaN equal to
+    itself), n_iter and the converged flags."""
+    same = (got.V_m == want.V_m) | (torch.isnan(got.V_m)
+                                    & torch.isnan(want.V_m))
+    dvm = (got.V_m.double() - want.V_m.double()).abs().nan_to_num(
+        float("inf")).max().item()
+    return (f"V_m differs in {int((~same).flatten(1).any(1).sum())} of "
+            f"{got.V_m.shape[0]} (max {dvm:.3e} pu), n_iter in "
+            f"{int((got.n_iter != want.n_iter).sum())}, flags in "
+            f"{int((got.converged != want.converged).sum())}")
+
+
+def cont_held(tag, say, dt, got, want):
+    """25c's continuation against another of its calls: max |dV_m| within
+    VM_TOL_NET2 where both converged; in float64 identical flags, in
+    float32 at most COLD_RATE_GAP of them apart (its stalls move with the
+    rounding); n_iter printed."""
+    both = got.converged & want.converged
+    flips = int((got.converged != want.converged).sum())
+    allowed = int(COLD_RATE_GAP * B_CONT_25) if dt == "float32" else 0
+    dit = (got.n_iter.long() - want.n_iter.long()).abs()
+    dvm = (got.V_m[both].double() - want.V_m[both].double()).abs().max(
+    ).item()
+    check(dvm <= VM_TOL_NET2, f"[{tag}] max |dV_m| {dvm} > {VM_TOL_NET2}")
+    check(flips <= allowed, f"[{tag}] {flips} flags differ ({allowed} "
+          "allowed)")
+    say(f"[{tag}] conv {got.converged.float().mean().item():.6f} against "
+        f"{want.converged.float().mean().item():.6f}, {flips} flags differ "
+        f"({allowed} allowed), n_iter differs in {int((dit != 0).sum())} "
+        f"scenarios (by up to {int(dit.max())}), max |dV_m| {dvm:.3e} pu "
+        f"where both converged ({VM_TOL_NET2:g} allowed); "
+        f"{apart(got, want)}")
+
+
+def phase25_rank(rank, world, store, out):
+    """One rank of phase 25 (gloo, CUDA tensors, every rank on the card):
+    25a, 25b and 25c.  Rank 0 makes the unsharded calls and the checks
+    and reports; every rank saves its launches, by shape, to
+    ``out/rank{r}.json``."""
+    import datetime
+    import torch.distributed as dist
+    from hpfx_torch import parallel as par
+    from hpfx_torch.entry import GROUP_TIMEOUT_S
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "hpfx"))
+    check(not bad, f"[25] rank {rank} imported {bad}")
+    dist.init_process_group("gloo", init_method=store, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=GROUP_TIMEOUT_S))
+    ref = rank == 0
+    say = log if ref else (lambda *a: None)
+    dv = str(DEV)
+    mesh22 = par.hpf_mesh(2, 2, devices=dv)
+    mesh12 = par.hpf_mesh(1, 2, devices=dv)
+    mesh21 = par.hpf_mesh(2, 1, devices=dv)
+    hmesh = par.harmonic_mesh(2, devices=dv)
+    total, by_shape = collections.Counter(), collections.Counter()
+
+    def case(tag, sharded, plain, pairs=PAIRS_25):
+        res, want, (launches, shapes) = rank25_case(
+            tag, say, sharded, plain if ref else None, pairs)
+        total.update(launches)
+        by_shape.update(shapes)
+        return res, want
+
+    # 25a: the main path at full width on hpf_mesh(2, 2)
+    s, net, dev = fixture_net("net2", H_MAX)
+    sc = scen(0, B)
+    t0 = time.perf_counter()
+    res, want = case("25a", lambda: par.hpf_sweep_adaptive_sharded(
+        net, dev, s, sc, mesh22, phase_iters=PHASE_ITERS, warm="linear"),
+        lambda: ht.hpf_sweep_adaptive_lanes(
+            net, dev, s, sc, phase_iters=PHASE_ITERS, warm="linear"))
+    if ref:
+        conv = check_result(res, B, s, net, "25a")
+        trip = gathers_per_trip(s.n_harmonics, net.n, net.m, B // 2)
+        say(f"[25a] hpf_sweep_adaptive_sharded net2 H<=25 B={B} on "
+            f"hpf_mesh(2, 2): conv {conv:.6f}, n_iter max "
+            f"{int(res.n_iter.max())}; all-gathers {trip / 2**20:.2f} MiB "
+            f"a trip at the full piece ({B // 2} lanes)")
+        held25("25a", say, res, want, VM_TOL_NET2)
+        f64 = torch.float64
+        compare_f64(res, lambda sub: ht.hpf_sweep_device(
+            net.to(dtype=f64), dev.to(dtype=f64), s.with_(dtype="float64"),
+            sub, phase_iters=PHASE_ITERS, warm="linear"), B, VM_TOL_NET2,
+            1e-4, "25a")
+        say(f"[25a] {time.perf_counter() - t0:.1f} s")
+
+    # 25b: net1 H<=25 B=2048 on hpf_mesh(1, 2): K1 at the dim-40 blocks,
+    # K4 at the dim-182 capacitance system
+    t0 = time.perf_counter()
+    s1, net1, dev1 = fixture_net("net1", H_MAX)
+    sc1 = scen(0, B_NET1)
+    res, want = case("25b", lambda: par.hpf_sweep_sharded2d(
+        net1, dev1, s1, sc1, mesh12),
+        lambda: ht.hpf_sweep(net1, dev1, s1.with_(layout="lanes"), sc1))
+    if ref:
+        # hpf_sweep_lanes has no rescue (nor has the JAX package's
+        # hpf_sweep_sharded2d): float32 leaves cold-start stalls at net1,
+        # so its conv is printed and its flags held to the unsharded call's
+        conv = check_result(res, B_NET1, s1, net1, "25b", min_conv=0.0)
+        trip = gathers_per_trip(s1.n_harmonics, net1.n, net1.m, B_NET1)
+        say(f"[25b] hpf_sweep_sharded2d net1 H<=25 B={B_NET1} on "
+            f"hpf_mesh(1, 2): conv {conv:.6f}, n_iter max "
+            f"{int(res.n_iter.max())}; all-gathers {trip / 2**20:.2f} MiB "
+            "a trip")
+        held25("25b", say, res, want, 3e-4)
+        f64 = torch.float64
+        compare_f64(res, lambda sub: ht.hpf_sweep_adaptive(
+            net1.to(dtype=f64), dev1.to(dtype=f64),
+            s1.with_(dtype="float64"), sub, phase_iters=PHASE_ITERS),
+            B_NET1, 3e-4, 5e-4, "25b", converged_only=True)
+        say(f"[25b] {time.perf_counter() - t0:.1f} s")
+
+    # 25c: the single case on harmonic_mesh(2) (ranks 2-3 receive it),
+    # both solvers, float32 and float64; the continuation on hpf_mesh(2, 2)
+    t0 = time.perf_counter()
+    for solver in ("arrow", "dense"):
+        for dt in ("float32", "float64"):
+            sd = s.with_(solver=solver, dtype=dt)
+            netd = net.to(dtype=sd.real_dtype)
+            devd = dev.to(dtype=sd.real_dtype)
+            res, want = case(f"25c {solver} {dt}",
+                             lambda: par.hpf_single_hsharded(netd, devd, sd,
+                                                             hmesh),
+                             lambda: ht.hpf_single(netd, devd, sd))
+            if ref:
+                check(bool(res.converged) and bool(want.converged),
+                      f"[25c] {solver} {dt}: not converged")
+                tol = SINGLE_TOL_F64 if dt == "float64" else SINGLE_TOL_F32
+                if dt == "float64":
+                    check(int(res.n_iter) == int(want.n_iter),
+                          f"[25c] {solver}: n_iter {int(res.n_iter)} != "
+                          f"{int(want.n_iter)}")
+                gap = max((res.V_m - want.V_m).abs().max().item(),
+                          (res.V_a - want.V_a).abs().max().item()
+                          if dt == "float64" else 0.0)
+                check(gap <= tol, f"[25c] {solver} {dt}: gap {gap} > {tol}")
+                say(f"[25c] hpf_single_hsharded {solver} {dt} on "
+                    f"harmonic_mesh(2): n_iter {int(res.n_iter)} "
+                    f"({int(want.n_iter)} unsharded), max gap {gap:.3e} "
+                    f"({tol:g} allowed)")
+    # the continuation starts its first chunk cold and has no host
+    # rescue: float32 leaves ~0.1% of the scenarios stalled at the floor,
+    # and which ones moves with the rounding (phase 18a).  It runs on
+    # hpf_mesh(2, 2), on the scenario axis alone (hpf_mesh(2, 1)) and on
+    # the harmonic axis alone (hpf_mesh(1, 2)), each held to the unsharded
+    # call (cont_held); trip counts are printed, as JAX's test holds none.
+    # What moves the rounding is printed after: the harmonic split alone
+    # (hpf_sweep_sharded2d on hpf_mesh(1, 2) at a chunk's piece and at a
+    # chunk) and batch width alone (the lanes sweep of a piece, a chunk
+    # and the batch against their two halves)
+    Bw = -(-B_CONT_25 // 8)
+    for dt in ("float32", "float64"):
+        sd = s.with_(dtype=dt)
+        netd, devd = net.to(dtype=sd.real_dtype), dev.to(dtype=sd.real_dtype)
+        sc = scen(0, B_CONT_25).to(sd.real_dtype)
+        tag = f"25c continuation {dt}"
+        res, want = case(tag, lambda: par.hpf_sweep_continuation_sharded(
+            netd, devd, sd, sc, mesh22), lambda:
+            ht.hpf_sweep_continuation_lanes(netd, devd, sd, sc),
+            PAIRS_25 if dt == "float32" else 1)
+        res21, _ = case(f"{tag} (2, 1)", lambda:
+                        par.hpf_sweep_continuation_sharded(
+                            netd, devd, sd, sc, mesh21), None, 0)
+        res12, _ = case(f"{tag} (1, 2)", lambda:
+                        par.hpf_sweep_continuation_sharded(
+                            netd, devd, sd, sc, mesh12), None, 0)
+        hsplit = []
+        for w in (Bw // 2, Bw):
+            chunk = first(sc, w)
+            hsplit.append((w, case(
+                f"{tag} sweep2d", lambda: par.hpf_sweep_sharded2d(
+                    netd, devd, sd, chunk, mesh12),
+                lambda: lanes.hpf_sweep_lanes(netd, devd, sd, chunk), 0)))
+        if not ref:
+            continue
+        if dt == "float32":
+            limit = 1.0 - COLD_STALLS / B
+            for got in (res, res21, res12, want):
+                check_result(got, B_CONT_25, s, net, tag, min_conv=limit)
+        else:
+            check(bool(want.converged.all()), f"[{tag}] not converged")
+        for what, got, base in (
+                ("hpf_mesh(2, 2) against unsharded", res, want),
+                ("hpf_mesh(2, 1) against unsharded", res21, want),
+                ("hpf_mesh(1, 2) against unsharded", res12, want),
+                ("hpf_mesh(2, 2) against hpf_mesh(2, 1)", res, res21)):
+            cont_held(f"{tag}] [{what}", say, dt, got, base)
+        for w, (hres, hwant) in hsplit:
+            say(f"[{tag}] the harmonic split alone: hpf_sweep_sharded2d on "
+                f"hpf_mesh(1, 2) against the unsharded lanes sweep, {w} "
+                f"scenarios: {apart(hres, hwant)}")
+        for w in (Bw // 2, Bw, B_CONT_25):
+            halves = [lanes.hpf_sweep_lanes(netd, devd, sd,
+                                            first(sc, w // 2, lo))
+                      for lo in (0, w // 2)]
+            whole = lanes.hpf_sweep_lanes(netd, devd, sd, first(sc, w))
+            cat = ht.HPFResult(*(torch.cat(xs)
+                                 for xs in zip(*(h[:6] for h in halves))))
+            say(f"[{tag}] batch width alone: the lanes sweep of {w} "
+                f"scenarios against its two halves: {apart(whole, cat)}")
+    say(f"[25c] {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump({"launches": total, "by_shape": [
+            [k, list(sh), c] for (k, sh), c in by_shape.items()]}, fh)
+    dist.destroy_process_group()
+
+
+def phase25():
+    """The harmonic axis on the card: RANKS_25 processes of this script,
+    gloo over CUDA tensors on the one card, a file store; the kernels were
+    built by phase 1, and the ranks load them.  Any rank's failure fails
+    the phase.  Returns the ranks' summed launches (their shapes join
+    PATH_SHAPES)."""
+    import tempfile
+    from hpfx_torch.entry import RANK_TIMEOUT_S
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{os.path.join(tmp, 'store')}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank25", str(r),
+             str(RANKS_25), store, tmp], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(RANKS_25)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"[25] rank {r} exited {p.returncode}:"
+                  f"\n{out[-6000:]}")
+        log(logs[0].rstrip())
+        launches = {k: 0 for k in ht.LAUNCHES}
+        for r in range(RANKS_25):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                got = json.load(fh)
+            for k, v in got["launches"].items():
+                launches[k] += v
+            for k, sh, c in got["by_shape"]:
+                PATH_SHAPES[(k, tuple(sh))] += c
+    log(f"[25] {RANKS_25} ranks: launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def new_shapes(before, gen, rows, phases="18-25", tag="21"):
+    """Each direct kernel at the shapes ``phases`` launched, and the panel
+    kernel at every shape any phase launched (the host rescues' bucket
+    widths too), that no check in ``rows`` covers, against its plain twin
+    and timed (the rescue's and phase 2's bucket widths vary from run to
+    run); each shape's dict carries its launches on the paths.  Returns
     {kernel: [shape dicts]}."""
-    checked = {(k, tuple(sh)) for k, (_, _, shapes) in KERNELS.items()
-               for sh in shapes}
-    checked |= {(k, (n, R, Bt)) for k, n, R, Bt in BATCH_MAJOR}
+    checked = {(k, tuple(sh["shape"])) for k, row in rows.items()
+               for sh in row["shapes"]}
     out = collections.defaultdict(list)
-    for key in sorted(set(PATH_SHAPES) - before - checked):
+    for key in sorted(set(PATH_SHAPES) - checked):
         name, shape = key
         if name == "gj_panel_kernel":
             out[name].append(panel_case(*shape, gen, tag=tag)[1])
-        elif name in ("gj_kernel", "gj_kernel_carried"):
+        elif name in ("gj_kernel", "gj_kernel_carried") \
+                and key not in before:
             out[name].append(solve_case(name, *shape, gen, tag=tag)[1])
+        else:
+            continue
+        out[name][-1]["launches"] = PATH_SHAPES[key]
     torch.cuda.empty_cache()
-    log(f"[{tag}] kernels at the shapes phases {phases} first launched: "
+    log(f"[{tag}] kernels at the shapes phases {phases} first launched, "
+        "and the panel kernel at every shape no check covered: "
         + ", ".join(f"{k} {[sh['shape'] for sh in v]}"
                     for k, v in out.items()))
     return out
@@ -3697,8 +4083,8 @@ def main():
     before_18 = set(PATH_SHAPES)
     paths += [phase18(), phase19(), phase20(), phase22()]
     rows["rectifier_kernel"], launches23 = phase23()
-    paths += [launches23, phase24()]
-    for name, shapes in new_shapes(before_18, gen).items():
+    paths += [launches23, phase24(), phase25()]
+    for name, shapes in new_shapes(before_18, gen, rows).items():
         add_shapes(rows[name], shapes)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
@@ -3726,4 +4112,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank25"]:
+        phase25_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+    else:
+        main()

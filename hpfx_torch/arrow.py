@@ -28,6 +28,7 @@ from .cx import Cx
 from .fundamental import _power_jacobian_blocks
 from .harmonic import norton_coupling
 from .ops.batched_solve import nr_solve, solve_blocks
+from .parallel.mesh import ALONE
 
 
 class ArrowIndex(NamedTuple):
@@ -116,26 +117,30 @@ def _consts(H: int, n: int, m: int, c: int, dtype, device) -> _ArrowConsts:
 
 class ArrowPieces(NamedTuple):
     D0: torch.Tensor       # (..., d0, d0) fundamental block
-    Dh: torch.Tensor       # (..., H-1, 2n, 2n) harmonic blocks
+    Dh: torch.Tensor       # (..., H-1, 2n, 2n) harmonic blocks (a rank's)
     C: torch.Tensor        # (..., r, r) coupling matrix (zero off the devices)
 
 
 def build_arrow_pieces(V_m, V_a, Y: Cx, devices,
-                       idx: ArrowIndex) -> ArrowPieces:
+                       idx: ArrowIndex, mesh=ALONE) -> ArrowPieces:
     """Assemble the block-diagonal and coupling parts of the Jacobian
     (``hpfx.arrow.build_arrow_pieces``); the Norton coupling is the dense
     Jacobian's (:func:`hpfx_torch.harmonic.norton_coupling`, the JAX
-    package's ``_coupling_cx``)."""
+    package's ``_coupling_cx``).  ``mesh``: a mesh whose harmonic group
+    splits the blocks: this rank's ``Dh`` holds its harmonics >= 1 only,
+    and ``D0`` is built by the rank of harmonic 0 (None elsewhere)."""
     H, n, m, c = idx.H, idx.n, idx.m, idx.c
     n_nl = n - m
+    h0, h1 = mesh.hbounds(H)
+    s0 = max(h0, 1)
     V_c = cx.polar(V_m, V_a)
     Vn = cx.expj(V_a)
-    row = lambda z: Cx(z.re[..., :, None, :], z.im[..., :, None, :])
+    row = lambda z: Cx(z.re[..., h0:h1, None, :], z.im[..., h0:h1, None, :])
     K_V, K_A = norton_coupling(V_m, V_a, devices, m)
 
     # fold the h == p coupling into the diagonal blocks
     nl = torch.arange(m, n, device=V_m.device)
-    hh = torch.arange(H, device=V_m.device)
+    hh = torch.arange(h0, h1, device=V_m.device)
 
     def fold(blocks: Cx, K: Cx) -> Cx:
         def one(b, k):
@@ -144,20 +149,24 @@ def build_arrow_pieces(V_m, V_a, Y: Cx, devices,
             return b
         return Cx(one(blocks.re, K.re), one(blocks.im, K.im))
 
-    M_V = fold(Y * row(Vn), K_V)                        # (..., H, n, n)
-    M_A = fold((Y * row(V_c)).jmul(), K_A)
-    dS1dA1, dS1dV1 = _power_jacobian_blocks(V_c[..., 0, :], Vn[..., 0, :],
-                                            Y[..., 0, :, :], n)
+    Yl = Y[..., h0:h1, :, :]
+    M_V = fold(Yl * row(Vn), K_V)                       # (..., Hl, n, n)
+    M_A = fold((Yl * row(V_c)).jmul(), K_A)
     hcat = lambda a, b: torch.cat([a, b], dim=-1)
-    D0 = torch.cat([
-        hcat(dS1dA1.re[..., 1:m, 1:], dS1dV1.re[..., 1:m, c:]),
-        hcat(M_A.re[..., 0, m:, 1:], M_V.re[..., 0, m:, c:]),
-        hcat(dS1dA1.im[..., c:m, 1:], dS1dV1.im[..., c:m, c:]),
-        hcat(M_A.im[..., 0, m:, 1:], M_V.im[..., 0, m:, c:]),
-    ], dim=-2)
-    Dh = torch.cat([hcat(M_A.re[..., 1:, :, :], M_V.re[..., 1:, :, :]),
-                    hcat(M_A.im[..., 1:, :, :], M_V.im[..., 1:, :, :])],
-                   dim=-2)                              # (..., H-1, 2n, 2n)
+    D0 = None
+    if h0 == 0:
+        dS1dA1, dS1dV1 = _power_jacobian_blocks(
+            V_c[..., 0, :], Vn[..., 0, :], Y[..., 0, :, :], n)
+        D0 = torch.cat([
+            hcat(dS1dA1.re[..., 1:m, 1:], dS1dV1.re[..., 1:m, c:]),
+            hcat(M_A.re[..., 0, m:, 1:], M_V.re[..., 0, m:, c:]),
+            hcat(dS1dA1.im[..., c:m, 1:], dS1dV1.im[..., c:m, c:]),
+            hcat(M_A.im[..., 0, m:, 1:], M_V.im[..., 0, m:, c:]),
+        ], dim=-2)
+    k = s0 - h0
+    Dh = torch.cat([hcat(M_A.re[..., k:, :, :], M_V.re[..., k:, :, :]),
+                    hcat(M_A.im[..., k:, :, :], M_V.im[..., k:, :, :])],
+                   dim=-2)                              # (..., h1-s0, 2n, 2n)
 
     # the coupling matrix C (r x r): u = h·(2·n_nl) + t·n_nl + d, rows
     # (Re, Im), columns (angle, magnitude); only h != p, d == d' entries
@@ -173,45 +182,63 @@ def build_arrow_pieces(V_m, V_a, Y: Cx, devices,
     return ArrowPieces(D0=D0, Dh=Dh, C=C.reshape(C.shape[:-6] + (r, r)))
 
 
-def arrow_solve(pieces: ArrowPieces, f, idx: ArrowIndex):
+def arrow_solve(pieces: ArrowPieces, f, idx: ArrowIndex, mesh=ALONE):
     """Solve J dx = f with the block and Woodbury structure
     (``hpfx.arrow.arrow_solve``): the fundamental block identity-padded to
     2n, every block's f and U columns in one multi-RHS
     :func:`solve_blocks`, and the capacitance system I + C·G by
-    :func:`nr_solve`."""
+    :func:`nr_solve`.  ``mesh``: a mesh whose harmonic group split the
+    blocks (:func:`build_arrow_pieces`): each rank solves its blocks, G
+    and V^T·z are all-gathered, the capacitance system is solved whole on
+    every rank, and each back-substitutes its harmonics, x all-gathered."""
     H, n, d0 = idx.H, idx.n, idx.d0
     n_nl = n - idx.m
     K, k2, r, r_blk = H - 1, 2 * n, 2 * H * n_nl, 2 * n_nl
     dt, dv = f.dtype, f.device
     k = _consts(H, n, idx.m, idx.c, dt, dv)
     batch = f.shape[:-1]
+    h0, h1 = mesh.hbounds(H)
+    s0 = max(h0, 1)
 
     fp = f[..., k.inv_f_perm]                          # grouped order
-    f0 = fp[..., :d0]
-    fh = fp[..., d0:].reshape(batch + (K, k2))
-    D0p = torch.eye(k2, dtype=dt, device=dv).expand(batch + (k2, k2)).clone()
-    D0p[..., :d0, :d0] = pieces.D0
-    rhs0p = torch.zeros(batch + (k2, 1 + r_blk), dtype=dt, device=dv)
-    rhs0p[..., :d0, 0] = f0
-    rhs0p[..., :d0, 1:] = k.E0
-    rhsh = torch.cat([fh[..., None],
-                      k.Eh.expand(batch + (K, k2, r_blk))], dim=-1)
-    sol = solve_blocks(torch.cat([D0p[..., None, :, :], pieces.Dh], dim=-3),
-                       torch.cat([rhs0p[..., None, :, :], rhsh], dim=-3))
+    fh = fp[..., d0:].reshape(batch + (K, k2))[..., s0 - 1:h1 - 1, :]
+    D_all = pieces.Dh
+    rhs_all = torch.cat([fh[..., None],
+                         k.Eh.expand(batch + (h1 - s0, k2, r_blk))], dim=-1)
+    if h0 == 0:
+        D0p = torch.eye(k2, dtype=dt, device=dv).expand(
+            batch + (k2, k2)).clone()
+        D0p[..., :d0, :d0] = pieces.D0
+        rhs0p = torch.zeros(batch + (k2, 1 + r_blk), dtype=dt, device=dv)
+        rhs0p[..., :d0, 0] = fp[..., :d0]
+        rhs0p[..., :d0, 1:] = k.E0
+        D_all = torch.cat([D0p[..., None, :, :], D_all], dim=-3)
+        rhs_all = torch.cat([rhs0p[..., None, :, :], rhs_all], dim=-3)
+    sol = solve_blocks(D_all, rhs_all) if h1 > h0 else rhs_all
 
-    z0, X0 = sol[..., 0, :d0, 0], sol[..., 0, :d0, 1:]
-    zh, Xh = sol[..., 1:, :, 0], sol[..., 1:, :, 1:]
+    zh, Xh = sol[..., s0 - h0:, :, 0], sol[..., s0 - h0:, :, 1:]
     # V^T picks the coupling coordinates of a grouped vector
-    Vz = torch.cat([z0[..., k.cpl0][..., None, :], zh[..., k.cplh]],
-                   dim=-2).reshape(batch + (r,))
-    G = torch.cat([X0[..., k.cpl0, :][..., None, :, :],
-                   Xh[..., k.cplh, :]], dim=-3)        # (..., H, rb, rb)
+    Vz = zh[..., k.cplh]                               # (..., h1-s0, rb)
+    G = Xh[..., k.cplh, :]                             # (..., h1-s0, rb, rb)
+    if h0 == 0:
+        z0, X0 = sol[..., 0, :d0, 0], sol[..., 0, :d0, 1:]
+        Vz = torch.cat([z0[..., k.cpl0][..., None, :], Vz], dim=-2)
+        G = torch.cat([X0[..., k.cpl0, :][..., None, :, :], G], dim=-3)
+    if mesh.hgroup is not None:
+        zG = mesh.hgather(torch.cat([Vz[..., None], G], dim=-1), H, -3)
+        Vz, G = zG[..., 0], zG[..., 1:]
+    Vz = Vz.reshape(batch + (r,))
     CG = torch.einsum("...rpb,...pbs->...rps",
                       pieces.C.reshape(batch + (r, H, r_blk)), G)
     S = torch.eye(r, dtype=dt, device=dv) + CG.reshape(batch + (r, r))
     y = nr_solve(S, torch.einsum("...ij,...j->...i", pieces.C, Vz))
 
     yb = y.reshape(batch + (H, r_blk))
-    x0 = z0 - torch.einsum("...ds,...s->...d", X0, yb[..., 0, :])
-    xh = zh - torch.einsum("...kds,...ks->...kd", Xh, yb[..., 1:, :])
-    return torch.cat([x0, xh.flatten(-2)], dim=-1)[..., k.x_perm]
+    x = zh - torch.einsum("...kds,...ks->...kd", Xh, yb[..., s0:h1, :])
+    if h0 == 0:
+        x0 = z0 - torch.einsum("...ds,...s->...d", X0, yb[..., 0, :])
+        x0 = torch.cat([x0, x0.new_zeros(batch + (k2 - d0,))], dim=-1)
+        x = torch.cat([x0[..., None, :], x], dim=-2)
+    x = mesh.hgather(x, H, -2)                         # (..., H, 2n)
+    return torch.cat([x[..., 0, :d0], x[..., 1:, :].flatten(-2)],
+                     dim=-1)[..., k.x_perm]

@@ -185,6 +185,14 @@ def _add(x: torch.Tensor, idx, val, plan=None) -> torch.Tensor:
 
 # -- constructors -----------------------------------------------------------
 
+def cx(re, im=None) -> Cx:
+    """A Cx from a real part (a tensor or anything ``torch.as_tensor``
+    takes) and an optional imaginary part, zero by default."""
+    re = torch.as_tensor(re)
+    return Cx(re, torch.zeros_like(re) if im is None
+              else torch.as_tensor(im, dtype=re.dtype, device=re.device))
+
+
 def from_numpy(arr, dtype, device=None) -> Cx:
     """Host-side complex (or real) numpy array -> Cx on ``device``."""
     arr = np.asarray(arr)
@@ -224,6 +232,11 @@ def cosh(w: Cx) -> Cx:
 def zeros(shape, dtype, device=None) -> Cx:
     return Cx(torch.zeros(shape, dtype=dtype, device=device),
               torch.zeros(shape, dtype=dtype, device=device))
+
+
+def eye(n, dtype, device=None) -> Cx:
+    return Cx(torch.eye(n, dtype=dtype, device=device),
+              torch.zeros((n, n), dtype=dtype, device=device))
 
 
 # -- contractions (each = 4 real contractions) -------------------------------

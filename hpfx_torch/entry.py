@@ -25,9 +25,10 @@ from hpfx_torch._device import resolve_device
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _DATA = os.path.join(_REPO, "hpfx", "data")
 #: seconds a dry-run rank may take, and a collective may wait: a hung
-#: collective fails within GROUP_TIMEOUT_S; the niced ranks of a 2-rank
-#: run took 85 s beside a loaded test suite (5.5 s alone), on 8 cores
-RANK_TIMEOUT_S = 300
+#: collective fails within GROUP_TIMEOUT_S; beside a loaded test suite on
+#: 8 cores a niced rank runs at about a tenth of a core, and the 2-rank
+#: test (its ranks and its JAX references) took 230 s (32 s alone)
+RANK_TIMEOUT_S = 600
 GROUP_TIMEOUT_S = 120
 #: the device library of the dry run's device-mix batch
 LIBRARY = ("SMPS", "ev_1")
@@ -68,10 +69,11 @@ def entry(device=None):
 def dryrun_multichip(n_devices: int, out=None) -> None:
     """Run the sharded sweeps over ``n_devices`` gloo ranks on the CPU
     (processes of this module), each check of ``__graft_entry__``'s 1-D
-    mesh; raises if a rank fails and prints rank 0's report.  ``out``: a
-    directory where each rank saves its scenarios and its copy of every
-    sharded result as ``rank{r}.npz``.  The 2-D scenario x harmonic block
-    waits for the harmonic axis."""
+    mesh and, when ``n_devices`` is even, its 2-D scenario x harmonic
+    block (:func:`hpfx_torch.parallel.hpf_sweep_sharded2d` on
+    ``hpf_mesh(n_devices // 2, 2)``); raises if a rank fails and prints
+    rank 0's report.  ``out``: a directory where each rank saves its
+    scenarios and its copy of every sharded result as ``rank{r}.npz``."""
     with tempfile.TemporaryDirectory() as tmp:
         store = f"file://{os.path.join(tmp, 'store')}"
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -148,13 +150,14 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
     scen = ht.Scenarios(T("p"), T("q"), T("inj"))
     saved = {}
 
-    def held(tag, name, got, want, *, all_conv=True):
+    def held(tag, name, got, want, *, all_conv=True, batch=B):
         """Save ``got`` under keys prefixed ``tag``; on rank 0 hold it to
         ``want()`` (the unsharded call, made only there): equal flags and
         counts, voltages within SAME_TOL.  Returns the voltage gap."""
         saved.update({f"{tag}V": got.V_m, f"{tag}conv": got.converged,
                       f"{tag}it": got.n_iter})
-        _check(got.V_m.shape[0] == B, f"{name}: batch {got.V_m.shape[0]}")
+        _check(got.V_m.shape[0] == batch,
+               f"{name}: batch {got.V_m.shape[0]}")
         _check(not all_conv or bool(got.converged.all()),
                f"sharded {name} failed to converge")
         if not ref:
@@ -221,6 +224,22 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
         say(f"dryrun_multichip: {name} sweep (B={B}, phase 2, rescue "
             f"width {kw['rescue_width']}: {n_conv} converged) sharded == "
             f"unsharded to {dva:.1e}")
+
+    if world % 2 == 0:
+        # 2-D scenario x harmonic mesh (DP x TP): each scenario piece's
+        # Newton trip split over a harmonic group of two ranks; a batch
+        # that does not divide the mesh
+        B2 = world + 3
+        inp.update(p2=np.linspace(0.97, 1.03, B2),
+                   q2=np.linspace(0.98, 1.02, B2),
+                   inj2=np.linspace(0.9, 1.1, B2))
+        scen2 = ht.Scenarios(T("p2"), T("q2"), T("inj2"))
+        mesh2 = par.hpf_mesh(world // 2, 2, devices="cpu")
+        r2 = par.hpf_sweep_sharded2d(net, dev, sa, scen2, mesh2)
+        dv2 = held("2", "2-D sharded sweep", r2,
+                   lambda: ht.hpf_sweep(net, dev, sa, scen2), batch=B2)
+        say(f"dryrun_multichip: 2-D ({world // 2}, 2) scenario x harmonic "
+            f"mesh, B={B2}, converged; == unsharded to {dv2:.1e}")
 
     if world > 2:
         # the first two ranks take the scenarios; the others still get all

@@ -29,6 +29,7 @@ from .devices import AnalyticDeviceSet, DeviceSet, check_devices
 from .fundamental import FundResult, _power_jacobian_blocks, solve_fundamental
 from .network import Network
 from .ops.batched_solve import nr_solve
+from .parallel.mesh import ALONE
 from .ybus import build_ybus, line_ybus_pair, resolve_ybus, stable_matvec
 
 
@@ -157,10 +158,13 @@ class _JacobianMap(NamedTuple):
     """Where the harmonic Jacobian's pieces land in the dense (dim, dim)
     matrix, flattened: ``copies`` holds (piece, part, source indices,
     matrix indices) for the pieces written once, ``adds`` (piece, part,
-    matrix indices) for the Norton coupling, added over them."""
+    matrix indices) for the Norton coupling, added over them.
+    ``row_harmonic`` (dim,) is the harmonic each row belongs to (the
+    power rows to 0)."""
     dim: int
     copies: tuple
     adds: tuple
+    row_harmonic: np.ndarray
 
 
 @functools.lru_cache(maxsize=16)
@@ -199,11 +203,44 @@ def _jacobian_map(H: int, n: int, m: int, c: int,
             sel = np.nonzero((i >= lo) & (i < m) & (j >= first[w]))[0]
             copies.append(("S" + w, part, t(sel),
                            t(row(i[sel]) * dim + col[w](j[sel]))))
-    return _JacobianMap(dim=dim, copies=tuple(copies), adds=tuple(adds))
+    rows_h = np.zeros(dim, np.int64)
+    k = np.arange(m, D)
+    rows_h[row_re(k)] = rows_h[row_im(k)] = k // n
+    return _JacobianMap(dim=dim, copies=tuple(copies), adds=tuple(adds),
+                        row_harmonic=rows_h)
+
+
+@functools.lru_cache(maxsize=64)
+def _jacobian_rows_map(H: int, n: int, m: int, c: int, device: torch.device,
+                       h0: int, h1: int):
+    """The writes of :func:`_jacobian_map` into the rows of harmonics
+    [h0, h1), and where those rows sit: ``rows`` (h1 - h0, 2n) indexes
+    the dense matrix with one zero row appended (index dim), harmonic 0's
+    d0 rows padded with it to 2n; ``order`` (dim,) takes each dense row
+    from the (H·2n) rows of every harmonic, so laid out."""
+    mp = _jacobian_map(H, n, m, c, device)
+    dim, rh = mp.dim, mp.row_harmonic
+    def mine(dst):
+        h = rh[dst.cpu().numpy() // dim]
+        return torch.as_tensor(np.nonzero((h >= h0) & (h < h1))[0],
+                               device=device)
+
+    copies = tuple((w, p, src[sel], dst[sel]) for w, p, src, dst in mp.copies
+                   for sel in (mine(dst),))
+    adds = tuple((w, p, sel, dst[sel]) for w, p, dst in mp.adds
+                 for sel in (mine(dst),))
+    rows = np.full((H, 2 * n), dim, np.int64)
+    for h in range(H):
+        own = np.nonzero(rh == h)[0]
+        rows[h, :own.size] = own
+    order = np.empty(dim, np.int64)
+    order[rows[rows < dim]] = np.nonzero((rows < dim).ravel())[0]
+    t = lambda a: torch.as_tensor(a, device=device)
+    return copies, adds, t(rows[h0:h1]), t(order)
 
 
 def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
-                            m: int, n: int, c: int):
+                            m: int, n: int, c: int, mesh=ALONE):
     """Dense real harmonic Jacobian (..., dim, dim), dim = 2·H·n − 1 − c
     (``hpfx.harmonic.build_harmonic_jacobian``, the same values):
 
@@ -216,10 +253,20 @@ def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
     cropped to the current-balance rows (flat k >= m) and the state
     columns (angles 1:, magnitudes c:).  Written entry by entry into a
     zero matrix (``index_copy_``/``index_add_`` on its flattened rows),
-    where the JAX package broadcasts against masks."""
+    where the JAX package broadcasts against masks.
+
+    ``mesh``: a mesh whose harmonic group splits the rows: each rank
+    writes the rows of its harmonics only, and the rows are all-gathered
+    (2n a harmonic, harmonic 0's d0 padded), so that every rank returns
+    the whole matrix."""
     H = V_m.shape[-2]
     batch = V_m.shape[:-2]
     mp = _jacobian_map(H, n, m, c, V_m.device)
+    copies, adds = mp.copies, mp.adds
+    if mesh.hgroup is not None:
+        h0, h1 = mesh.hbounds(H)
+        copies, adds, rows, order = _jacobian_rows_map(H, n, m, c,
+                                                       V_m.device, h0, h1)
     V_c = cx.polar(V_m, V_a)
     Vn = cx.expj(V_a)
     row = lambda z: Cx(z.re[..., :, None, :], z.im[..., :, None, :])
@@ -232,11 +279,19 @@ def build_harmonic_jacobian(V_m, V_a, Y: Cx, devices,
                                                       else -2)
     J = torch.zeros(batch + (mp.dim * mp.dim,), dtype=V_m.dtype,
                     device=V_m.device)
-    for w, p, src, dst in mp.copies:
+    for w, p, src, dst in copies:
         J.index_copy_(-1, dst, part(w, p)[..., src])
-    for w, p, dst in mp.adds:
-        J.index_add_(-1, dst, part(w, p))
-    return J.reshape(batch + (mp.dim, mp.dim))
+    if mesh.hgroup is None:
+        for w, p, dst in adds:
+            J.index_add_(-1, dst, part(w, p))
+        return J.reshape(batch + (mp.dim, mp.dim))
+    for w, p, sel, dst in adds:
+        J.index_add_(-1, dst, part(w, p)[..., sel])
+    J = J.reshape(batch + (mp.dim, mp.dim))
+    J = torch.cat([J, J.new_zeros(batch + (1, mp.dim))], dim=-2)
+    mine = J[..., rows.flatten(), :].unflatten(-2, tuple(rows.shape))
+    every = mesh.hgather(mine, H, -3)                   # (..., H, 2n, dim)
+    return every.flatten(-3, -2)[..., order, :]
 
 
 def mismatch_floor(V_m, Y: Cx, devices, m: int, settings: Settings,
@@ -285,7 +340,7 @@ def cleanup_voltages(V_m, V_a):
 def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
                    devices, settings: Settings, V0=None,
                    record_trajectory: bool = False, lineY=None,
-                   I_bg=None) -> HPFResult:
+                   I_bg=None, mesh=ALONE) -> HPFResult:
     """The harmonic Newton loop (``hpfx.harmonic.solve_harmonic``).
 
     ``V0``: optional (V_m, V_a) start in place of the flat start; the
@@ -305,7 +360,14 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
     stops changing once its own test fails (``torch.where`` on its active
     flag, never a gather of the active scenarios, which would change the
     batch the solves see and so their rounding); the loop ends when none
-    is active, with one host synchronisation per iteration."""
+    is active, with one host synchronisation per iteration.
+
+    ``mesh``: a mesh whose harmonic group splits each Newton step
+    (:func:`hpfx_torch.parallel.hpf_single_hsharded`; JAX's
+    ``vsharding``): the arrow blocks and their solves, or the dense
+    Jacobian's rows, by harmonic, all-gathered; the mismatch, the
+    capacitance system and the dense solve whole on every rank, so that
+    every rank holds the same state and takes the same loop decisions."""
     check_devices(devices)
     H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
     rd, dv = settings.real_dtype, net.device
@@ -335,10 +397,11 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
 
     def newton_step(V_m, V_a, f):
         if settings.solver == "arrow":
-            pieces = build_arrow_pieces(V_m, V_a, Y, devices, arrow_idx)
-            return arrow_solve(pieces, f, arrow_idx)
-        return nr_solve(build_harmonic_jacobian(V_m, V_a, Y, devices, m, n, c),
-                        f)
+            pieces = build_arrow_pieces(V_m, V_a, Y, devices, arrow_idx,
+                                        mesh=mesh)
+            return arrow_solve(pieces, f, arrow_idx, mesh=mesh)
+        return nr_solve(build_harmonic_jacobian(V_m, V_a, Y, devices, m, n, c,
+                                                mesh=mesh), f)
 
     it = torch.zeros(batch, dtype=torch.int32, device=dv)
     t = 0

@@ -35,6 +35,7 @@ from .fundamental import FundResult
 from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
 from .ops.batched_solve import SchurNotPorted, batched_solve_lanes
+from .parallel.mesh import ALONE
 from .warmstart import _floor_seed_mag
 from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
 
@@ -191,41 +192,59 @@ def stable_matvec_lanes(lineY: LineYbus, V_m, V_a) -> Cx:
 
 
 def _injections_lanes(V_c: Cx, dev, inj_db, m: int, V_m=None,
-                      V_a=None) -> Cx:
+                      V_a=None, hs=_all) -> Cx:
     """Current injections on (H, n, B) voltages -> (n_nl, H, B), scaled
     per device by ``inj_db`` (n_nl, B): Norton I_N − Y_N·V (``dev`` a
     LaneDevices), or an AnalyticDeviceSet's function of the polar
-    ``V_m``/``V_a``, vectorized over the lanes."""
+    ``V_m``/``V_a``, vectorized over the lanes.  ``hs``: a slice of the
+    harmonics to return (each from the voltages of every harmonic)."""
     if isinstance(dev, AnalyticDeviceSet):
-        raw = _lanes_first(dev.injections, V_m[:, m:], V_a[:, m:])
+        raw = _lanes_first(dev.injections, V_m[:, m:], V_a[:, m:])[:, hs]
         return raw * inj_db[:, None, :]
     V_nl = V_c[:, m:]                                    # (H, n_nl, B)
-    lane = lambda z: Cx(_lane(z.re, dev.batched), _lane(z.im, dev.batched))
+    lane = lambda z: Cx(_lane(z.re, dev.batched)[:, hs],
+                        _lane(z.im, dev.batched)[:, hs])
     if dev.coupled:
         raw = lane(dev.I_N) - _device_matvec(lane(dev.Y_N), V_nl)
     else:
-        raw = lane(dev.I_N) - lane(dev.Y_N) * V_nl.transpose(1, 0, 2)
+        raw = lane(dev.I_N) - lane(dev.Y_N) * V_nl.transpose(1, 0, 2)[:, hs]
     return raw * inj_db[:, None, :]
 
 
 def mismatch_lanes(V_m, V_a, Y: Cx, S: Cx, devices, inj,
                    m: int, n: int, c: int, lineY: Optional[LineYbus],
-                   ibg: Optional[Cx] = None):
+                   ibg: Optional[Cx] = None, mesh=ALONE):
     """Harmonic mismatch on (H, n, B) voltages; S is the scaled (n, B)
     load, ``devices`` a DeviceSet, LaneDevices or AnalyticDeviceSet,
     ``inj`` a (B,) or (n_nl, B) injection scale, ``ibg`` optional (H, n,
     B) background injections (fundamental row zero) added to the harmonic
-    rows.  Returns (f (rows, B), err (B,))."""
+    rows.  ``mesh``: a mesh whose harmonic group splits the Y·V rows and
+    the Norton injections by harmonic and all-gathers them, so that every
+    rank of the group assembles the same ``f``.  Returns (f (rows, B), err
+    (B,))."""
     dev = _as_lane_devices(devices)
     inj_db = _as_inj_db(inj, n - m, V_m.shape[-1])
+    H = V_m.shape[0]
+    h0, h1 = mesh.hbounds(H)
+    hs = slice(h0, h1)
     V_c = cx.polar(V_m, V_a)
     if lineY is None:
-        YV = cx.einsum("hij,hjb->hib", Y, V_c)
+        YV = cx.einsum("hij,hjb->hib", Y[hs], V_c[hs])
     else:
-        YV = stable_matvec_lanes(lineY, V_m, V_a)
+        YV = stable_matvec_lanes(lineY._replace(Ys=lineY.Ys[hs],
+                                                d=lineY.d[hs]),
+                                 V_m[hs], V_a[hs])
+    I_inj = _injections_lanes(V_c, dev, inj_db, m, V_m, V_a, hs)
+    if mesh.hgroup is not None:
+        k = n - m
+        rows = torch.cat([YV.re, YV.im, I_inj.re.transpose(0, 1),
+                          I_inj.im.transpose(0, 1)], dim=1)
+        rows = mesh.hgather(rows, H, 0)            # (H, 2n + 2n_nl, B)
+        YV = Cx(rows[:, :n], rows[:, n:2 * n])
+        I_inj = Cx(rows[:, 2 * n:2 * n + k].transpose(0, 1),
+                   rows[:, 2 * n + k:].transpose(0, 1))
     I1 = YV[0, 1:m]
     dS = S[1:m] + V_c[0, 1:m] * I1.conj()               # (m-1, B)
-    I_inj = _injections_lanes(V_c, dev, inj_db, m, V_m, V_a)  # (n_nl, H, B)
     dI_f = YV[0, m:] + I_inj[:, 0]
     dI_h = YV[1:].at_add((_all, slice(m, None)),
                          I_inj[:, 1:].transpose(1, 0, 2))  # (K, n, B)
@@ -315,11 +334,19 @@ def _coupling_lanes(V_m, V_a, dev, inj_db, m: int):
 
 
 def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
-                     consts: _ArrowConsts, big_solve: str = "auto"):
+                     consts: _ArrowConsts, big_solve: str = "auto",
+                     mesh=ALONE):
     """One arrow Newton-step solve J dx = f on (H, n, B) state and
     (dim, B) mismatch -> dx (dim, B): per-harmonic block solves plus the
     Woodbury capacitance solve (``hpfx.lanes.arrow_step_lanes``).
-    ``devices``/``inj`` as in :func:`mismatch_lanes`."""
+    ``devices``/``inj`` as in :func:`mismatch_lanes`.
+
+    ``mesh``: a mesh whose harmonic group splits the step.  Each rank
+    builds and solves the blocks of its harmonics (the rank of harmonic 0
+    the fundamental block), and V^T·z and G are all-gathered; each builds
+    and solves the capacitance system of its share of the lanes, and y is
+    all-gathered; each back-substitutes its harmonics, and x is
+    all-gathered.  Every rank returns the same dx."""
     idx = consts.idx
     H, n, m, c, d0 = idx.H, idx.n, idx.m, idx.c, idx.d0
     n_nl = n - m
@@ -330,96 +357,128 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
     B = V_m.shape[-1]
     dev = _as_lane_devices(devices)
     inj_db = _as_inj_db(inj, n_nl, B)
+    # this rank's harmonics [h0, h1) (its first block harmonic s0 >= 1)
+    # and lanes [l0, l1) of the capacitance system
+    h0, h1 = mesh.hbounds(H)
+    s0 = max(h0, 1)
+    l0, l1 = mesh.hbounds(B)
 
     V_c = cx.polar(V_m, V_a)
     Vn = cx.expj(V_a)
-    blocks_V = Y[..., None] * Vn[:, None, :, :]           # (H, n, n, B)
-    blocks_A = (Y[..., None] * V_c[:, None, :, :]).jmul()
+    Yl = Y[h0:h1]
+    blocks_V = Yl[..., None] * Vn[h0:h1, None, :, :]      # (Hl, n, n, B)
+    blocks_A = (Yl[..., None] * V_c[h0:h1, None, :, :]).jmul()
     K_V, K_A = _coupling_lanes(V_m, V_a, dev, inj_db, m)  # (H, H, n_nl, B)
 
     # fold the h == p coupling into the diagonal blocks
-    hh = torch.arange(H, device=dv)
+    hh = torch.arange(h0, h1, device=dv)
     eye_n = torch.eye(n, dtype=rd, device=dv)[None, :, :, None]
 
     def _diag_fold(blocks: Cx, diag: Cx) -> Cx:
-        pad = torch.zeros((H, m, B), dtype=rd, device=dv)
-        full_re = torch.cat([pad, diag.re], dim=1)        # (H, n, B)
+        pad = torch.zeros((h1 - h0, m, B), dtype=rd, device=dv)
+        full_re = torch.cat([pad, diag.re], dim=1)        # (Hl, n, B)
         full_im = torch.cat([pad, diag.im], dim=1)
         return Cx(blocks.re + eye_n * full_re[:, None, :, :],
                   blocks.im + eye_n * full_im[:, None, :, :])
 
     M_V = _diag_fold(blocks_V, K_V[hh, hh])
     M_A = _diag_fold(blocks_A, K_A[hh, hh])
-    dS1dA1, dS1dV1 = _power_jacobian_blocks_lanes(V_c[0], Vn[0], Y[0], n)
-
-    hcat = lambda a, b: torch.cat([a, b], dim=1)
-    D0 = torch.cat([
-        hcat(dS1dA1.re[1:m, 1:], dS1dV1.re[1:m, c:]),
-        hcat(M_A.re[0, m:, 1:], M_V.re[0, m:, c:]),
-        hcat(dS1dA1.im[c:m, 1:], dS1dV1.im[c:m, c:]),
-        hcat(M_A.im[0, m:, 1:], M_V.im[0, m:, c:]),
-    ], dim=0)                                             # (d0, d0, B)
-    Dh = torch.cat([
-        torch.cat([M_A.re[1:], M_V.re[1:]], dim=2),
-        torch.cat([M_A.im[1:], M_V.im[1:]], dim=2),
-    ], dim=1)                                             # (K, 2n, 2n, B)
-
-    # dense coupling matrix C (r, r, B): h != p, d == d' entries only
-    off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
-    zero = torch.zeros_like(K_V.re)
-    KVr = torch.where(off, K_V.re, zero)
-    KVi = torch.where(off, K_V.im, zero)
-    KAr = torch.where(off, K_A.re, zero)
-    KAi = torch.where(off, K_A.im, zero)
-    eye_d = torch.eye(n_nl, dtype=rd, device=dv)
-    # (H, H, n_nl, B, rc, c): rows use (Re, Im), cols use (angle, magnitude)
-    Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
-                         torch.stack([KAi, KVi], dim=-1)], dim=-2)
-    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(r, r, B)
-
-    # identity-pad the fundamental block to 2n: one uniform batched solve
     k2 = 2 * n
-    D0p = torch.eye(k2, dtype=rd, device=dv)[:, :, None].repeat(1, 1, B)
-    D0p[:d0, :d0] = D0
-    D_all = torch.cat([D0p[None], Dh], dim=0)             # (H, 2n, 2n, B)
+    Dh = torch.cat([
+        torch.cat([M_A.re[s0 - h0:], M_V.re[s0 - h0:]], dim=2),
+        torch.cat([M_A.im[s0 - h0:], M_V.im[s0 - h0:]], dim=2),
+    ], dim=1)                                             # (h1-s0, 2n, 2n, B)
 
     # grouped RHS + Woodbury U columns through one multi-RHS solve
     fp = f[consts.inv_f_perm]                             # (dim, B)
-    f0 = fp[:d0]
-    fh = fp[d0:].reshape(K, k2, B)
-    rhs0 = torch.cat([f0[:, None, :],
-                      consts.E0[:, :, None].expand(d0, r_blk, B)], dim=1)
-    rhs0p = torch.zeros((k2, 1 + r_blk, B), dtype=rd, device=dv)
-    rhs0p[:d0] = rhs0
+    fh = fp[d0:].reshape(K, k2, B)[s0 - 1:h1 - 1]
     rhsh = torch.cat([fh[:, :, None, :],
-                      consts.Eh[None, :, :, None].expand(K, k2, r_blk, B)],
-                     dim=2)                               # (K, 2n, R, B)
-    rhs_all = torch.cat([rhs0p[None], rhsh], dim=0)
+                      consts.Eh[None, :, :, None].expand(h1 - s0, k2, r_blk,
+                                                         B)],
+                     dim=2)                               # (h1-s0, 2n, R, B)
+    D_all, rhs_all = Dh, rhsh
+    if h0 == 0:
+        dS1dA1, dS1dV1 = _power_jacobian_blocks_lanes(V_c[0], Vn[0], Y[0], n)
+        hcat = lambda a, b: torch.cat([a, b], dim=1)
+        D0 = torch.cat([
+            hcat(dS1dA1.re[1:m, 1:], dS1dV1.re[1:m, c:]),
+            hcat(M_A.re[0, m:, 1:], M_V.re[0, m:, c:]),
+            hcat(dS1dA1.im[c:m, 1:], dS1dV1.im[c:m, c:]),
+            hcat(M_A.im[0, m:, 1:], M_V.im[0, m:, c:]),
+        ], dim=0)                                         # (d0, d0, B)
+        # identity-pad the fundamental block to 2n: one uniform batched
+        # solve
+        D0p = torch.eye(k2, dtype=rd, device=dv)[:, :, None].repeat(1, 1, B)
+        D0p[:d0, :d0] = D0
+        f0 = fp[:d0]
+        rhs0 = torch.cat([f0[:, None, :],
+                          consts.E0[:, :, None].expand(d0, r_blk, B)], dim=1)
+        rhs0p = torch.zeros((k2, 1 + r_blk, B), dtype=rd, device=dv)
+        rhs0p[:d0] = rhs0
+        D_all = torch.cat([D0p[None], Dh], dim=0)         # (Hl, 2n, 2n, B)
+        rhs_all = torch.cat([rhs0p[None], rhsh], dim=0)
 
-    # (H, 2n, 2n, B) -> (2n, 2n, H·B): the harmonic-block axis joins the
+    # (Hl, 2n, 2n, B) -> (2n, 2n, Hl·B): the harmonic-block axis joins the
     # lane batch, so all blocks go through one solve
     R = 1 + r_blk
-    D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, H * B)
-    rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, H * B)
-    sol = batched_solve_lanes(D_flat, rhs_flat)
-    sol_all = sol.reshape(k2, R, H, B).permute(2, 0, 1, 3)  # (H, 2n, R, B)
+    Hl = h1 - h0
+    sol_all = rhs_all
+    if Hl > 0:
+        D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, Hl * B)
+        rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, Hl * B)
+        sol = batched_solve_lanes(D_flat, rhs_flat)
+        sol_all = sol.reshape(k2, R, Hl, B).permute(2, 0, 1, 3)  # (Hl,2n,R,B)
 
-    z0, X0 = sol_all[0, :d0, 0], sol_all[0, :d0, 1:]      # (d0,B),(d0,rb,B)
-    zh, Xh = sol_all[1:, :, 0], sol_all[1:, :, 1:]
-    Vz = torch.cat([z0[consts.cpl0][None], zh[:, consts.cplh]],
-                   dim=0).reshape(r, B)
-    Gblocks = torch.cat([X0[consts.cpl0][None], Xh[:, consts.cplh, :]],
-                        dim=0)                            # (H, rb, rb, B)
+    zh, Xh = sol_all[s0 - h0:, :, 0], sol_all[s0 - h0:, :, 1:]
+    Vz = zh[:, consts.cplh]                               # (h1-s0, rb, B)
+    Gblocks = Xh[:, consts.cplh, :]                       # (h1-s0, rb, rb, B)
+    if h0 == 0:
+        z0, X0 = sol_all[0, :d0, 0], sol_all[0, :d0, 1:]  # (d0,B),(d0,rb,B)
+        Vz = torch.cat([z0[consts.cpl0][None], Vz], dim=0)
+        Gblocks = torch.cat([X0[consts.cpl0][None], Gblocks], dim=0)
+    if mesh.hgroup is not None:
+        zG = mesh.hgather(torch.cat([Vz, Gblocks.flatten(1, 2)], dim=1), H)
+        Vz = zG[:, :r_blk]
+        Gblocks = zG[:, r_blk:].reshape(H, r_blk, r_blk, B)
+    Vz = Vz.reshape(r, B)
 
-    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, B), Gblocks)
-    S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(r, r, B)
-    rhs_w = torch.einsum("rub,ub->rb", C, Vz)
-    y = batched_solve_lanes(S_w, rhs_w[:, None, :], impl=big_solve)[:, 0]
+    # dense coupling matrix C (r, r, b) of this rank's lanes: h != p,
+    # d == d' entries only
+    lanes = slice(l0, l1)
+    off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
+    KV, KA = K_V[..., lanes], K_A[..., lanes]
+    zero = torch.zeros_like(KV.re)
+    KVr = torch.where(off, KV.re, zero)
+    KVi = torch.where(off, KV.im, zero)
+    KAr = torch.where(off, KA.re, zero)
+    KAi = torch.where(off, KA.im, zero)
+    eye_d = torch.eye(n_nl, dtype=rd, device=dv)
+    # (H, H, n_nl, b, rc, c): rows use (Re, Im), cols use (angle, magnitude)
+    Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
+                         torch.stack([KAi, KVi], dim=-1)], dim=-2)
+    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(
+        r, r, l1 - l0)
 
+    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, l1 - l0),
+                      Gblocks[..., lanes])
+    S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(
+        r, r, l1 - l0)
+    rhs_w = torch.einsum("rub,ub->rb", C, Vz[:, lanes])
+    y = rhs_w
+    if l1 > l0:
+        y = batched_solve_lanes(S_w, rhs_w[:, None, :], impl=big_solve)[:, 0]
+    y = mesh.hgather(y, B, -1)
+
+    # back-substitution of this rank's harmonics, the fundamental block
+    # padded to 2n, gathered
     yb = y.reshape(H, r_blk, B)
-    x0 = z0 - torch.einsum("dsb,sb->db", X0, yb[0])
-    xh = zh - torch.einsum("kdsb,ksb->kdb", Xh, yb[1:])
-    xp = torch.cat([x0, xh.reshape(K * k2, B)], dim=0)
+    x = zh - torch.einsum("kdsb,ksb->kdb", Xh, yb[s0:h1])  # (h1-s0, 2n, B)
+    if h0 == 0:
+        x0 = z0 - torch.einsum("dsb,sb->db", X0, yb[0])
+        x = torch.cat([torch.cat([x0, x0.new_zeros((k2 - d0, B))])[None],
+                       x], dim=0)
+    x = mesh.hgather(x, H, 0)                             # (H, 2n, B)
+    xp = torch.cat([x[0, :d0], x[1:].reshape(K * k2, B)], dim=0)
     return xp[consts.x_perm]
 
 
@@ -523,19 +582,22 @@ def _scale_cols(base, scale):
 def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
                   settings: Settings, consts: _ArrowConsts, thresh_eff,
                   f0=None, ibg: Optional[Cx] = None,
-                  log: Optional[PhaseLog] = None):
+                  log: Optional[PhaseLog] = None, mesh=ALONE):
     """The lane-major harmonic NR loop from state (V_m, V_a) (H, n, B) to
     convergence or ``max_iter_h``.  ``f0``: optional precomputed (f, err)
     at the initial state; ``ibg``: optional (H, n, B) background
-    injections.  Returns raw (V_m, V_a, err, n_iter, err_hist); callers
-    apply ``cleanup_voltages``."""
+    injections.  ``mesh``: a mesh whose harmonic group splits each trip
+    (:func:`mismatch_lanes`, :func:`arrow_step_lanes`); every rank of the
+    group holds the same state, so each takes the same loop decisions.
+    Returns raw (V_m, V_a, err, n_iter, err_hist); callers apply
+    ``cleanup_voltages``."""
     idx = consts.idx
     H, n, m, c = idx.H, idx.n, idx.m, idx.c
     B = V_m.shape[-1]
     rd, dv = V_m.dtype, V_m.device
     if f0 is None:
         f, err = mismatch_lanes(V_m, V_a, Y, S, dev, inj_db, m, n, c, lineY,
-                                ibg=ibg)
+                                ibg=ibg, mesh=mesh)
     else:
         f, err = f0
     hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
@@ -554,7 +616,7 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
             impl = "schur" if t < settings.big_solve_warmup else "direct"
         try:
             dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
-                                  big_solve=impl)
+                                  big_solve=impl, mesh=mesh)
         except SchurNotPorted as e:
             if settings.big_solve != "warmup":
                 raise
@@ -570,7 +632,7 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
         Vm_new = torch.cat([V_m.reshape(D, B)[:c], x_new[D - 1:]],
                            dim=0).reshape(H, n, B)
         f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev, inj_db,
-                                        m, n, c, lineY, ibg=ibg)
+                                        m, n, c, lineY, ibg=ibg, mesh=mesh)
         V_m = torch.where(act, Vm_new, V_m)
         V_a = torch.where(act, Va_new, V_a)
         x = torch.where(act, x_new, x)
@@ -646,13 +708,31 @@ def _sweep_setup(net: Network, devices, settings: Settings, scenarios,
                        cold_V_a, consts, thresh, ibg)
 
 
+def _mesh_piece(mesh, scenarios, V0=None, I_bg=None):
+    """This rank's contiguous piece of the whole batch (and of ``V0`` and
+    ``I_bg``) on the scenario axis of ``mesh``."""
+    lo, hi = mesh.bounds(scenarios.p_scale.shape[0])
+    return (type(scenarios)(*(None if x is None else x[lo:hi]
+                              for x in scenarios)),
+            None if V0 is None else tuple(v[lo:hi] for v in V0),
+            None if I_bg is None else Cx(I_bg.re[lo:hi], I_bg.im[lo:hi]))
+
+
 def hpf_sweep_lanes(net: Network, devices, settings: Settings,
                     scenarios, V0=None, Y=None, I_bg=None,
-                    log: Optional[PhaseLog] = None) -> HPFResult:
+                    log: Optional[PhaseLog] = None, mesh=ALONE) -> HPFResult:
     """Batched HPF sweep with the scenario batch lane-minor throughout;
     returns the batch-major ``HPFResult``.  ``V0``: optional batch-major
     (B, H, n) (V_m, V_a) start, used as given; ``Y``, ``I_bg`` as in
-    :func:`_sweep_setup`."""
+    :func:`_sweep_setup`.
+
+    ``mesh``: a scenario, harmonic or 2-D mesh (:func:`hpfx_torch.
+    parallel.hpf_sweep_sharded2d`); every rank passes the whole batch (and
+    ``V0``, ``I_bg``), solves its contiguous piece on the scenario axis
+    with the Newton trip split over its harmonic group, and returns that
+    piece's result.  JAX's ``vsharding=NamedSharding(mesh, P(harmonic,
+    None, scenario))`` is ``mesh=hpf_mesh(...)`` here."""
+    scenarios, V0, I_bg = _mesh_piece(mesh, scenarios, V0, I_bg)
     su = _sweep_setup(net, devices, settings, scenarios, Y=Y, I_bg=I_bg,
                       log=log)
     if V0 is None:
@@ -663,19 +743,21 @@ def hpf_sweep_lanes(net: Network, devices, settings: Settings,
         V_a = torch.movedim(V0[1].to(rd), 0, -1)
     V_m, V_a, err, n_iter, hist = nr_trip_lanes(
         su.Y, su.lineY, su.S, su.dev, su.inj_db, V_m, V_a, settings,
-        su.consts, su.thresh, ibg=su.ibg, log=log)
+        su.consts, su.thresh, ibg=su.ibg, log=log, mesh=mesh)
     V_m, V_a = cleanup_voltages(V_m, V_a)
     return _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
 
 
-def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
+def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings,
+                       mesh=ALONE):
     """Exact-linear Norton seed in the lane layout: the harmonic
     current-balance rows are linear in rectangular coordinates, so one
     real-embedded (2·(H−1)·n)² solve per lane lands phase 1 on the exact
     harmonic solution at the just-solved fundamental
     (``hpfx.lanes._linear_seed_lanes``).  Needs Norton LaneDevices,
     batched (a device mix) or not; background injections move to the
-    right-hand side.  Returns the (H, n, B) start."""
+    right-hand side.  ``mesh``: a mesh whose harmonic group splits the
+    lanes' solves and all-gathers them.  Returns the (H, n, B) start."""
     H, n, m = settings.n_harmonics, net.n, net.m
     K, rd = H - 1, settings.real_dtype
     dev, inj = su.dev, su.inj_db                      # inj: (n_nl, B)
@@ -731,12 +813,15 @@ def _linear_seed_lanes(su: _SweepSetup, net: Network, settings: Settings):
                            dim=0)[:, None, :]
         return batched_solve_lanes(A_real, b_real)[:, 0, :]
 
-    # the (2N, 2N, lanes) system is chunked over lanes to a memory budget
-    # (a no-op at net2 B=16384: ~0.6 GB)
+    # the (2N, 2N, lanes) system of this rank's lanes is chunked over
+    # lanes to a memory budget (a no-op at net2 B=16384: ~0.6 GB)
+    l0, l1 = mesh.hbounds(B)
     bytes_per_lane = (2 * N) ** 2 * torch.finfo(rd).bits // 8
     chunk = int(max(1, min(B, SEED_CHUNK_BYTES // bytes_per_lane)))
-    x = torch.cat([solve_lanes(lo, min(lo + chunk, B))
-                   for lo in range(0, B, chunk)], dim=-1)   # (2N, B)
+    x = torch.cat([rhs.re.new_zeros((2 * N, 0))]
+                  + [solve_lanes(lo, min(lo + chunk, l1))
+                     for lo in range(l0, l1, chunk)], dim=-1)
+    x = mesh.hgather(x, B, -1)                             # (2N, B)
 
     Vh = Cx(x[:N].reshape(K, n, B), x[N:].reshape(K, n, B))
     V_m = torch.cat([su.fund.V_m[None], _floor_seed_mag(Vh.abs(), settings)])
@@ -749,7 +834,7 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                              rescue_width=None, warm: str = "cold",
                              V0=None, I_bg=None,
                              log: Optional[PhaseLog] = None,
-                             mesh=None) -> HPFResult:
+                             mesh=ALONE) -> HPFResult:
     """Two-phase adaptive sweep with a gathered straggler rescue
     (``hpfx.lanes.hpf_sweep_adaptive_lanes``):
 
@@ -774,21 +859,18 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     optional batch-major (B, H, n) background injections.  ``log``:
     optional :class:`PhaseLog`.
 
-    ``mesh``: a scenario mesh (:func:`hpfx_torch.parallel.
-    hpf_sweep_adaptive_sharded`); every rank passes the whole batch (and
-    ``V0``, ``I_bg``), solves its contiguous piece and returns that
-    piece's result.  The straggler choice stays global: the phase-1
-    convergence masks of every rank are gathered, every rank picks the
-    same ``K`` lanes of the whole batch, and each rescues the ones it
-    holds."""
+    ``mesh``: a scenario, harmonic or 2-D mesh (:func:`hpfx_torch.
+    parallel.hpf_sweep_adaptive_sharded`); every rank passes the whole
+    batch (and ``V0``, ``I_bg``), solves its contiguous piece with each
+    Newton trip and the seed split over its harmonic group, and returns
+    that piece's result.  The straggler choice stays global: the phase-1
+    convergence masks of every scenario rank are gathered, every rank
+    picks the same ``K`` lanes of the whole batch, and each rescues the
+    ones it holds."""
     dv = net.device
     Bg = scenarios.p_scale.shape[0]
-    lo, hi = (0, Bg) if mesh is None else mesh.bounds(Bg)
-    if mesh is not None:
-        scenarios = type(scenarios)(*(None if x is None else x[lo:hi]
-                                      for x in scenarios))
-        V0 = None if V0 is None else tuple(v[lo:hi] for v in V0)
-        I_bg = None if I_bg is None else Cx(I_bg.re[lo:hi], I_bg.im[lo:hi])
+    lo, hi = mesh.bounds(Bg)
+    scenarios, V0, I_bg = _mesh_piece(mesh, scenarios, V0, I_bg)
     with _phase(log, "setup", dv):
         su = _sweep_setup(net, devices, settings, scenarios, I_bg=I_bg,
                           log=log)
@@ -804,7 +886,7 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
         Vm1[0], Va1[0] = su.fund.V_m, su.fund.V_a
     elif warm == "linear" and isinstance(su.dev, LaneDevices):
         with _phase(log, "seed", dv):
-            Vm1, Va1 = _linear_seed_lanes(su, net, settings)
+            Vm1, Va1 = _linear_seed_lanes(su, net, settings, mesh=mesh)
     else:
         Vm1, Va1 = su.cold_V_m, su.cold_V_a
 
@@ -812,13 +894,13 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
         V_m, V_a, err, n_iter, hist1 = nr_trip_lanes(
             su.Y, su.lineY, su.S, su.dev, su.inj_db, Vm1, Va1,
             settings.with_(max_iter_h=p1), su.consts, su.thresh,
-            ibg=su.ibg, log=log)
+            ibg=su.ibg, log=log, mesh=mesh)
     conv = err <= su.thresh
     hist = torch.full((settings.max_iter_h, B), float("nan"), dtype=rd,
                       device=dv)
     hist[:p1] = hist1
 
-    conv_g = conv if mesh is None else mesh.all_gather(conv, Bg, dim=-1)
+    conv_g = mesh.all_gather(conv, Bg, dim=-1)
     if isinstance(rescue_width, (tuple, list)):
         widths = sorted({min(Bg, max(1, int(w))) for w in rescue_width})
         n_bad = int((~conv_g).sum())
@@ -828,8 +910,7 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                 else max(128, Bg // 16))
     # unconverged lanes first (stable: deterministic padding choice)
     bad = torch.argsort(conv_g.to(rd), stable=True)[:K]
-    if mesh is not None:
-        bad = bad[(bad >= lo) & (bad < hi)] - lo
+    bad = bad[(bad >= lo) & (bad < hi)] - lo
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
     gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
@@ -850,7 +931,7 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                                thresh_k)
         Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
             su.Y, su.lineY, S_k, dev_k, inj_k, Vm0, Va0, s_pass,
-            su.consts, thresh_r, ibg=ibg_k, log=log)
+            su.consts, thresh_r, ibg=ibg_k, log=log, mesh=mesh)
         redo = ~convk
         Vmk = torch.where(redo[None, None, :], Vm2, Vmk)
         Vak = torch.where(redo[None, None, :], Va2, Vak)
@@ -912,7 +993,7 @@ def _lanes_result(V_m, V_a, err, n_iter, hist, thresh_eff,
 
 def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, bad, gather,
                          cold_state, Y, lineY, m: int, settings: Settings,
-                         consts, log):
+                         consts, log, mesh=ALONE):
     """The device continuation's rescue of the lanes ``bad``: two passes,
     warm from their own final state (cold where it is not finite), which
     breaks floor-hover stalls, and cold, for what a bad continuation seed
@@ -931,7 +1012,7 @@ def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, bad, gather,
                                thresh_k)
         Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
             Y, lineY, S_k, dev_k, inj_k, Vm0, Va0, settings, consts,
-            thresh_r, log=log)
+            thresh_r, log=log, mesh=mesh)
         redo = ~convk
         return (torch.where(redo[None, None, :], Vm2, Vmk),
                 torch.where(redo[None, None, :], Va2, Vak),
@@ -963,9 +1044,9 @@ def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, bad, gather,
 
 def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
                                  scenarios, n_stages: int = 8,
-                                 rescue: bool = True, vsharding=None,
+                                 rescue: bool = True,
                                  log: Optional[PhaseLog] = None,
-                                 mesh=None) -> HPFResult:
+                                 mesh=ALONE) -> HPFResult:
     """The warm-start continuation with its whole schedule on the device
     (``hpfx.lanes.hpf_sweep_continuation_lanes``): the key sort, the
     chunks, each stage seeded from the nearest CONVERGED scenario of the
@@ -981,23 +1062,19 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     state, as the plain sweep's.  With ``rescue``, the up to one chunk
     width of unconverged scenarios are gathered (stably) and re-solved,
     first warm from their own final state (cold where it is not finite),
-    then cold.  ``vsharding`` (the JAX package's harmonic-axis sharding)
-    is the ROADMAP's harmonic-axis entry and raises
-    ``NotImplementedError``.  ``log``: optional :class:`PhaseLog` with the
-    phases "stages" and "rescue".
+    then cold.  ``log``: optional :class:`PhaseLog` with the phases
+    "stages" and "rescue".
 
-    ``mesh``: a scenario mesh (:func:`hpfx_torch.parallel.
-    hpf_sweep_continuation_sharded`); every rank passes the whole batch.
-    The key sort and the chunks stay global: each rank solves its
-    contiguous piece of every chunk, and the chunk's states are gathered
-    after each stage, since the next chunk's seeds are chosen from all of
-    them.  The rescue's lanes are chosen from the whole batch and each
-    rank rescues those in its piece of it."""
-    if vsharding is not None:
-        raise NotImplementedError(
-            "vsharding shards the harmonic axis over a mesh of cards, "
-            "which is not ported (the ROADMAP's harmonic-axis entry); "
-            "hpfx_torch.parallel shards the scenario axis")
+    ``mesh``: a scenario, harmonic or 2-D mesh (:func:`hpfx_torch.
+    parallel.hpf_sweep_continuation_sharded`; JAX's ``vsharding=
+    NamedSharding(mesh, P(harmonic, None, scenario))`` is ``mesh=
+    hpf_mesh(...)`` here); every rank passes the whole batch.  The key
+    sort and the chunks stay global: each scenario rank solves its
+    contiguous piece of every chunk, its Newton trips split over its
+    harmonic group, and the chunk's states are gathered after each stage,
+    since the next chunk's seeds are chosen from all of them.  The
+    rescue's lanes are chosen from the whole batch and each scenario rank
+    rescues those in its piece of it."""
     H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
     rd, dv = settings.real_dtype, net.device
     B = scenarios.p_scale.shape[0]
@@ -1056,7 +1133,7 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     pK = torch.zeros((Bc,), dtype=rd, device=dv)
     pConv = torch.zeros((Bc,), dtype=rd, device=dv)
     outs = []
-    lo, hi = (0, Bc) if mesh is None else mesh.bounds(Bc)
+    lo, hi = mesh.bounds(Bc)
     with _phase(log, "stages", dv):
         for st in range(n_stages):
             sel = order_p[st * Bc:(st + 1) * Bc]
@@ -1078,12 +1155,11 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
             thresh = _thresh_lanes(coldVm, Y, dev_c, inj_c, m, settings)
             Vm, Va, err, n_it, hist = nr_trip_lanes(
                 Y, lineY, S_c, dev_c, inj_c, Vm0, Va0, settings, consts,
-                thresh, log=log)
+                thresh, log=log, mesh=mesh)
             conv = err <= thresh
-            if mesh is not None:
-                Vm, Va, err, n_it, hist, conv = (
-                    mesh.all_gather(x, Bc, dim=-1)
-                    for x in (Vm, Va, err, n_it, hist, conv))
+            Vm, Va, err, n_it, hist, conv = (
+                mesh.all_gather(x, Bc, dim=-1)
+                for x in (Vm, Va, err, n_it, hist, conv))
             pVm, pVa, pK, pConv = Vm, Va, kc, conv.to(rd)
             outs.append((Vm, Va, err, n_it, hist, conv))
 
@@ -1101,15 +1177,13 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
             # up to one chunk width of unconverged lanes (a stable sort:
             # the padding's choice is deterministic)
             bad = torch.argsort(conv.to(rd), stable=True)[:min(Bc, B)]
-            lo, hi = (0, B) if mesh is None else mesh.bounds(B)
-            if mesh is not None:
-                bad = bad[(bad >= lo) & (bad < hi)]
+            lo, hi = mesh.bounds(B)
+            bad = bad[(bad >= lo) & (bad < hi)]
             out = _continuation_rescue(V_m, V_a, err, n_iter, hist, conv,
                                        bad, gather, cold_state, Y, lineY, m,
-                                       settings, consts, log)
-            if mesh is not None:
-                out = tuple(mesh.all_gather(x[..., lo:hi], B, dim=-1)
-                            for x in out)
+                                       settings, consts, log, mesh=mesh)
+            out = tuple(mesh.all_gather(x[..., lo:hi], B, dim=-1)
+                        for x in out)
             V_m, V_a, err, n_iter, hist, conv = out
 
     V_m, V_a = cleanup_voltages(V_m, V_a)

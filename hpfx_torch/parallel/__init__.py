@@ -1,9 +1,11 @@
-from .mesh import (SCENARIO_AXIS, ScenarioMesh, hosting_capacity_sharded,
-                   hpf_sweep_adaptive_sharded,
-                   hpf_sweep_continuation_sharded, hpf_sweep_sharded,
-                   scenario_mesh, shard_scenarios)
+from .mesh import (HARMONIC_AXIS, SCENARIO_AXIS, Mesh, harmonic_mesh,
+                   hosting_capacity_sharded, hpf_mesh, hpf_single_hsharded,
+                   hpf_sweep_adaptive_sharded, hpf_sweep_continuation_sharded,
+                   hpf_sweep_sharded, hpf_sweep_sharded2d, scenario_mesh,
+                   shard_scenarios)
 
-__all__ = ["SCENARIO_AXIS", "ScenarioMesh", "scenario_mesh",
-           "shard_scenarios", "hpf_sweep_sharded",
+__all__ = ["SCENARIO_AXIS", "HARMONIC_AXIS", "Mesh", "scenario_mesh",
+           "harmonic_mesh", "hpf_mesh", "shard_scenarios",
+           "hpf_sweep_sharded", "hpf_sweep_sharded2d",
            "hpf_sweep_continuation_sharded", "hpf_sweep_adaptive_sharded",
-           "hosting_capacity_sharded"]
+           "hpf_single_hsharded", "hosting_capacity_sharded"]

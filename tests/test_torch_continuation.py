@@ -222,14 +222,6 @@ def test_device_continuation_f32():
     close(phasor(rt), phasor(rj), F32_TOL)
 
 
-def test_device_continuation_vsharding_raises():
-    P = pair("net2", 5, **ARROW)
-    _, st = scenarios(*spread(4)[:3])
-    with pytest.raises(NotImplementedError, match="harmonic-axis entry"):
-        tl.hpf_sweep_continuation_lanes(P.net, P.dev, P.ts, st,
-                                        vsharding=object())
-
-
 # ---------------------------------------------------------------------------
 # Kron reduction
 # ---------------------------------------------------------------------------

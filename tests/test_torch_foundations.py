@@ -262,3 +262,23 @@ def test_at_add_repeats_accumulate_in_index_order():
         for i, k in enumerate(idx.tolist()):
             want[k] += getattr(val, part)[i]
         assert torch.equal(getattr(got, part), want)
+
+
+def test_cx_and_eye_match():
+    """``cx.cx`` (a real part, an optional imaginary part, zero by
+    default) and ``cx.eye`` against the JAX package's."""
+    from hpfx import cx as jcx
+    from hpfx_torch import cx as tcx
+    re = np.linspace(-1.0, 2.0, 6).reshape(2, 3)
+    im = np.arange(6.0).reshape(2, 3)
+    for args in ((re,), (re, im)):
+        got = tcx.cx(*(torch.tensor(a) for a in args))
+        want = jcx.cx(*(jnp.asarray(a) for a in args))
+        for part in ("re", "im"):
+            np.testing.assert_array_equal(getattr(got, part).numpy(),
+                                          np.asarray(getattr(want, part)))
+    got, want = tcx.eye(4, torch.float32), jcx.eye(4, jnp.float32)
+    assert got.dtype == torch.float32 and got.shape == (4, 4)
+    for part in ("re", "im"):
+        np.testing.assert_array_equal(getattr(got, part).numpy(),
+                                      np.asarray(getattr(want, part)))

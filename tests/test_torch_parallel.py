@@ -11,7 +11,9 @@ scenarios: the sweeps and the hosting-capacity aggregate on the caller's
 batch (lanes are independent), the continuation and the adaptive sweep on
 the batch padded as the mesh pads it (their chunks and straggler widths
 are global, and count the padding)."""
+import contextlib
 import dataclasses
+import io
 import os
 from functools import partial
 
@@ -84,7 +86,13 @@ def _jax_reference(d, world):
                         warm="linear", rescue_width=(2, Bp)))(
         net, dev, scenarios=scp)
     n = lambda x: np.asarray(x)[:Bd]
-    return dict(
+    two = {}
+    if world % 2 == 0:      # the 2-D block: the lanes sweep, unpadded
+        r2 = hpfx.solve.hpf_sweep(net, dev, settings=sa, scenarios=J(
+            d["p2"], d["q2"], d["inj2"]))
+        two = {"2V": np.asarray(r2.V_m), "2conv": np.asarray(r2.converged),
+               "2it": np.asarray(r2.n_iter)}
+    return dict(**two,
         V=n(r.V_m), conv=n(r.converged), it=n(r.n_iter), hthd=n(h.max_thd_f),
         hconv=n(h.converged), frac=np.asarray(h.frac_over_limit),
         mV=n(m.V_m), mconv=n(m.converged), mit=n(m.n_iter), cV=n(c.V_m),
@@ -94,10 +102,11 @@ def _jax_reference(d, world):
 
 
 def _compare(out, ref):
+    two = "2V" in ref
     for k in ("conv", "hconv", "mconv", "cconv", "aconv", "wconv", "it",
-              "mit", "cit", "ait", "wit"):
+              "mit", "cit", "ait", "wit") + (("2conv", "2it") if two else ()):
         np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
-    for k in ("V", "hthd", "mV", "cV", "aV", "wV"):
+    for k in ("V", "hthd", "mV", "cV", "aV", "wV") + (("2V",) if two else ()):
         np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=TOL,
                                    err_msg=k)
     assert float(out["frac"]) == float(ref["frac"])
@@ -160,16 +169,37 @@ def test_pad_scenarios_repeats_the_last_of_every_field():
     assert torch.equal(shard.p_scale, padded.p_scale[:5])
 
 
+@pytest.fixture(scope="module")
+def dryruns(tmp_path_factory):
+    """``dryrun_multichip(world, out=...)`` once a world, shared by the
+    tests of this module: rank 0's printed report and every rank's
+    saves."""
+    runs = {}
+
+    def run(world):
+        if world not in runs:
+            out = tmp_path_factory.mktemp(f"dryrun{world}")
+            report = io.StringIO()
+            with contextlib.redirect_stdout(report):
+                dryrun_multichip(world, out=out)
+            runs[world] = report.getvalue(), [
+                dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+        return runs[world]
+
+    return run
+
+
 @pytest.mark.parametrize("world", [2, 3])
-def test_gloo_ranks_match_the_reference(world, tmp_path):
+def test_gloo_ranks_match_the_reference(world, dryruns):
     """2 and 3 gloo ranks of ``dryrun_multichip`` (each also held to the
     unsharded port): every rank holds the whole result; rank 0's is the
     JAX package's on the same scenarios.  The adaptive sweep's phase 1
     (2 trips) converges no lane, so stragglers lie on every rank; the
     global gather rescues the K = 2 lanes of the whole batch, where a
-    per-rank gather would rescue 2 on each rank."""
-    dryrun_multichip(world, out=tmp_path)
-    outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    per-rank gather would rescue 2 on each rank.  With 2 ranks the dry
+    run's 2-D block (hpf_sweep_sharded2d on hpf_mesh(1, 2), B = 5) is
+    held to the JAX package's lanes sweep too."""
+    _, outs = dryruns(world)
     for o in outs[1:]:
         assert o.keys() == outs[0].keys()
         for k in o:
@@ -181,3 +211,16 @@ def test_gloo_ranks_match_the_reference(world, tmp_path):
     _compare(out, _jax_reference(out, world))
     if world == 3:
         np.testing.assert_array_equal(out["subV"], out["V"])
+    else:
+        assert "2V" in out and out["2conv"].all()
+
+
+def test_dryrun_multichip_two_ranks(dryruns):
+    """The 2-rank dry run (the run of test_gloo_ranks_match_the_reference
+    [2]) reports every check of ``__graft_entry__``'s 1-D mesh and its
+    2-D block."""
+    out, _ = dryruns(2)
+    for what in ("converged batch of 5", "device-mix", "continuation",
+                 "adaptive sweep", "warm-seeded adaptive", "2-D (1, 2)",
+                 "sweep_sensitivity", "ieee519_screen"):
+        assert what in out, out

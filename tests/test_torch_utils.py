@@ -1,6 +1,6 @@
 """hpfx_torch.utils and hpfx_torch.entry on the CPU: the phase timer, the
 NaN check, the precision guard, the profiler trace, ``entry()`` against
-the JAX package's, and the two-rank dry run."""
+the JAX package's (the two-rank dry run is in test_torch_parallel)."""
 import json
 import os
 
@@ -11,7 +11,7 @@ import torch
 
 import hpfx
 import hpfx_torch as ht
-from hpfx_torch.entry import dryrun_multichip, entry
+from hpfx_torch.entry import entry
 from hpfx_torch.utils import (PhaseTimer, debug_nans, highest_precision,
                               profile_trace)
 from test_torch_foundations import one_torch_thread  # noqa: F401
@@ -108,12 +108,3 @@ def test_entry_matches_the_reference_sweep():
                                   np.asarray(ref.converged))
     np.testing.assert_allclose(res.V_m.numpy(), np.asarray(ref.V_m),
                                rtol=0, atol=1e-6)
-
-
-def test_dryrun_multichip_two_ranks(capsys):
-    dryrun_multichip(2)
-    out = capsys.readouterr().out
-    for what in ("converged batch of 5", "device-mix", "continuation",
-                 "adaptive sweep", "warm-seeded adaptive",
-                 "sweep_sensitivity", "ieee519_screen"):
-        assert what in out, out
