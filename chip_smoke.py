@@ -173,8 +173,8 @@ kernels, and checks them:
      tests/test_extended.py's controlled device and (d) hpf_sequence at
      net2 H<=25, both in float64 on the card against the CPU: identical
      iterations, voltages (and u) within 1e-10;
- 21. (after phase 25) gj_kernel and gj_kernel_carried at every shape
-     that phases 18-25 launched, and gj_panel_kernel at every shape any
+ 21. (after phase 26) gj_kernel and gj_kernel_carried at every shape
+     that phases 18-26 launched, and gj_panel_kernel at every shape any
      phase launched (the net1-class host rescues' bucket widths of phases
      5-7 and 16b too), that no earlier check covers, against the plain
      twin and timed as in phase 2 (their rows' "shapes", each with its
@@ -264,6 +264,30 @@ kernels, and checks them:
      the sharded call equals its first bit for bit printed), and the
      bytes each trip's all-gathers assemble.  Any rank's failure fails the phase.
 
+ 26. the panel-Schur solve (schur_solve_lanes, big_solve="schur" and
+     "warmup"): (a) one wide leaf (dim 32, 333 right-hand sides: one
+     launch of gj_kernel in two chunks of columns) against its column
+     slices solved alone, bit for bit or not printed; then at net1's
+     capacitance dims and batches (182 x 2048, 364 x 256, 700 x 64),
+     capacitance-style systems I + C, one right-hand side: the solve as
+     batched_solve_lanes(impl="schur") runs it (one gj_kernel launch a
+     leaf, checked) against the same solve with the plain twin as its
+     leaf (1e-4 of the scale), each against float64 LU beside the panel
+     solve's error, held to tests/test_ops.py:177's gate (at most 2.5x the
+     panel solve's error or 5e-6, and below 1e-4); timed beside the panel
+     solve and torch.linalg.solve; (b) net1 H<=25 B=2048 through phase 5's
+     call with big_solve "schur", "warmup" and "panel" (a warm-up each,
+     whose launches count, then 3 rounds in turns: s, conv and the phase
+     times printed, conv not held), float32 against float64 on 64
+     scenarios where float32 converged, within phase 6's bounds; (c) net1
+     H<=51 B=256 (phase 7's stage) with big_solve="schur" through
+     hpf_sweep_adaptive and with "warmup" through hpf_sweep_device, one
+     rep each, each of which must launch a leaf of at least 210
+     right-hand sides (past one block); then gj_kernel against its plain
+     twin, without and with the
+     equilibration inside, timed beside torch.linalg.solve and the bound,
+     at every shape (a, b) and (c) launched that no check covered.
+
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
 phase 17's (BATCH_MAJOR), timing the kernel, the batch-major ->
@@ -295,6 +319,7 @@ JSON object per kernel: its first shape's numbers, every shape's under
 import collections
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -4030,6 +4055,280 @@ def phase25():
     return launches
 
 
+#: phase 26: the panel-Schur solve.  26a's capacitance-style systems
+#: I + C (tests/test_ops.py:154-177) at net1's capacitance dims and the
+#: batches of their paths (H<=25 B=2048, H<=51 B=256, H<=99 B=64)
+SCHUR_SOLVES = [(182, 2048), (364, 256), (700, 64)]
+#: 26a: the gate of tests/test_ops.py:177 on the Schur solve's error from
+#: float64 LU (relative to the solution's scale): at most this many times
+#: the fully pivoted panel solve's, or the floor, and below the cap
+SCHUR_GATE_FACTOR = 2.5
+SCHUR_GATE_FLOOR = 5e-6
+SCHUR_GATE_CAP = 1e-4
+#: 26a: the column slices of a wide leaf solved alone against the one
+#: launch of all its columns (b in a lane's slots for the first slice,
+#: in shared memory for the others)
+SCHUR_SLICES = (0, 50, 200)
+#: 26b: the big_solve values run in turns on net1 H<=25 B=2048, and the
+#: reps of each
+SCHUR_RUNS = ("schur", "warmup", "panel")
+SCHUR_REPS = 3
+#: 26c: one leaf at least this wide must launch (one block of gj_kernel
+#: takes at most 209 right-hand sides at dim 32)
+SCHUR_WIDE_R = 210
+
+
+def capacitance_systems(n, Bt, gen):
+    """I + C with C ~ N(0, 0.8^2/n) (tests/test_ops.py:163-165), one
+    right-hand side."""
+    A = torch.randn((n, n, Bt), generator=gen, device=DEV) * (0.8 / n ** 0.5)
+    A += torch.eye(n, device=DEV)[:, :, None]
+    b = torch.randn((n, 1, Bt), generator=gen, device=DEV)
+    return A.contiguous(), b
+
+
+def leaf_launches():
+    """gj_kernel's launches by shape since the last reset."""
+    return {sh: c for (k, sh), c in ht.LAUNCHES_BY_SHAPE.items()
+            if k == "gj_kernel"}
+
+
+def chunks_check(gen):
+    """One wide leaf (dim 32, 333 right-hand sides: two chunks in one
+    launch) against its column slices solved alone, one of them with b
+    in the slots; prints whether they agree bit for bit."""
+    n, R, Bt = 32, 333, 256
+    A, b = systems(n, R, Bt, gen, pivot_case=True)
+    x = ht.gauss_solve_lanes(A, b)
+    cuts = SCHUR_SLICES + (R,)
+    parts = [ht.gauss_solve_lanes(A, b[:, lo:hi].contiguous())
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    xs = torch.cat(parts, dim=1)
+    plans = [bs.chunked_plan(n, hi - lo)
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    err = (x - xs).abs().max().item()
+    same = torch.equal(x, xs)
+    log(f"[26a] gj_kernel at ({n}, {R}, {Bt}), one launch of "
+        f"{-(-R // bs.chunked_plan(n, R)[1])} chunks, against its slices "
+        f"{list(zip(cuts[:-1], cuts[1:]))} alone (b in shared memory: "
+        f"{[p.b_in_smem for p, _ in plans]}): max|dx| {err:.3e}, bit for "
+        f"bit {same}")
+    check(err <= KERNEL_TOL * x.abs().max().item(),
+          "the chunks of a wide leaf disagree with its slices")
+
+
+def phase26a(gen):
+    """The Schur solve on the card at SCHUR_SOLVES: the kernel leaf
+    against the twin leaf, each against float64 LU beside the panel
+    solve, the gate; times beside the panel solve and torch.linalg.solve.
+    Returns (one dict per dim, the leaf shapes it launched)."""
+    chunks_check(gen)
+    out, leaves = [], collections.Counter()
+    twin = bs.equilibrated_lanes(functools.partial(
+        bs.schur_solve_lanes, leaf=ht.gj_solve_lanes_ref))
+    for n, Bt in SCHUR_SOLVES:
+        A, b = capacitance_systems(n, Bt, gen)
+        reset_launches()
+        x = ht.batched_solve_lanes(A, b, impl="schur")
+        torch.cuda.synchronize()
+        shapes = leaf_launches()
+        n_leaves = len(range(0, n - bs.SCHUR_PANEL - 8, bs.SCHUR_PANEL)) + 1
+        check(sum(shapes.values()) == n_leaves == len(shapes)
+              and sum(ht.LAUNCHES.values()) == n_leaves,
+              f"[26a] the Schur solve at {n} launched {dict(ht.LAUNCHES)}"
+              f", {shapes}: one gj_kernel launch a leaf expected")
+        leaves.update(shapes)
+        x_t = twin(A, b)
+        x_p = ht.batched_solve_lanes(A, b, impl="panel")
+        x64 = torch.linalg.solve(A.double().permute(2, 0, 1),
+                                 b.double().permute(2, 0, 1)).permute(1, 2, 0)
+        scale = x64.abs().max().item()
+        err = (x - x_t).abs().max().item()
+        e_s, e_t, e_p = ((y.double() - x64).abs().max().item() / scale
+                         for y in (x, x_t, x_p))
+        check(np.isfinite(err) and err <= KERNEL_TOL * scale,
+              f"[26a] Schur at {n}: kernel leaf {err} from the twin leaf")
+        check(e_s < SCHUR_GATE_CAP
+              and e_s <= max(SCHUR_GATE_FACTOR * e_p, SCHUR_GATE_FLOOR),
+              f"[26a] Schur at {n}: {e_s} from float64 LU against the "
+              f"panel solve's {e_p}")
+        s_ms = time_ms(lambda: ht.batched_solve_lanes(A, b, impl="schur"),
+                       10)
+        raw_ms = time_ms(lambda: bs.schur_solve_lanes(A, b), 10)
+        p_ms = time_ms(lambda: ht.batched_solve_lanes(A, b, impl="panel"),
+                       10)
+        praw_ms = time_ms(lambda: ht.panel_gj_solve_lanes(A, b), 10)
+        t_ms = time_ms(lambda: twin(A, b), 2)
+        lib_ms = library_solve_ms(A, b)
+        b_ms, b_by = bound(*solve_work(n, 1, Bt))
+        log(f"[26a] schur_solve_lanes n={n} B={Bt} ({n_leaves} leaves "
+            f"{sorted(shapes)}): kernel leaf against twin leaf {err:.3e} "
+            f"(bit for bit {torch.equal(x, x_t)}); from float64 LU / scale "
+            f"{e_s:.3e} (twin leaf {e_t:.3e}, panel solve {e_p:.3e}); "
+            f"equilibrated Schur {s_ms:.4f} ms (unequilibrated {raw_ms:.4f}"
+            f"), equilibrated panel {p_ms:.4f} ms (unequilibrated "
+            f"{praw_ms:.4f}), twin leaf {t_ms:.4f} ms, torch.linalg.solve "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        out.append(dict(shape=[n, 1, Bt], ms=raw_ms, equilibrated_ms=s_ms,
+                        panel_ms=praw_ms, panel_equilibrated_ms=p_ms,
+                        plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by, err_f64=e_s, panel_err_f64=e_p))
+        del A, b, x, x_t, x_p, x64
+        torch.cuda.empty_cache()
+    return out, leaves
+
+
+def phase26b():
+    """net1 H<=25 B=2048 through phase 5's call with big_solve "schur",
+    "warmup" and "panel": a warm-up each (its launches counted), then
+    SCHUR_REPS rounds in turns; conv printed, not held; float32 against
+    float64 on 64 scenarios where float32 converged, phase 6's bounds."""
+    s, net, dev = fixture_net("net1", H_MAX)
+    f64 = torch.float64
+    runs = {v: adaptive(s.with_(big_solve=v), net, dev, PHASE_ITERS)
+            for v in SCHUR_RUNS}
+    total = {k: 0 for k in ht.LAUNCHES}
+    for v, run in runs.items():
+        need = ("gj_kernel", "gj_panel_kernel") if v == "panel" \
+            else ("gj_kernel",)
+        launches = warm_up(run, B_NET1, None, need, f"26b {v}")
+        if v != "panel":
+            wide = sorted(sh for sh in leaf_launches() if sh[0] == 32)
+            check(wide, f"[26b] {v}: no leaf of dim 32 launched")
+        for k in total:
+            total[k] += launches[k]
+    phases = ("phase1", "phase2", "host_rescue")
+    first, times = {}, collections.defaultdict(list)
+    for k in range(SCHUR_REPS):
+        sc = scen(k, B_NET1)
+        for v, run in runs.items():
+            lg = ht.PhaseLog()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(sc, lg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            conv = check_result(res, B_NET1, s, net, f"26b {v} rep {k}",
+                                0.0)
+            times[v].append(dt)
+            first.setdefault(v, res)
+            log(f"[26b] {v} rep {k}: {dt:.4f} s, conv {conv:.6f} "
+                f"({int((~res.converged).sum())} not converged), n_iter "
+                f"mean {res.n_iter.float().mean().item():.3f} max "
+                f"{int(res.n_iter.max())}; " + ", ".join(
+                    f"{p} {lg.seconds.get(p, 0.0) * 1e3:.3f} ms "
+                    f"{lg.trips.get(p, 0)} trips" for p in phases))
+    for v in SCHUR_RUNS:
+        log(f"[26b] {v}: median {np.median(times[v]):.4f} s")
+    ref = {}
+
+    def run64(sub):
+        if "r" not in ref:
+            ref["r"] = adaptive(s.with_(dtype="float64"), net.to(dtype=f64),
+                                dev.to(dtype=f64), PHASE_ITERS)(sub)
+        return ref["r"]
+    for v in SCHUR_RUNS:
+        compare_f64(first[v], run64, B_NET1, 3e-4, 5e-4, f"26b {v}",
+                    converged_only=True)
+    return total
+
+
+def phase26c():
+    """net1 H<=51 B=256 (phase 7's stage, capacitance dim 364) with
+    big_solve="schur" through hpf_sweep_adaptive, one rep: its launches,
+    and a leaf of at least SCHUR_WIDE_R right-hand sides among them; then
+    one rep of hpf_sweep_device with big_solve="warmup" at the same
+    stage."""
+    name, net_spec, h_max, Bt, spread, _ = DEEP_STAGES[0]
+    s, net, dev = fixture_net(net_spec, h_max)
+    runs = (("hpf_sweep_adaptive", "schur",
+             adaptive(s.with_(big_solve="schur"), net, dev, 30)),
+            ("hpf_sweep_device", "warmup",
+             lambda sc: ht.hpf_sweep_device(
+                 net, dev, s.with_(big_solve="warmup"), sc, phase_iters=30)))
+    total = {k: 0 for k in ht.LAUNCHES}
+    for entry, v, run in runs:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run(scen(0, Bt, spread))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        conv = check_result(res, Bt, s, net, f"26c {entry}", 0.0)
+        log(f"[26c] {name} {entry} big_solve={v}: {dt:.4f} s, conv "
+            f"{conv:.6f}, launches {launches}")
+        log_shapes("26c")
+        wide = sorted(sh for sh in leaf_launches() if sh[1] >= SCHUR_WIDE_R)
+        check(wide, f"[26c] {entry}: no leaf with >= {SCHUR_WIDE_R} "
+              "right-hand sides")
+        log(f"[26c] leaves past one block's {SCHUR_WIDE_R - 1} right-hand "
+            f"sides: {wide}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def leaf_case(n, R, Bt, gen):
+    """gj_kernel at one shape phase 26 launched (a Schur leaf, or a
+    bucket of the net1 paths) against the plain twin, without and with
+    the equilibration inside; kernel, twin, torch.linalg.solve and the
+    bound."""
+    A, b = systems(n, R, Bt, gen, pivot_case=True)
+    x = ht.gauss_solve_lanes(A, b)
+    x_ref = ht.gj_solve_lanes_ref(A, b)
+    scale = x_ref.abs().max().item()
+    err = (x - x_ref).abs().max().item()
+    check(np.isfinite(err) and err <= KERNEL_TOL * scale,
+          f"gj_kernel at {(n, R, Bt)}: max err {err} > {KERNEL_TOL} * {scale}")
+    Ae, be = scaled_systems(n, R, Bt, gen)
+    xe = bs.equilibrated_gauss_solve_lanes(Ae, be)
+    xe_ref = bs.equilibrated_lanes(ht.gj_solve_lanes_ref)(Ae, be)
+    err_e = ((xe - xe_ref).abs().max() / xe_ref.abs().max()).item()
+    check(np.isfinite(err_e) and err_e <= KERNEL_TOL,
+          f"gj_kernel at {(n, R, Bt)}, equilibrated: {err_e}")
+    k_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 10)
+    p_ms = time_ms(lambda: ht.gj_solve_lanes_ref(A, b), 2)
+    lib_ms = library_solve_ms(A, b)
+    b_ms, b_by = bound(*solve_work(n, R, Bt))
+    plan, chunk = bs.chunked_plan(n, R)
+    log(f"[26] gj_kernel n={n} R={R} B={Bt} ({-(-R // chunk)} chunks of "
+        f"{chunk}, b in shared memory {plan.b_in_smem}): max|dx| {err:.3e} "
+        f"(scale {scale:.3e}; equilibrated inside {err_e:.3e}) kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.linalg.solve "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+
+
+def phase26(gen, rows):
+    """The panel-Schur solve: 26a the solve on the card, 26b net1 H<=25
+    with each big_solve, 26c net1 H<=51's leaves past one block; then
+    gj_kernel at every shape 26a-26c launched that no check covers
+    (leaf_case), each with its launches on the paths.  Returns (the
+    paths' launches, the K1 shapes' dicts, 26a's dicts)."""
+    t0 = time.perf_counter()
+    before = set(PATH_SHAPES)
+    schur_rows, leaves = phase26a(gen)
+    launches = phase26b()
+    for k, v in phase26c().items():
+        launches[k] += v
+    checked = {tuple(sh["shape"]) for sh in rows["gj_kernel"]["shapes"]}
+    new = sorted(set(leaves) | {sh for (k, sh) in set(PATH_SHAPES) - before
+                                if k == "gj_kernel"})
+    shapes = []
+    for sh in new:
+        if sh in checked:
+            continue
+        shapes.append(leaf_case(*sh, gen))
+        shapes[-1]["launches"] = PATH_SHAPES[("gj_kernel", sh)]
+    torch.cuda.empty_cache()
+    log(f"[26] {time.perf_counter() - t0:.1f} s; gj_kernel at "
+        f"{len(shapes)} new shapes, {sum(sh['launches'] for sh in shapes)} "
+        f"path launches among them; largest R "
+        f"{max(sh['shape'][1] for sh in shapes)}")
+    return launches, shapes, schur_rows
+
+
 def new_shapes(before, gen, rows, phases="18-25", tag="21"):
     """Each direct kernel at the shapes ``phases`` launched, and the panel
     kernel at every shape any phase launched (the host rescues' bucket
@@ -4084,7 +4383,11 @@ def main():
     paths += [phase18(), phase19(), phase20(), phase22()]
     rows["rectifier_kernel"], launches23 = phase23()
     paths += [launches23, phase24(), phase25()]
-    for name, shapes in new_shapes(before_18, gen, rows).items():
+    launches26, leaf_shapes, schur_rows = phase26(gen, rows)
+    paths.append(launches26)
+    add_shapes(rows["gj_kernel"], leaf_shapes)
+    for name, shapes in new_shapes(before_18, gen, rows,
+                                   phases="18-26").items():
         add_shapes(rows[name], shapes)
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in paths)
@@ -4099,6 +4402,7 @@ def main():
     lo, hi = BEFORE_22_RUN_S
     log(f"[10] whole run {t_run:.1f} s; before phase 22 the runs took "
         f"{lo}-{hi} s: {t_run - hi:+.1f} to {t_run - lo:+.1f} s")
+    log(f"[26] the panel-Schur solve, not a kernel: {json.dumps(schur_rows)}")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

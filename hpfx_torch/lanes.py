@@ -34,7 +34,7 @@ from .devices import AnalyticDeviceSet, DeviceLibrary, DeviceSet
 from .fundamental import FundResult
 from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
-from .ops.batched_solve import SchurNotPorted, batched_solve_lanes
+from .ops.batched_solve import batched_solve_lanes
 from .parallel.mesh import ALONE
 from .warmstart import _floor_seed_mag
 from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
@@ -614,18 +614,8 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
         if impl == "warmup":
             # blocked-Schur steps far from the root, direct steps after
             impl = "schur" if t < settings.big_solve_warmup else "direct"
-        try:
-            dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
-                                  big_solve=impl, mesh=mesh)
-        except SchurNotPorted as e:
-            if settings.big_solve != "warmup":
-                raise
-            raise SchurNotPorted(
-                f'big_solve="warmup" solves its first '
-                f"{settings.big_solve_warmup} trips with the panel-Schur "
-                'solve (impl="schur"), which is not ported by decision: its '
-                "panel-restricted pivoting breaks Newton convergence; use "
-                'big_solve="panel"') from e
+        dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
+                              big_solve=impl, mesh=mesh)
         x_new = x - dx
         Va_new = torch.cat([V_a.reshape(D, B)[:1], x_new[: D - 1]],
                            dim=0).reshape(H, n, B)

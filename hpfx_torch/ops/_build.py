@@ -45,11 +45,12 @@ def _declare(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # A, b, x, n, R, B, A strides (3), b strides (3), x strides (3), the
     # launch plan (rows, slots, b in shared memory, threads and systems a
-    # block), equilibrate, shared-memory bytes, stream
+    # block), equilibrate, shared-memory bytes, right-hand sides a block,
+    # stream
     head = [vp, vp, vp, i, i, ll] + [ll] * 9
     for name in ("hpfx_gj_kernel", "hpfx_gj_kernel_carried",
                  "hpfx_gj_kernel_unrolled"):
-        getattr(lib, name).argtypes = head + [i] * 7 + [vp]
+        getattr(lib, name).argtypes = head + [i] * 8 + [vp]
     # the kernel (0 gj_kernel, 1 gj_kernel_carried, 2 gj_kernel_unrolled),
     # the launch plan (rows, slots, b in shared memory, threads, smem), out:
     # blocks

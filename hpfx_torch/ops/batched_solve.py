@@ -31,6 +31,10 @@ exports the panel's transform as Z and its pivot rows; a gather of the
 pivot rows and one batched product apply it to the trailing columns and
 the RHS.
 
+:func:`schur_solve_lanes` is the panel-Schur block recursion of the same
+file, whose leaves are the direct kernels with many right-hand sides
+(:func:`chunked_plan` splits those past one block's shared memory).
+
 :func:`batched_solve_lanes` routes each solve as the JAX dispatcher does
 (``hpfx/ops/batched_solve.py:748-790``).
 """
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -51,7 +56,8 @@ XLA_GJ_MAX_DIM = 16
 KERNEL_SWITCH_DIM = 64
 #: largest dim of the direct kernels (``MAX_PALLAS_DIM`` in the JAX package)
 MAX_KERNEL_DIM = 192
-#: dims above this use the blocked panel solve when ``impl="panel"``
+#: dims above this use a blocked solve when ``impl`` is "panel" or
+#: "schur" (or "auto" with HPFX_SCHUR=mid)
 SCHUR_MIN_DIM = 128
 #: panel width of the blocked solve (``PANEL_GJ_WIDTH`` in the JAX package)
 PANEL_WIDTH = 32
@@ -68,7 +74,9 @@ PANEL_LIMITS = ((32, 1024), (16, 2048), (8, 4096))
 #: 24 up to 1056, 16 up to 1584 and 8 up to 3184, and takes LU from 3185
 #: on (``hpfx/ops/batched_solve.py:779-780``).  The port runs K4 further,
 #: to 4096 padded rows: between 3185 and 4096 the two take different
-#: routes (K4 here, LU there), both pivoting over all rows
+#: routes (K4 here, LU there), both pivoting over all rows.  The
+#: panel-Schur solve (``impl="schur"``) has the same bound here, as it has
+#: the panel's there
 MAX_PANEL_DIM = PANEL_LIMITS[-1][1]
 #: shared memory one block may use on Hopper, static and dynamic (bytes)
 _SMEM_PER_BLOCK = 232448
@@ -96,6 +104,18 @@ _K1_SYSTEMS = 8
 #: the JAX package reads it (``hpfx/ops/batched_solve.py:204``); off by
 #: default
 GJ_UNROLLED = os.environ.get("HPFX_GJ_UNROLLED", "0") == "1"
+#: the panel width of :func:`schur_solve_lanes`, read once at import from
+#: HPFX_SCHUR_PANEL (``hpfx/ops/batched_solve.py:657``)
+SCHUR_PANEL = int(os.environ.get("HPFX_SCHUR_PANEL", "32"))
+#: the blocked routes, read once at import from HPFX_SCHUR
+#: (``hpfx/ops/batched_solve.py:667``): "1" (default) the panel solve past
+#: the direct kernels' dims; "mid" the panel solve also above
+#: SCHUR_MIN_DIM for ``impl="auto"``; "0" LU past the direct kernels' dims.
+#: The panel-Schur solve is taken only with ``impl="schur"``
+SCHUR_MODE = os.environ.get("HPFX_SCHUR", "1")
+#: :func:`schur_solve_lanes` takes its leaf at dims up to panel + this
+#: (``SUBLANE`` in the JAX package)
+_SCHUR_LEAF_SLACK = 8
 
 #: launches of each CUDA kernel since the last reset (reset by assigning 0)
 LAUNCHES = {"gj_kernel": 0, "gj_kernel_carried": 0, "gj_kernel_unrolled": 0,
@@ -206,6 +226,41 @@ def launch_plan(n: int, R: int) -> LaunchPlan:
     return LaunchPlan(kernel, rows, slots, b_in_smem, threads, systems, smem)
 
 
+@functools.lru_cache(maxsize=None)
+def _widest_chunk(n: int) -> int:
+    """The most right-hand sides one block of the dim-n direct kernel takes
+    (:func:`launch_plan` does not raise up to it, and raises past it)."""
+    lo = 1
+    while _fits(n, 2 * lo):
+        lo *= 2
+    hi = 2 * lo - 1         # lo fits and 2·lo does not
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _fits(n, mid) else (lo, mid - 1)
+    return lo
+
+
+def _fits(n: int, R: int) -> bool:
+    try:
+        launch_plan(n, R)
+    except ValueError:
+        return False
+    return True
+
+
+def chunked_plan(n: int, R: int) -> tuple[LaunchPlan, int]:
+    """The one launch of a dim-n solve with any R >= 1 right-hand sides:
+    (plan, chunk).  Each block solves its systems against ``chunk`` of the
+    R columns (the last chunk may be narrower), the grid's y covering R;
+    ``plan`` is :func:`launch_plan` at ``chunk``.  R up to the widest
+    chunk one block takes is one chunk; past it R is split into as few
+    chunks of near-equal width as fit.  With the pivots depending on A
+    alone, every column sees the same multipliers in any chunk."""
+    widest = _widest_chunk(n)
+    chunk = -(-R // -(-R // widest))
+    return launch_plan(n, chunk), chunk
+
+
 def kernel_for(n: int) -> str:
     """The CUDA kernel that solves a dim-n system: ``gj_kernel`` below
     ``KERNEL_SWITCH_DIM``, above it ``gj_kernel_carried``, or
@@ -278,17 +333,18 @@ def equilibrated_gauss_solve_lanes(A, b):
 
 def _launch(A, b, x, equilibrate: bool = False):
     """Launch the kernel for ``n`` on the current stream, with the
-    equilibration inside when ``equilibrate``.  Operands may have any
-    element strides (the kernels index with them)."""
+    equilibration inside when ``equilibrate``: one launch at any R, as
+    :func:`chunked_plan` plans it.  Operands may have any element strides
+    (the kernels index with them)."""
     from ._build import load_library
     n, _, B = A.shape
     R = b.shape[1]
     if B == 0:
         return
     name = kernel_for(n)
-    p = launch_plan(n, R)
+    p, chunk = chunked_plan(n, R)
     plan = [p.rows, p.slots, int(p.b_in_smem), p.threads, p.systems]
-    plan = [ctypes.c_int(v) for v in plan + [int(equilibrate), p.smem]]
+    plan = [ctypes.c_int(v) for v in plan + [int(equilibrate), p.smem, chunk]]
     lib = load_library()
     fn = getattr(lib, f"hpfx_{name}")
     st = lambda t: [ctypes.c_longlong(s) for s in t.stride()]
@@ -529,39 +585,96 @@ def panel_gj_solve_lanes(A, b, panel: int = PANEL_WIDTH):
     return x.permute(1, 2, 0).contiguous().to(A.dtype)
 
 
-class SchurNotPorted(NotImplementedError):
-    """``impl="schur"`` above :data:`SCHUR_MIN_DIM`: the panel-Schur solve
-    ``schur_solve_lanes`` is not part of the port."""
+def schur_solve_lanes(A, b, leaf=None, panel: int = SCHUR_PANEL):
+    """Blocked (right-looking) panel-Schur solve, lane-major: A (n, n, B),
+    b (n, R, B) -> x (n, R, B) (``hpfx/ops/batched_solve.py:670-724``).
+
+    The block recursion of the reference, with panel width ``panel``:
+
+        A11 [X12 | y1] = [A12 | b1]      one leaf solve, dim panel
+        S = A22 - A21 X12, rhs2 = b2 - A21 y1
+        S x2 = rhs2                      the same on the trailing system
+        x1 = y1 - X12 x2
+
+    down to a trailing system of at most panel + 8 rows, which the leaf
+    solves whole.  The leaf pivots within its own rows only (block LU with
+    block-diagonal pivoting), so a column whose mass lies outside its
+    panel draws a small pivot: callers equilibrate first (the dispatcher
+    does), and Newton steps converge less often than with the panel solve
+    (``Settings.big_solve``).
+
+    Here the recursion is a loop over the levels in one batch-major buffer
+    [A | b] (B, n, n + R), copied once: each level writes [X12 | y1] over
+    its panel's rows, one batched product (float32, TF32 off) updates the
+    trailing [S | rhs2] in place with ``baddbmm_``, and a second loop adds
+    -X12 x2 to each y1 from the last level up.
+
+    ``leaf`` (n, n, B), (n, R, B) -> (n, R, B) gets contiguous lane-major
+    operands; it defaults to :func:`gauss_solve_lanes` without the
+    equilibration: on the card the direct kernel :func:`kernel_for` names
+    (``gj_kernel`` at the default panel of 32, one launch at any R, see
+    :func:`chunked_plan`), on the CPU the plain twin."""
+    if leaf is None:
+        leaf = gauss_solve_lanes
+    n, _, Bt = A.shape
+    R = b.shape[1]
+    if n <= panel + _SCHUR_LEAF_SLACK:
+        return leaf(A.contiguous(), b.contiguous())
+    lanes = lambda t: t.permute(1, 2, 0).contiguous()
+    M = torch.empty((Bt, n, n + R), dtype=A.dtype, device=A.device)
+    M[:, :, :n] = A.permute(2, 0, 1)
+    M[:, :, n:] = b.permute(2, 0, 1)
+    starts = range(0, n - panel - _SCHUR_LEAF_SLACK, panel)
+    for lo in starts:
+        hi = lo + panel
+        M[:, lo:hi, hi:] = leaf(lanes(M[:, lo:hi, lo:hi]),
+                                lanes(M[:, lo:hi, hi:])).permute(2, 0, 1)
+        M[:, hi:, hi:].baddbmm_(M[:, hi:, lo:hi], M[:, lo:hi, hi:],
+                                alpha=-1.0)
+    last = starts[-1] + panel
+    x = torch.empty((Bt, n, R), dtype=A.dtype, device=A.device)
+    x[:, last:] = leaf(lanes(M[:, last:, last:n]),
+                       lanes(M[:, last:, n:])).permute(2, 0, 1)
+    for lo in reversed(starts):
+        hi = lo + panel
+        x[:, lo:hi] = torch.baddbmm(M[:, lo:hi, n:], M[:, lo:hi, hi:n],
+                                    x[:, hi:], alpha=-1.0)
+    return x.permute(1, 2, 0).contiguous()
 
 
 def batched_solve_lanes(A, b, impl: str = "auto"):
     """Lane-major batched solve: A (n, n, B), b (n, R, B) -> x (n, R, B).
 
-    Routes as ``hpfx.ops.batched_solve.batched_solve_lanes`` does: float64
-    goes to LU (:func:`_lu`); float32 is equilibrated and goes
-    to the plain elimination for n <= 16, and to
-    :func:`equilibrated_gauss_solve_lanes` (``gj_kernel`` for 16 < n < 64,
-    ``gj_kernel_carried`` for 64 <= n <= 128, up to 192 with ``impl``
-    "auto" or "direct"; on the card the equilibration runs inside them).  Above
-    192, and above 128 with ``impl="panel"``, it takes the blocked panel
-    solve (:func:`panel_gj_solve_lanes`) up to :data:`MAX_PANEL_DIM`
-    padded rows, and LU past them (the reference takes LU from n = 3185
-    on).  ``impl="schur"`` above 128 raises
-    :class:`SchurNotPorted`: the panel-Schur solve (``schur_solve_lanes``)
-    is not part of the port."""
+    Routes as ``hpfx.ops.batched_solve.batched_solve_lanes`` does on its
+    TPU (``hpfx/ops/batched_solve.py:751-787``), on either device: float64
+    goes to LU (:func:`_lu`); float32 is equilibrated and goes to
+
+    * n <= 16: the plain elimination;
+    * n > 192: LU where :data:`SCHUR_MODE` is "0" or n passes
+      :data:`MAX_PANEL_DIM` padded rows (the reference's own bound is
+      n = 3184), else :func:`schur_solve_lanes` with ``impl="schur"`` and
+      the blocked panel solve (:func:`panel_gj_solve_lanes`) otherwise;
+    * 128 < n <= 192: :func:`schur_solve_lanes` with ``impl="schur"``, the
+      panel solve with ``impl="panel"`` or with "auto" under
+      ``SCHUR_MODE == "mid"``;
+    * otherwise :func:`equilibrated_gauss_solve_lanes` (``gj_kernel`` for
+      n < 64, ``gj_kernel_carried`` up to 192; on the card the
+      equilibration runs inside them)."""
     n = A.shape[0]
     if A.dtype == torch.float64:
         return _lu_solve_lanes(A, b)
     if n <= XLA_GJ_MAX_DIM:
         return equilibrated_lanes(gj_solve_lanes_ref)(A, b)
-    if impl == "schur" and n > SCHUR_MIN_DIM:
-        raise SchurNotPorted(
-            f"dim-{n} solve with impl='schur': the panel-Schur solve "
-            "schur_solve_lanes is not ported (its panel-restricted pivoting "
-            "breaks Newton convergence); use impl='panel'")
-    if n > MAX_KERNEL_DIM or (impl == "panel" and n > SCHUR_MIN_DIM):
-        if panel_width_for(n) == 0:
+    if n > MAX_KERNEL_DIM:
+        if SCHUR_MODE == "0" or panel_width_for(n) == 0:
             return equilibrated_lanes(_lu_solve_lanes)(A, b)
+        if impl == "schur":
+            return equilibrated_lanes(schur_solve_lanes)(A, b)
+        return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
+    if impl == "schur" and n > SCHUR_MIN_DIM:
+        return equilibrated_lanes(schur_solve_lanes)(A, b)
+    want_panel = impl == "panel" or (impl == "auto" and SCHUR_MODE == "mid")
+    if want_panel and n > SCHUR_MIN_DIM:
         return equilibrated_lanes(panel_gj_solve_lanes)(A, b)
     return equilibrated_gauss_solve_lanes(A.contiguous(), b.contiguous())
 
@@ -633,14 +746,15 @@ def batched_solve(A, b):
     (:func:`_gauss_solve_batch_major`: ``gj_kernel`` below 64, with no
     split at dim 16, ``gj_kernel_carried`` from 64), larger dims to the
     blocked panel solve (:func:`_panel_gj_batch_major`, K4) up to
-    :data:`MAX_PANEL_DIM` padded rows and to LU past them.  On the CPU
+    :data:`MAX_PANEL_DIM` padded rows and to LU past them, or under
+    ``SCHUR_MODE == "0"``.  On the CPU
     the kernels' plain twins run.  This departs from the JAX package on
     the CPU, whose float32 branch there takes equilibrated LU."""
     n = A.shape[-1]
     if A.dtype == torch.float64:
         return _lu_solve(A, b)
     if n > MAX_KERNEL_DIM:
-        if panel_width_for(n) == 0:
+        if SCHUR_MODE == "0" or panel_width_for(n) == 0:
             return equilibrated(_lu_solve)(A, b)
         return equilibrated(_panel_gj_batch_major)(A, b)
     return _gauss_solve_batch_major(A, b)

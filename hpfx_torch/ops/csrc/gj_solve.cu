@@ -97,6 +97,10 @@
 // The launch plan of each (instantiation, threads, systems a block, dynamic
 // shared memory) is computed by the caller (launch_plan in
 // hpfx_torch/ops/batched_solve.py) and checked here.
+// Right-hand sides past one block's shared memory (the panel-Schur solve's
+// leaves carry up to ~3,150 at dim 32: 400 KB of b a system) are split into
+// chunks of columns, one chunk a block along the grid's y (chunked_plan in
+// the same file), each repeating the elimination of A for its own columns.
 
 #include "gj_common.cuh"
 
@@ -226,10 +230,18 @@ __device__ __forceinline__ void store_row(float* x, const float (&s)[WP],
 template <int ROWS, int WP, bool BSMEM>
 __global__ void __launch_bounds__(32 * kMaxSystemsK1 / ROWS)
     gj_kernel(const float* __restrict__ A, const float* __restrict__ b,
-              float* __restrict__ x, int n, int R, long long B, int equil,
-              Strides sa, Strides sb, Strides sx) {
+              float* __restrict__ x, int n, int R, int rc, long long B,
+              int equil, Strides sa, Strides sb, Strides sx) {
   constexpr int NR = 32 * ROWS;              // the system's rows, padded
   constexpr int S = kMaxSystemsK1 / ROWS;    // systems (warps) a block
+  // blockIdx.y picks this block's chunk of rc of the R right-hand sides
+  // (the last may be narrower).  A column of b sees the same pivots and
+  // multipliers whatever chunk it lies in (they depend on A alone), so the
+  // chunks compute what one block over all R columns would
+  const int q0 = (int)blockIdx.y * rc;
+  b += q0 * sb.c;
+  x += q0 * sx.c;
+  R = min(rc, R - q0);
   __shared__ __align__(16) float stage[S][2][WP];
   __shared__ float cscale[S][NR];
   // BSMEM: each warp's b rows at an odd leading dimension, then its staged
@@ -423,8 +435,9 @@ template <int NP, int WP, bool BSMEM, int T, int G>
 __device__ __forceinline__ void carried_body(const float* __restrict__ A,
                                              const float* __restrict__ b,
                                              float* __restrict__ x, int n,
-                                             int R, int equil, Strides sa,
-                                             Strides sb, Strides sx) {
+                                             int R, int rc, int equil,
+                                             Strides sa, Strides sb,
+                                             Strides sx) {
   static_assert(NP % 32 == 0 && WP >= NP && (T == 1 || T == 2) &&
                     WP % (4 * T) == 0,
                 "whole warps; a row's slots split into float4 groups");
@@ -433,6 +446,11 @@ __device__ __forceinline__ void carried_body(const float* __restrict__ A,
   constexpr int H = WP / T;         // slots a thread
   static_assert(G == 1 || (G % 4 == 0 && G <= H),
                 "a group shifts whole float4 groups within a thread's slots");
+  // this block's chunk of the right-hand sides, as in gj_kernel
+  const int q0 = (int)blockIdx.y * rc;
+  b += q0 * sb.c;
+  x += q0 * sx.c;
+  R = min(rc, R - q0);
   __shared__ __align__(16) float stage[2][NW][WP];   // each warp's best row
   __shared__ unsigned warp_k[2][NW];                 // its key
   __shared__ int warp_p[2][NW];                      // its index
@@ -594,24 +612,24 @@ template <int NP, int WP, bool BSMEM, int T>
 __global__ void __launch_bounds__(NP * T)
     gj_kernel_carried(const float* __restrict__ A,
                       const float* __restrict__ b, float* __restrict__ x,
-                      int n, int R, int equil, Strides sa, Strides sb,
-                      Strides sx) {
-  carried_body<NP, WP, BSMEM, T, 1>(A, b, x, n, R, equil, sa, sb, sx);
+                      int n, int R, int rc, int equil, Strides sa,
+                      Strides sb, Strides sx) {
+  carried_body<NP, WP, BSMEM, T, 1>(A, b, x, n, R, rc, equil, sa, sb, sx);
 }
 
 template <int NP, int WP, bool BSMEM, int T>
 __global__ void __launch_bounds__(NP * T)
     gj_kernel_unrolled(const float* __restrict__ A,
                        const float* __restrict__ b, float* __restrict__ x,
-                       int n, int R, int equil, Strides sa, Strides sb,
-                       Strides sx) {
-  carried_body<NP, WP, BSMEM, T, kUnrollGroup>(A, b, x, n, R, equil, sa, sb,
-                                               sx);
+                       int n, int R, int rc, int equil, Strides sa,
+                       Strides sb, Strides sx) {
+  carried_body<NP, WP, BSMEM, T, kUnrollGroup>(A, b, x, n, R, rc, equil, sa,
+                                               sb, sx);
 }
 
-using K1Fn = void (*)(const float*, const float*, float*, int, int,
+using K1Fn = void (*)(const float*, const float*, float*, int, int, int,
                       long long, int, Strides, Strides, Strides);
-using K2Fn = void (*)(const float*, const float*, float*, int, int, int,
+using K2Fn = void (*)(const float*, const float*, float*, int, int, int, int,
                       Strides, Strides, Strides);
 
 // gj_kernel's instantiations: (rows a lane keeps, slots a row, b in shared
@@ -660,6 +678,14 @@ cudaError_t set_dynamic_smem(Kernel kernel, int smem) {
                               smem);
 }
 
+// blocks along y: the chunks of rc columns that cover R (0 if rc is not a
+// width from 1 to R, or the chunks pass the grid's limit)
+int column_chunks(int R, int rc) {
+  if (rc < 1 || rc > R) return 0;
+  const int chunks = (R + rc - 1) / rc;
+  return chunks <= 65535 ? chunks : 0;
+}
+
 // dynamic shared memory of one block (bytes): only where b lies there
 int k1_smem(int rows, int R, int b_smem, int systems) {
   return b_smem ? systems * (32 * rows * (R | 1) + 2 * R) * (int)sizeof(float)
@@ -676,15 +702,17 @@ int k2_smem(int np, int R, int b_smem, int threads) {
 int launch_k2(bool unrolled, const float* A, const float* b, float* x, int n,
               int R, long long B, Strides sa, Strides sb, Strides sx,
               int rows, int slots, int b_smem, int threads, int systems,
-              int equil, int smem, cudaStream_t stream) {
+              int equil, int smem, int rc, cudaStream_t stream) {
   const K2Fn fn = k2_instance(rows, slots, b_smem, threads, unrolled);
-  if (fn == nullptr || n < 1 || n > rows || R < 1 || B < 1 || B > INT_MAX ||
-      systems != 1 || (b_smem ? n > slots : n + R > slots) ||
-      smem < k2_smem(rows, R, b_smem, threads))
+  const int chunks = column_chunks(R, rc);
+  if (fn == nullptr || n < 1 || n > rows || chunks == 0 || B < 1 ||
+      B > INT_MAX || systems != 1 || (b_smem ? n > slots : n + rc > slots) ||
+      smem < k2_smem(rows, rc, b_smem, threads))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = set_dynamic_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  fn<<<(unsigned)B, threads, smem, stream>>>(A, b, x, n, R, equil, sa, sb, sx);
+  fn<<<dim3((unsigned)B, (unsigned)chunks), threads, smem, stream>>>(
+      A, b, x, n, R, rc, equil, sa, sb, sx);
   return (int)cudaGetLastError();
 }
 
@@ -695,7 +723,8 @@ extern "C" {
 // Each entry point launches on `stream`, does not synchronize, and returns
 // cudaGetLastError() after the launch (0 = launched).  Each takes the
 // caller's launch plan (instantiation, systems a block, dynamic shared
-// memory `smem`), checked against the kernel's need; `equil` != 0 runs the
+// memory `smem`, right-hand sides a block `rc`: the grid's y covers R in
+// chunks of rc), checked against the kernel's need; `equil` != 0 runs the
 // equilibration inside.
 
 int hpfx_gj_kernel(const float* A, const float* b, float* x, int n, int R,
@@ -703,20 +732,22 @@ int hpfx_gj_kernel(const float* A, const float* b, float* x, int n, int R,
                    long long sa_s, long long sb_r, long long sb_c,
                    long long sb_s, long long sx_r, long long sx_c,
                    long long sx_s, int rows, int slots, int b_smem,
-                   int threads, int systems, int equil, int smem,
+                   int threads, int systems, int equil, int smem, int rc,
                    void* stream) {
   const K1Fn fn = k1_instance(rows, slots, b_smem);
-  if (fn == nullptr || n < 1 || n > 32 * rows || R < 1 || B < 1 ||
+  const int chunks = column_chunks(R, rc);
+  if (fn == nullptr || n < 1 || n > 32 * rows || chunks == 0 || B < 1 ||
       systems != kMaxSystemsK1 / rows || threads != 32 * systems ||
-      (b_smem ? n > slots : n + R > slots) ||
-      smem < k1_smem(rows, R, b_smem, systems))
+      (b_smem ? n > slots : n + rc > slots) ||
+      smem < k1_smem(rows, rc, b_smem, systems))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (B + systems - 1) / systems;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const cudaError_t e = set_dynamic_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  fn<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      A, b, x, n, R, B, equil, Strides{sa_r, sa_c, sa_s},
+  fn<<<dim3((unsigned)blocks, (unsigned)chunks), threads, smem,
+       (cudaStream_t)stream>>>(
+      A, b, x, n, R, rc, B, equil, Strides{sa_r, sa_c, sa_s},
       Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s});
   return (int)cudaGetLastError();
 }
@@ -727,10 +758,10 @@ int hpfx_gj_kernel_carried(const float* A, const float* b, float* x, int n,
                            long long sb_c, long long sb_s, long long sx_r,
                            long long sx_c, long long sx_s, int rows,
                            int slots, int b_smem, int threads, int systems,
-                           int equil, int smem, void* stream) {
+                           int equil, int smem, int rc, void* stream) {
   return launch_k2(false, A, b, x, n, R, B, Strides{sa_r, sa_c, sa_s},
                    Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s}, rows,
-                   slots, b_smem, threads, systems, equil, smem,
+                   slots, b_smem, threads, systems, equil, smem, rc,
                    (cudaStream_t)stream);
 }
 
@@ -740,10 +771,10 @@ int hpfx_gj_kernel_unrolled(const float* A, const float* b, float* x, int n,
                             long long sb_c, long long sb_s, long long sx_r,
                             long long sx_c, long long sx_s, int rows,
                             int slots, int b_smem, int threads, int systems,
-                            int equil, int smem, void* stream) {
+                            int equil, int smem, int rc, void* stream) {
   return launch_k2(true, A, b, x, n, R, B, Strides{sa_r, sa_c, sa_s},
                    Strides{sb_r, sb_c, sb_s}, Strides{sx_r, sx_c, sx_s}, rows,
-                   slots, b_smem, threads, systems, equil, smem,
+                   slots, b_smem, threads, systems, equil, smem, rc,
                    (cudaStream_t)stream);
 }
 

@@ -588,6 +588,13 @@ def hosting_capacity_sweep(net: Network, devices, settings: Settings,
     return SweepSummary(max_thd, res.converged, res.n_iter, frac)
 
 
+#: the JAX package's unjitted bodies of its jitted sweeps
+#: (``hpfx/solve.py:87`` and ``:723``), which its mesh code wraps in its own
+#: ``jax.jit``: the port never jits, so each is the sweep itself
+hpf_sweep_unjitted = hpf_sweep
+hosting_capacity_sweep_unjitted = hosting_capacity_sweep
+
+
 def summarize_thd(result: HPFResult, thd_limit: float = 0.08) -> SweepSummary:
     """The hosting-capacity aggregate of an already solved batch
     (``hpfx.solve.summarize_thd``)."""

@@ -177,21 +177,33 @@ def test_adaptive_f32_close_to_f64():
     assert dV.max() <= PHASOR_TOL_F32
 
 
-def test_warmup_names_its_setting():
-    """big_solve="warmup" solves its first trips with the panel-Schur
-    solve, which the port leaves out: at net1's dim-182 capacitance system
-    in float32 the error names the setting and the one to use instead."""
+def test_warmup_names_its_setting(monkeypatch):
+    """big_solve="warmup" does what its setting names: the first
+    big_solve_warmup trips of a Newton loop solve net1's dim-182
+    capacitance system in float32 with the panel-Schur solve
+    (impl="schur"), the trips after them with the direct kernel
+    (impl="direct"), as the JAX package's lax.cond picks per trip."""
     _, ts, jnet, jdev, scen = _inputs(2)
     net, dev = ht.from_hpfx_arrays(net_leaves(jnet), dev_leaves(jdev),
                                    device="cpu")
     f32 = torch.float32
     net, dev = net.to(dtype=f32), dev.to(dtype=f32)
     t = lambda a: torch.tensor(a, dtype=f32)
-    with pytest.raises(NotImplementedError,
-                       match='big_solve="warmup".*not ported.*'
-                             'use big_solve="panel"'):
-        ht.hpf_sweep_adaptive(net, dev, ts.with_(big_solve="warmup"),
-                              ht.Scenarios(*map(t, scen)), warm="cold")
+    impls = []
+    solve = ht.lanes.batched_solve_lanes
+
+    def recorded(A, b, impl="auto"):
+        if A.shape[0] == 182:
+            impls.append(impl)
+        return solve(A, b, impl=impl)
+    monkeypatch.setattr(ht.lanes, "batched_solve_lanes", recorded)
+    warmup = 3
+    ht.hpf_sweep_adaptive(net, dev, ts.with_(big_solve="warmup",
+                                             big_solve_warmup=warmup),
+                          ht.Scenarios(*map(t, scen)), warm="cold",
+                          rescue=False)
+    assert impls[:warmup] == ["schur"] * warmup
+    assert impls[warmup] == "direct" and set(impls) == {"schur", "direct"}
 
 
 @pytest.mark.parametrize("n,n_nl,seed", [(64, 7, 1), (32, 5, 3)],

@@ -301,18 +301,17 @@ def test_kernel_wrapper_rejects_bad_operands():
 
 @pytest.mark.parametrize("n,impl", [(130, "panel"), (130, "schur"),
                                     (200, "auto")])
-def test_unported_panel_dims_raise(n, impl):
+def test_blocked_dims_route(n, impl):
     """Where the JAX dispatcher takes a blocked solve: impl="panel" above
-    128 and any impl above 192 go to the (equilibrated) panel solve;
-    the panel-Schur solve, which is not ported, raises."""
+    128 and any impl but "schur" above 192 go to the (equilibrated) panel
+    solve, impl="schur" above 128 to the (equilibrated) panel-Schur
+    solve."""
     A, b = _systems(n, 2, 3, seed=n)
     At, bt = torch.tensor(A), torch.tensor(b)
-    if impl == "schur":
-        with pytest.raises(NotImplementedError, match="schur_solve_lanes"):
-            tbs.batched_solve_lanes(At, bt, impl=impl)
-        return
     x = tbs.batched_solve_lanes(At, bt, impl=impl)
-    want = tbs.equilibrated_lanes(tbs.panel_gj_solve_lanes)(At, bt)
+    blocked = tbs.schur_solve_lanes if impl == "schur" \
+        else tbs.panel_gj_solve_lanes
+    want = tbs.equilibrated_lanes(blocked)(At, bt)
     torch.testing.assert_close(x, want, rtol=0, atol=0)
     ref = _np_solve(A, b)
     np.testing.assert_allclose(x.numpy(), ref, rtol=0,
