@@ -9,6 +9,7 @@
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import subprocess
@@ -208,13 +209,27 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
     # phase 1's 2 trips converge no lane, so stragglers lie on every
     # rank: the global gather rescues the K = 2 lanes of the whole batch,
     # where a per-rank gather would rescue 2 on each rank; the bucketed
-    # width covers every straggler
+    # width covers every straggler.  Each rank keeps a PhaseLog and traces
+    # its spans: one hpfx.trip per harmonic trip it counted, and one
+    # hpfx.gather per collective (the straggler masks, then the result's
+    # leaves), the same number on every rank
     for tag, name, kw in (
             ("a", "adaptive", dict(rescue_width=2)),
             ("w", "warm-seeded adaptive",
              dict(warm="linear", rescue_width=(2, Bp)))):
-        ra = par.hpf_sweep_adaptive_sharded(net, dev, sa, scen, mesh,
-                                            phase_iters=2, **kw)
+        log = ht.PhaseLog()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            ra = par.hpf_sweep_adaptive_sharded(net, dev, sa, scen, mesh,
+                                                phase_iters=2, log=log,
+                                                **kw)
+        spans = collections.Counter(e.name for e in prof.events())
+        trips = sum(log.harmonic_trips.values())
+        _check(spans["hpfx.sweep"] == 1 and log.trips["phase1"] > 0
+               and spans["hpfx.trip"] == trips > 0,
+               f"sharded {name}: {spans['hpfx.trip']} trip spans, "
+               f"{trips} trips logged")
+        saved[f"{tag}gathers"] = torch.tensor(spans["hpfx.gather"])
         dva = held(tag, f"{name} sweep", ra, lambda: cut(ht.hpf_sweep_adaptive_lanes(
             net, dev, sa, pad(scen), phase_iters=2, **kw), B),
             all_conv=tag == "w")
@@ -223,7 +238,8 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
                f"sharded {name}: {n_conv} lanes rescued, not 2")
         say(f"dryrun_multichip: {name} sweep (B={B}, phase 2, rescue "
             f"width {kw['rescue_width']}: {n_conv} converged) sharded == "
-            f"unsharded to {dva:.1e}")
+            f"unsharded to {dva:.1e}; PhaseLog {trips} harmonic trips "
+            f"(rank 0), {spans['hpfx.gather']} hpfx.gather spans")
 
     if world % 2 == 0:
         # 2-D scenario x harmonic mesh (DP x TP): each scenario piece's
@@ -235,7 +251,10 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
                    inj2=np.linspace(0.9, 1.1, B2))
         scen2 = ht.Scenarios(T("p2"), T("q2"), T("inj2"))
         mesh2 = par.hpf_mesh(world // 2, 2, devices="cpu")
-        r2 = par.hpf_sweep_sharded2d(net, dev, sa, scen2, mesh2)
+        log2 = ht.PhaseLog()
+        r2 = par.hpf_sweep_sharded2d(net, dev, sa, scen2, mesh2, log=log2)
+        _check(log2.reads[ht.lanes.OUTSIDE] >= 2,
+               f"2-D sharded sweep: reads {log2.reads}")
         dv2 = held("2", "2-D sharded sweep", r2,
                    lambda: ht.hpf_sweep(net, dev, sa, scen2), batch=B2)
         say(f"dryrun_multichip: 2-D ({world // 2}, 2) scenario x harmonic "

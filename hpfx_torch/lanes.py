@@ -36,6 +36,7 @@ from .harmonic import HPFResult, cleanup_voltages
 from .network import Network
 from .ops.batched_solve import batched_solve_lanes
 from .parallel.mesh import ALONE
+from .utils.profiling import span as _span
 from .warmstart import _floor_seed_mag
 from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
 
@@ -47,22 +48,42 @@ _all = slice(None)
 
 
 # ---------------------------------------------------------------------------
-# measurement: wall time and Newton trips per phase
+# measurement: wall time, Newton trips and host reads per phase
 # ---------------------------------------------------------------------------
 
-class PhaseLog:
-    """Wall time and Newton trips of each phase of a sweep.
+#: the key of :attr:`PhaseLog.reads` for reads made while no phase is open
+OUTSIDE = "outside"
 
-    Pass one as ``log=`` to :func:`hpf_sweep_adaptive_lanes` or
-    ``hpfx_torch.solve.hpf_sweep_device``.  A phase synchronises the
-    device at its start and end, so its time includes all the work it
-    queued; that is one synchronisation per phase boundary, on top of the
-    one per trip the loops already make.  ``trips`` counts Newton loop
-    trips (fundamental and harmonic) run inside the phase."""
+
+class PhaseLog:
+    """Wall time, Newton trips and host reads of each phase of a sweep.
+
+    Pass one as ``log=`` to :func:`hpf_sweep_adaptive_lanes`,
+    ``hpfx_torch.solve.hpf_sweep_device``, ``hpfx_torch.solve.
+    hpf_sweep_adaptive`` or the sharded entries of
+    ``hpfx_torch.parallel``.  A phase synchronises the device at its start
+    and end, so its time includes all the work it queued; that is one
+    synchronisation per phase boundary, on top of the one per trip the
+    loops already make.  A phase opened inside another (the host rescue's
+    passes) counts its own time and the enclosing one's as well; the
+    counts below go to the innermost phase alone.
+
+    ``trips`` counts Newton loop trips (fundamental and harmonic) run
+    inside the phase; ``harmonic_trips`` the harmonic ones, and
+    ``harmonic_trip_seconds`` their host-clock time, each from the return
+    of the previous convergence read to the return of its own: the read
+    waits for the trip's device work, so this adds no synchronisation.
+    ``reads`` counts the sweep's device-to-host reads (:func:`_read`: the
+    loops' convergence tests, the straggler counts and bucket indices), by
+    the phase open at each (:data:`OUTSIDE` where none is); the phases'
+    own synchronisations are not reads."""
 
     def __init__(self):
         self.seconds = {}
         self.trips = {}
+        self.reads = {}
+        self.harmonic_trips = {}
+        self.harmonic_trip_seconds = {}
         self._current = None
 
     @contextlib.contextmanager
@@ -70,9 +91,12 @@ class PhaseLog:
         _sync(device)
         t0 = time.perf_counter()
         prev, self._current = self._current, name
-        self.trips.setdefault(name, 0)
+        for counts in (self.trips, self.reads, self.harmonic_trips):
+            counts.setdefault(name, 0)
+        self.harmonic_trip_seconds.setdefault(name, 0.0)
         try:
-            yield
+            with _span("phase." + name):
+                yield
         finally:
             _sync(device)
             self.seconds[name] = (self.seconds.get(name, 0.0)
@@ -83,6 +107,17 @@ class PhaseLog:
         if self._current is not None:
             self.trips[self._current] += 1
 
+    def read(self):
+        key = OUTSIDE if self._current is None else self._current
+        self.reads[key] = self.reads.get(key, 0) + 1
+
+    def harmonic_trip(self, t_prev: float) -> float:
+        now = time.perf_counter()
+        if self._current is not None:
+            self.harmonic_trips[self._current] += 1
+            self.harmonic_trip_seconds[self._current] += now - t_prev
+        return now
+
 
 def _sync(device):
     if torch.device(device).type == "cuda":
@@ -90,12 +125,34 @@ def _sync(device):
 
 
 def _phase(log: Optional[PhaseLog], name: str, device):
-    return contextlib.nullcontext() if log is None else log.phase(name, device)
+    """Phase ``name`` of ``log``, or without one the phase's span alone."""
+    if log is not None:
+        return log.phase(name, device)
+    return _span("phase." + name)
 
 
 def _trip(log: Optional[PhaseLog]):
     if log is not None:
         log.trip()
+
+
+def _read(log: Optional[PhaseLog], fn, *args):
+    """``fn(*args)``, a call that brings a value from the device to the
+    host (``bool(t.any())``, ``torch.nonzero``), counted in ``log``."""
+    if log is not None:
+        log.read()
+    return fn(*args)
+
+
+def _clock(log: Optional[PhaseLog]):
+    """The host clock where ``log`` times trips."""
+    return None if log is None else time.perf_counter()
+
+
+def _harmonic_trip(log: Optional[PhaseLog], t_prev):
+    """Count a harmonic trip whose convergence read has just returned;
+    returns the clock for the next."""
+    return None if log is None else log.harmonic_trip(t_prev)
 
 
 class LaneDevices(NamedTuple):
@@ -363,123 +420,138 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
     s0 = max(h0, 1)
     l0, l1 = mesh.hbounds(B)
 
-    V_c = cx.polar(V_m, V_a)
-    Vn = cx.expj(V_a)
-    Yl = Y[h0:h1]
-    blocks_V = Yl[..., None] * Vn[h0:h1, None, :, :]      # (Hl, n, n, B)
-    blocks_A = (Yl[..., None] * V_c[h0:h1, None, :, :]).jmul()
-    K_V, K_A = _coupling_lanes(V_m, V_a, dev, inj_db, m)  # (H, H, n_nl, B)
+    with _span("trip.blocks"):
+        V_c = cx.polar(V_m, V_a)
+        Vn = cx.expj(V_a)
+        Yl = Y[h0:h1]
+        blocks_V = Yl[..., None] * Vn[h0:h1, None, :, :]  # (Hl, n, n, B)
+        blocks_A = (Yl[..., None] * V_c[h0:h1, None, :, :]).jmul()
+        # (H, H, n_nl, B)
+        K_V, K_A = _coupling_lanes(V_m, V_a, dev, inj_db, m)
 
-    # fold the h == p coupling into the diagonal blocks
-    hh = torch.arange(h0, h1, device=dv)
-    eye_n = torch.eye(n, dtype=rd, device=dv)[None, :, :, None]
+        # fold the h == p coupling into the diagonal blocks
+        hh = torch.arange(h0, h1, device=dv)
+        eye_n = torch.eye(n, dtype=rd, device=dv)[None, :, :, None]
 
-    def _diag_fold(blocks: Cx, diag: Cx) -> Cx:
-        pad = torch.zeros((h1 - h0, m, B), dtype=rd, device=dv)
-        full_re = torch.cat([pad, diag.re], dim=1)        # (Hl, n, B)
-        full_im = torch.cat([pad, diag.im], dim=1)
-        return Cx(blocks.re + eye_n * full_re[:, None, :, :],
-                  blocks.im + eye_n * full_im[:, None, :, :])
+        def _diag_fold(blocks: Cx, diag: Cx) -> Cx:
+            pad = torch.zeros((h1 - h0, m, B), dtype=rd, device=dv)
+            full_re = torch.cat([pad, diag.re], dim=1)    # (Hl, n, B)
+            full_im = torch.cat([pad, diag.im], dim=1)
+            return Cx(blocks.re + eye_n * full_re[:, None, :, :],
+                      blocks.im + eye_n * full_im[:, None, :, :])
 
-    M_V = _diag_fold(blocks_V, K_V[hh, hh])
-    M_A = _diag_fold(blocks_A, K_A[hh, hh])
-    k2 = 2 * n
-    Dh = torch.cat([
-        torch.cat([M_A.re[s0 - h0:], M_V.re[s0 - h0:]], dim=2),
-        torch.cat([M_A.im[s0 - h0:], M_V.im[s0 - h0:]], dim=2),
-    ], dim=1)                                             # (h1-s0, 2n, 2n, B)
+        M_V = _diag_fold(blocks_V, K_V[hh, hh])
+        M_A = _diag_fold(blocks_A, K_A[hh, hh])
+        k2 = 2 * n
+        Dh = torch.cat([
+            torch.cat([M_A.re[s0 - h0:], M_V.re[s0 - h0:]], dim=2),
+            torch.cat([M_A.im[s0 - h0:], M_V.im[s0 - h0:]], dim=2),
+        ], dim=1)                                     # (h1-s0, 2n, 2n, B)
 
-    # grouped RHS + Woodbury U columns through one multi-RHS solve
-    fp = f[consts.inv_f_perm]                             # (dim, B)
-    fh = fp[d0:].reshape(K, k2, B)[s0 - 1:h1 - 1]
-    rhsh = torch.cat([fh[:, :, None, :],
-                      consts.Eh[None, :, :, None].expand(h1 - s0, k2, r_blk,
-                                                         B)],
-                     dim=2)                               # (h1-s0, 2n, R, B)
-    D_all, rhs_all = Dh, rhsh
-    if h0 == 0:
-        dS1dA1, dS1dV1 = _power_jacobian_blocks_lanes(V_c[0], Vn[0], Y[0], n)
-        hcat = lambda a, b: torch.cat([a, b], dim=1)
-        D0 = torch.cat([
-            hcat(dS1dA1.re[1:m, 1:], dS1dV1.re[1:m, c:]),
-            hcat(M_A.re[0, m:, 1:], M_V.re[0, m:, c:]),
-            hcat(dS1dA1.im[c:m, 1:], dS1dV1.im[c:m, c:]),
-            hcat(M_A.im[0, m:, 1:], M_V.im[0, m:, c:]),
-        ], dim=0)                                         # (d0, d0, B)
-        # identity-pad the fundamental block to 2n: one uniform batched
-        # solve
-        D0p = torch.eye(k2, dtype=rd, device=dv)[:, :, None].repeat(1, 1, B)
-        D0p[:d0, :d0] = D0
-        f0 = fp[:d0]
-        rhs0 = torch.cat([f0[:, None, :],
-                          consts.E0[:, :, None].expand(d0, r_blk, B)], dim=1)
-        rhs0p = torch.zeros((k2, 1 + r_blk, B), dtype=rd, device=dv)
-        rhs0p[:d0] = rhs0
-        D_all = torch.cat([D0p[None], Dh], dim=0)         # (Hl, 2n, 2n, B)
-        rhs_all = torch.cat([rhs0p[None], rhsh], dim=0)
+        # grouped RHS + Woodbury U columns through one multi-RHS solve
+        fp = f[consts.inv_f_perm]                         # (dim, B)
+        fh = fp[d0:].reshape(K, k2, B)[s0 - 1:h1 - 1]
+        rhsh = torch.cat([fh[:, :, None, :],
+                          consts.Eh[None, :, :, None].expand(
+                              h1 - s0, k2, r_blk, B)],
+                         dim=2)                           # (h1-s0, 2n, R, B)
+        D_all, rhs_all = Dh, rhsh
+        if h0 == 0:
+            dS1dA1, dS1dV1 = _power_jacobian_blocks_lanes(V_c[0], Vn[0],
+                                                          Y[0], n)
+            hcat = lambda a, b: torch.cat([a, b], dim=1)
+            D0 = torch.cat([
+                hcat(dS1dA1.re[1:m, 1:], dS1dV1.re[1:m, c:]),
+                hcat(M_A.re[0, m:, 1:], M_V.re[0, m:, c:]),
+                hcat(dS1dA1.im[c:m, 1:], dS1dV1.im[c:m, c:]),
+                hcat(M_A.im[0, m:, 1:], M_V.im[0, m:, c:]),
+            ], dim=0)                                     # (d0, d0, B)
+            # identity-pad the fundamental block to 2n: one uniform batched
+            # solve
+            D0p = torch.eye(k2, dtype=rd, device=dv)[:, :, None].repeat(
+                1, 1, B)
+            D0p[:d0, :d0] = D0
+            f0 = fp[:d0]
+            rhs0 = torch.cat([f0[:, None, :],
+                              consts.E0[:, :, None].expand(d0, r_blk, B)],
+                             dim=1)
+            rhs0p = torch.zeros((k2, 1 + r_blk, B), dtype=rd, device=dv)
+            rhs0p[:d0] = rhs0
+            D_all = torch.cat([D0p[None], Dh], dim=0)     # (Hl, 2n, 2n, B)
+            rhs_all = torch.cat([rhs0p[None], rhsh], dim=0)
 
-    # (Hl, 2n, 2n, B) -> (2n, 2n, Hl·B): the harmonic-block axis joins the
-    # lane batch, so all blocks go through one solve
-    R = 1 + r_blk
-    Hl = h1 - h0
-    sol_all = rhs_all
-    if Hl > 0:
-        D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, Hl * B)
-        rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, Hl * B)
-        sol = batched_solve_lanes(D_flat, rhs_flat)
-        sol_all = sol.reshape(k2, R, Hl, B).permute(2, 0, 1, 3)  # (Hl,2n,R,B)
+    with _span("trip.block_solve"):
+        # (Hl, 2n, 2n, B) -> (2n, 2n, Hl·B): the harmonic-block axis joins
+        # the lane batch, so all blocks go through one solve
+        R = 1 + r_blk
+        Hl = h1 - h0
+        sol_all = rhs_all
+        if Hl > 0:
+            D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, Hl * B)
+            rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, Hl * B)
+            sol = batched_solve_lanes(D_flat, rhs_flat)
+            # (Hl, 2n, R, B)
+            sol_all = sol.reshape(k2, R, Hl, B).permute(2, 0, 1, 3)
 
-    zh, Xh = sol_all[s0 - h0:, :, 0], sol_all[s0 - h0:, :, 1:]
-    Vz = zh[:, consts.cplh]                               # (h1-s0, rb, B)
-    Gblocks = Xh[:, consts.cplh, :]                       # (h1-s0, rb, rb, B)
-    if h0 == 0:
-        z0, X0 = sol_all[0, :d0, 0], sol_all[0, :d0, 1:]  # (d0,B),(d0,rb,B)
-        Vz = torch.cat([z0[consts.cpl0][None], Vz], dim=0)
-        Gblocks = torch.cat([X0[consts.cpl0][None], Gblocks], dim=0)
-    if mesh.hgroup is not None:
-        zG = mesh.hgather(torch.cat([Vz, Gblocks.flatten(1, 2)], dim=1), H)
-        Vz = zG[:, :r_blk]
-        Gblocks = zG[:, r_blk:].reshape(H, r_blk, r_blk, B)
-    Vz = Vz.reshape(r, B)
+    with _span("trip.capacitance"):
+        zh, Xh = sol_all[s0 - h0:, :, 0], sol_all[s0 - h0:, :, 1:]
+        Vz = zh[:, consts.cplh]                           # (h1-s0, rb, B)
+        Gblocks = Xh[:, consts.cplh, :]                   # (h1-s0, rb, rb, B)
+        if h0 == 0:
+            # (d0, B), (d0, rb, B)
+            z0, X0 = sol_all[0, :d0, 0], sol_all[0, :d0, 1:]
+            Vz = torch.cat([z0[consts.cpl0][None], Vz], dim=0)
+            Gblocks = torch.cat([X0[consts.cpl0][None], Gblocks], dim=0)
+        if mesh.hgroup is not None:
+            zG = mesh.hgather(torch.cat([Vz, Gblocks.flatten(1, 2)], dim=1),
+                              H)
+            Vz = zG[:, :r_blk]
+            Gblocks = zG[:, r_blk:].reshape(H, r_blk, r_blk, B)
+        Vz = Vz.reshape(r, B)
 
-    # dense coupling matrix C (r, r, b) of this rank's lanes: h != p,
-    # d == d' entries only
-    lanes = slice(l0, l1)
-    off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
-    KV, KA = K_V[..., lanes], K_A[..., lanes]
-    zero = torch.zeros_like(KV.re)
-    KVr = torch.where(off, KV.re, zero)
-    KVi = torch.where(off, KV.im, zero)
-    KAr = torch.where(off, KA.re, zero)
-    KAi = torch.where(off, KA.im, zero)
-    eye_d = torch.eye(n_nl, dtype=rd, device=dv)
-    # (H, H, n_nl, b, rc, c): rows use (Re, Im), cols use (angle, magnitude)
-    Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
-                         torch.stack([KAi, KVi], dim=-1)], dim=-2)
-    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(
-        r, r, l1 - l0)
+        # dense coupling matrix C (r, r, b) of this rank's lanes: h != p,
+        # d == d' entries only
+        lanes = slice(l0, l1)
+        off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
+        KV, KA = K_V[..., lanes], K_A[..., lanes]
+        zero = torch.zeros_like(KV.re)
+        KVr = torch.where(off, KV.re, zero)
+        KVi = torch.where(off, KV.im, zero)
+        KAr = torch.where(off, KA.re, zero)
+        KAi = torch.where(off, KA.im, zero)
+        eye_d = torch.eye(n_nl, dtype=rd, device=dv)
+        # (H, H, n_nl, b, rc, c): rows use (Re, Im), cols use (angle,
+        # magnitude)
+        Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
+                             torch.stack([KAi, KVi], dim=-1)], dim=-2)
+        C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(
+            r, r, l1 - l0)
 
-    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, l1 - l0),
-                      Gblocks[..., lanes])
-    S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(
-        r, r, l1 - l0)
-    rhs_w = torch.einsum("rub,ub->rb", C, Vz[:, lanes])
-    y = rhs_w
-    if l1 > l0:
-        y = batched_solve_lanes(S_w, rhs_w[:, None, :], impl=big_solve)[:, 0]
-    y = mesh.hgather(y, B, -1)
+        CG = torch.einsum("rpsb,pstb->rptb",
+                          C.reshape(r, H, r_blk, l1 - l0),
+                          Gblocks[..., lanes])
+        S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(
+            r, r, l1 - l0)
+        rhs_w = torch.einsum("rub,ub->rb", C, Vz[:, lanes])
+        y = rhs_w
+        if l1 > l0:
+            y = batched_solve_lanes(S_w, rhs_w[:, None, :],
+                                    impl=big_solve)[:, 0]
+        y = mesh.hgather(y, B, -1)
 
-    # back-substitution of this rank's harmonics, the fundamental block
-    # padded to 2n, gathered
-    yb = y.reshape(H, r_blk, B)
-    x = zh - torch.einsum("kdsb,ksb->kdb", Xh, yb[s0:h1])  # (h1-s0, 2n, B)
-    if h0 == 0:
-        x0 = z0 - torch.einsum("dsb,sb->db", X0, yb[0])
-        x = torch.cat([torch.cat([x0, x0.new_zeros((k2 - d0, B))])[None],
-                       x], dim=0)
-    x = mesh.hgather(x, H, 0)                             # (H, 2n, B)
-    xp = torch.cat([x[0, :d0], x[1:].reshape(K * k2, B)], dim=0)
-    return xp[consts.x_perm]
+    with _span("trip.backsub"):
+        # back-substitution of this rank's harmonics, the fundamental block
+        # padded to 2n, gathered
+        yb = y.reshape(H, r_blk, B)
+        # (h1-s0, 2n, B)
+        x = zh - torch.einsum("kdsb,ksb->kdb", Xh, yb[s0:h1])
+        if h0 == 0:
+            x0 = z0 - torch.einsum("dsb,sb->db", X0, yb[0])
+            x = torch.cat([torch.cat([x0, x0.new_zeros((k2 - d0, B))])[None],
+                           x], dim=0)
+        x = mesh.hgather(x, H, 0)                         # (H, 2n, B)
+        xp = torch.cat([x[0, :d0], x[1:].reshape(K * k2, B)], dim=0)
+        return xp[consts.x_perm]
 
 
 # ---------------------------------------------------------------------------
@@ -539,22 +611,26 @@ def solve_fundamental_lanes(Y1: Cx, S: Cx, net: Network, settings: Settings,
     it = torch.zeros((B,), dtype=torch.int32, device=dv)
     t = 0
     act = (err > thresh_eff) & (it < settings.max_iter_f)
-    while bool(act.any()):
-        _trip(log)
-        J = _fund_jacobian_lanes(V_m, V_a, Y1, n, c)
-        x_new = x - batched_solve_lanes(J, f[:, None, :])[:, 0]
-        Va_new = torch.cat([V_a[:1], x_new[: n - 1]], dim=0)
-        Vm_new = torch.cat([V_m[:c], x_new[n - 1:]], dim=0)
-        f_new, err_new = _fund_mismatch_lanes(Vm_new, Va_new, Y1, S, c, lineY)
-        V_m = torch.where(act, Vm_new, V_m)
-        V_a = torch.where(act, Va_new, V_a)
-        x = torch.where(act, x_new, x)
-        f = torch.where(act, f_new, f)
-        err = torch.where(act, err_new, err)
-        hist[t] = torch.where(act, err_new, hist[t])
-        it = it + act.to(torch.int32)
-        t += 1
-        act = (err > thresh_eff) & (it < settings.max_iter_f)
+    go = _read(log, bool, act.any())
+    while go:
+        with _span("fund_trip"):
+            _trip(log)
+            J = _fund_jacobian_lanes(V_m, V_a, Y1, n, c)
+            x_new = x - batched_solve_lanes(J, f[:, None, :])[:, 0]
+            Va_new = torch.cat([V_a[:1], x_new[: n - 1]], dim=0)
+            Vm_new = torch.cat([V_m[:c], x_new[n - 1:]], dim=0)
+            f_new, err_new = _fund_mismatch_lanes(Vm_new, Va_new, Y1, S, c,
+                                                  lineY)
+            V_m = torch.where(act, Vm_new, V_m)
+            V_a = torch.where(act, Va_new, V_a)
+            x = torch.where(act, x_new, x)
+            f = torch.where(act, f_new, f)
+            err = torch.where(act, err_new, err)
+            hist[t] = torch.where(act, err_new, hist[t])
+            it = it + act.to(torch.int32)
+            t += 1
+            act = (err > thresh_eff) & (it < settings.max_iter_f)
+            go = _read(log, bool, act.any())
     return FundLanes(V_m, V_a, err, it, hist, err <= thresh_eff)
 
 
@@ -608,30 +684,40 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
     it = torch.zeros((B,), dtype=torch.int32, device=dv)
     t = 0
     act = (err > thresh_eff) & (it < settings.max_iter_h)
-    while bool(act.any()):
-        _trip(log)
-        impl = settings.big_solve
-        if impl == "warmup":
-            # blocked-Schur steps far from the root, direct steps after
-            impl = "schur" if t < settings.big_solve_warmup else "direct"
-        dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
-                              big_solve=impl, mesh=mesh)
-        x_new = x - dx
-        Va_new = torch.cat([V_a.reshape(D, B)[:1], x_new[: D - 1]],
-                           dim=0).reshape(H, n, B)
-        Vm_new = torch.cat([V_m.reshape(D, B)[:c], x_new[D - 1:]],
-                           dim=0).reshape(H, n, B)
-        f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev, inj_db,
-                                        m, n, c, lineY, ibg=ibg, mesh=mesh)
-        V_m = torch.where(act, Vm_new, V_m)
-        V_a = torch.where(act, Va_new, V_a)
-        x = torch.where(act, x_new, x)
-        f = torch.where(act, f_new, f)
-        err = torch.where(act, err_new, err)
-        hist[t] = torch.where(act, err_new, hist[t])
-        it = it + act.to(torch.int32)
-        t += 1
-        act = (err > thresh_eff) & (it < settings.max_iter_h)
+    go = _read(log, bool, act.any())
+    t_read = _clock(log)
+    while go:
+        with _span("trip"):
+            _trip(log)
+            impl = settings.big_solve
+            if impl == "warmup":
+                # blocked-Schur steps far from the root, direct steps after
+                impl = "schur" if t < settings.big_solve_warmup else "direct"
+            dx = arrow_step_lanes(V_m, V_a, f, Y, dev, inj_db, consts,
+                                  big_solve=impl, mesh=mesh)
+            with _span("trip.mismatch"):
+                # the trial state and its mismatch
+                x_new = x - dx
+                Va_new = torch.cat([V_a.reshape(D, B)[:1], x_new[: D - 1]],
+                                   dim=0).reshape(H, n, B)
+                Vm_new = torch.cat([V_m.reshape(D, B)[:c], x_new[D - 1:]],
+                                   dim=0).reshape(H, n, B)
+                f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev,
+                                                inj_db, m, n, c, lineY,
+                                                ibg=ibg, mesh=mesh)
+            with _span("trip.update"):
+                V_m = torch.where(act, Vm_new, V_m)
+                V_a = torch.where(act, Va_new, V_a)
+                x = torch.where(act, x_new, x)
+                f = torch.where(act, f_new, f)
+                err = torch.where(act, err_new, err)
+                hist[t] = torch.where(act, err_new, hist[t])
+                it = it + act.to(torch.int32)
+                t += 1
+                act = (err > thresh_eff) & (it < settings.max_iter_h)
+            with _span("trip.read"):
+                go = _read(log, bool, act.any())
+        t_read = _harmonic_trip(log, t_read)
     return V_m, V_a, err, it, hist
 
 
@@ -893,14 +979,14 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     conv_g = mesh.all_gather(conv, Bg, dim=-1)
     if isinstance(rescue_width, (tuple, list)):
         widths = sorted({min(Bg, max(1, int(w))) for w in rescue_width})
-        n_bad = int((~conv_g).sum())
+        n_bad = _read(log, int, (~conv_g).sum())
         K = widths[sum(n_bad > w for w in widths[:-1])]
     else:
         K = min(Bg, rescue_width if rescue_width is not None
                 else max(128, Bg // 16))
     # unconverged lanes first (stable: deterministic padding choice)
     bad = torch.argsort(conv_g.to(rd), stable=True)[:K]
-    bad = bad[(bad >= lo) & (bad < hi)] - lo
+    bad = _read(log, torch.masked_select, bad, (bad >= lo) & (bad < hi)) - lo
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
     gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
@@ -1168,7 +1254,8 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
             # the padding's choice is deterministic)
             bad = torch.argsort(conv.to(rd), stable=True)[:min(Bc, B)]
             lo, hi = mesh.bounds(B)
-            bad = bad[(bad >= lo) & (bad < hi)]
+            bad = _read(log, torch.masked_select, bad,
+                        (bad >= lo) & (bad < hi))
             out = _continuation_rescue(V_m, V_a, err, n_iter, hist, conv,
                                        bad, gather, cold_state, Y, lineY, m,
                                        settings, consts, log, mesh=mesh)

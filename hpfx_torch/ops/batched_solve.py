@@ -48,6 +48,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import spanned
+
 #: dims <= this take the plain PyTorch elimination (the JAX package's
 #: unrolled-XLA ``gj_solve_xla_lanes`` range)
 XLA_GJ_MAX_DIM = 16
@@ -642,6 +644,7 @@ def schur_solve_lanes(A, b, leaf=None, panel: int = SCHUR_PANEL):
     return x.permute(1, 2, 0).contiguous()
 
 
+@spanned("solve")
 def batched_solve_lanes(A, b, impl: str = "auto"):
     """Lane-major batched solve: A (n, n, B), b (n, R, B) -> x (n, R, B).
 
@@ -659,7 +662,9 @@ def batched_solve_lanes(A, b, impl: str = "auto"):
       ``SCHUR_MODE == "mid"``;
     * otherwise :func:`equilibrated_gauss_solve_lanes` (``gj_kernel`` for
       n < 64, ``gj_kernel_carried`` up to 192; on the card the
-      equilibration runs inside them)."""
+      equilibration runs inside them).
+
+    Each call is one ``hpfx.solve`` span under a profiler."""
     n = A.shape[0]
     if A.dtype == torch.float64:
         return _lu_solve_lanes(A, b)

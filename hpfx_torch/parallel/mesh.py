@@ -48,9 +48,12 @@ from typing import TYPE_CHECKING, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import spanned
+
 if TYPE_CHECKING:       # the solvers import this module: no cycle at run time
     from ..config import Settings
     from ..harmonic import HPFResult
+    from ..lanes import PhaseLog
     from ..network import Network
     from ..solve import Scenarios, SweepSummary
 
@@ -66,12 +69,14 @@ def _piece(n: int, k: int, i: int):
     return lo, lo + q + (i < r)
 
 
+@spanned("gather")
 def _gather(x: torch.Tensor, n: int, dim: int, group, ranks: tuple,
             rank: int) -> torch.Tensor:
     """The pieces of ``n`` items along ``dim`` of the ranks ``ranks`` of
     ``group`` (this rank's is ``x``; the sizes of ``numpy.array_split``),
     concatenated in rank order: one ``all_gather`` of the pieces padded to
-    the largest, under every backend.  Booleans travel as bytes."""
+    the largest, under every backend.  Booleans travel as bytes.  One
+    ``hpfx.gather`` span under a profiler."""
     dim = dim % x.ndim
     wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     k = len(ranks)
@@ -382,14 +387,16 @@ def hpf_single_hsharded(net: Network, devices, settings: Settings,
 
 
 def hpf_sweep_sharded2d(net: Network, devices, settings: Settings,
-                        scenarios: Scenarios, mesh: Mesh) -> HPFResult:
+                        scenarios: Scenarios, mesh: Mesh,
+                        log: Optional[PhaseLog] = None) -> HPFResult:
     """Batched HPF sweep on a 2-D scenario x harmonic mesh (DP x TP):
     :func:`hpfx_torch.lanes.hpf_sweep_lanes` with the batch split over the
     scenario axis and each piece's Newton trip over its harmonic group.
     Build ``mesh`` with :func:`hpf_mesh`.  Requires the lanes-supported
     configuration (``Settings.solver="arrow"``); the batch is padded to
     the scenario axis, and every rank gets the whole batch-major
-    result."""
+    result.  ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` of this
+    rank's trips and reads."""
     from ..lanes import hpf_sweep_lanes, supports_lanes
 
     if not supports_lanes(devices, settings, net):
@@ -400,7 +407,8 @@ def hpf_sweep_sharded2d(net: Network, devices, settings: Settings,
     if mesh.index is not None:
         res = hpf_sweep_lanes(_replicate(net, mesh),
                               _replicate(devices, mesh), settings,
-                              scenarios.to(mesh.device), mesh=mesh)
+                              scenarios.to(mesh.device), log=log,
+                              mesh=mesh)
     return _gather_result(mesh, res, scenarios.batch, B)
 
 
@@ -431,12 +439,14 @@ def hpf_sweep_continuation_sharded(net: Network, devices,
     return _share(mesh, res)
 
 
+@spanned("sweep")
 def hpf_sweep_adaptive_sharded(net: Network, devices,
                                settings: Settings,
                                scenarios: Scenarios, mesh: Mesh,
                                phase_iters: int = 24,
                                rescue_width=None,
-                               warm: str = "cold") -> HPFResult:
+                               warm: str = "cold",
+                               log: Optional[PhaseLog] = None) -> HPFResult:
     """The adaptive sweep (:func:`hpfx_torch.lanes.
     hpf_sweep_adaptive_lanes`: phase-capped trip, gathered straggler
     rescue, cold restart) with every Newton trip sharded over ``mesh``, a
@@ -446,7 +456,8 @@ def hpf_sweep_adaptive_sharded(net: Network, devices,
     convergence masks of the whole padded batch, gathered from every
     rank (and a tuple ``rescue_width``'s bucket from their global count),
     as the JAX program's ``argsort`` over the sharded batch chooses
-    them."""
+    them.  ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` of this
+    rank's phases."""
     from ..lanes import hpf_sweep_adaptive_lanes, supports_lanes
 
     if not supports_lanes(devices, settings, net):
@@ -458,7 +469,7 @@ def hpf_sweep_adaptive_sharded(net: Network, devices,
         res = hpf_sweep_adaptive_lanes(
             _replicate(net, mesh), _replicate(devices, mesh), settings,
             scenarios.to(mesh.device), phase_iters=phase_iters,
-            rescue_width=rescue_width, warm=warm,
+            rescue_width=rescue_width, warm=warm, log=log,
             mesh=mesh)
     return _gather_result(mesh, res, scenarios.batch, B)
 

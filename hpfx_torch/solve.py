@@ -39,11 +39,12 @@ from .cx import Cx
 from .devices import DeviceLibrary, check_devices
 from .fundamental import FundResult, solve_fundamental
 from .harmonic import HPFResult, solve_harmonic
-from .lanes import (PhaseLog, _phase, _sync, _trip,
+from .lanes import (PhaseLog, _phase, _read, _sync, _trip,
                     hpf_sweep_adaptive_lanes, hpf_sweep_lanes,
                     supports_lanes)
 from .network import Network
 from .results import get_thd
+from .utils.profiling import spanned
 from .ybus import build_ybus, line_ybus_pair, resolve_ybus
 
 
@@ -213,10 +214,11 @@ def _put(full, idx, val):
     return out
 
 
-def _bucket_pending(converged, B: int):
+def _bucket_pending(converged, B: int, log: Optional[PhaseLog] = None):
     """Indices of unconverged scenarios padded, with repeats of the first,
-    to the next power of two (at most B); None when all converged."""
-    pend = torch.nonzero(~converged).flatten()
+    to the next power of two (at most B); None when all converged.  One
+    host read, counted in ``log``."""
+    pend = _read(log, torch.nonzero, ~converged).flatten()
     if pend.numel() == 0:
         return None
     bucket = min(1 << (pend.numel() - 1).bit_length(), B)
@@ -224,14 +226,16 @@ def _bucket_pending(converged, B: int):
 
 
 def _rescue_sweep(settings: Settings, scenarios: Scenarios, out: HPFResult,
-                  run, run64=None, take=None) -> HPFResult:
+                  run, run64=None, take=None,
+                  log: Optional[PhaseLog] = None) -> HPFResult:
     """Deterministic straggler rescue (``hpfx.solve._rescue_sweep``):
     re-solve unconverged scenarios with a fresh budget, first warm from
     their own final state (flat where it went non-finite), then from the
     cold flat start; ``run64`` re-solves what survives both in float64.
     ``take(idx)`` selects the batch carrier's rows (default: the
     scenarios'); ``run(take(idx), V0)`` and ``run64(take(idx))`` return
-    batch-major results."""
+    batch-major results.  Each pass that finds lanes pending is a phase
+    of ``log``: "rescue_self", "rescue_cold", "rescue_float64"."""
     if take is None:
         take = lambda idx: _take_scen(scenarios, idx)  # noqa: E731
 
@@ -244,30 +248,32 @@ def _rescue_sweep(settings: Settings, scenarios: Scenarios, out: HPFResult,
             err_hist=_put(out.err_hist, idx, res_r.err_hist),
             converged=_put(out.converged, idx, res_r.converged))
 
-    B = out.V_m.shape[0]
+    B, dv = out.V_m.shape[0], out.V_m.device
     flat_m = torch.full(out.V_m.shape[1:], settings.v_init_h,
-                        dtype=out.V_m.dtype, device=out.V_m.device)
+                        dtype=out.V_m.dtype, device=dv)
     flat_m[0] = settings.v_init_f
     flat_a = torch.full_like(flat_m, settings.a_init_h)
     flat_a[0] = settings.a_init_f
     for use_self in (True, False):
-        idx = _bucket_pending(out.converged, B)
+        idx = _bucket_pending(out.converged, B, log)
         if idx is None:
             return out
-        if use_self:
-            Vm0, Va0 = out.V_m[idx], out.V_a[idx]
-            finite = (torch.isfinite(Vm0).flatten(1).all(dim=1)
-                      & torch.isfinite(Va0).flatten(1).all(dim=1))
-            Vm0 = torch.where(finite[:, None, None], Vm0, flat_m)
-            Va0 = torch.where(finite[:, None, None], Va0, flat_a)
-        else:
-            Vm0 = flat_m.expand((idx.numel(),) + flat_m.shape)
-            Va0 = flat_a.expand((idx.numel(),) + flat_a.shape)
-        out = merge(out, idx, run(take(idx), (Vm0, Va0)))
+        with _phase(log, "rescue_self" if use_self else "rescue_cold", dv):
+            if use_self:
+                Vm0, Va0 = out.V_m[idx], out.V_a[idx]
+                finite = (torch.isfinite(Vm0).flatten(1).all(dim=1)
+                          & torch.isfinite(Va0).flatten(1).all(dim=1))
+                Vm0 = torch.where(finite[:, None, None], Vm0, flat_m)
+                Va0 = torch.where(finite[:, None, None], Va0, flat_a)
+            else:
+                Vm0 = flat_m.expand((idx.numel(),) + flat_m.shape)
+                Va0 = flat_a.expand((idx.numel(),) + flat_a.shape)
+            out = merge(out, idx, run(take(idx), (Vm0, Va0)))
     if run64 is not None and settings.real_dtype != torch.float64:
-        idx = _bucket_pending(out.converged, B)
+        idx = _bucket_pending(out.converged, B, log)
         if idx is not None:
-            out = merge(out, idx, run64(take(idx)))
+            with _phase(log, "rescue_float64", dv):
+                out = merge(out, idx, run64(take(idx)))
     return out
 
 
@@ -283,7 +289,7 @@ def _host_rescue(net: Network, devices, settings: Settings,
                                    Y=Y, I_bg=sub[1], log=log),
         run64=lambda sub: _f64_resolve(net, devices, settings, sub[0], Y=Y,
                                        I_bg=sub[1], log=log),
-        take=take)
+        take=take, log=log)
 
 
 def _device_program(settings: Settings, phase_iters: int, warm: str,
@@ -307,6 +313,7 @@ def _device_program(settings: Settings, phase_iters: int, warm: str,
     return program
 
 
+@spanned("sweep")
 def hpf_sweep_device(net: Network, devices, settings: Settings,
                      scenarios: Scenarios, phase_iters: int = 16,
                      program=None, rescue: bool = True, warm: str = "cold",
@@ -325,12 +332,13 @@ def hpf_sweep_device(net: Network, devices, settings: Settings,
     gets ``I_bg=`` when one is given.  ``I_bg``: optional (B, H, n)
     background injections, threaded through every rescue pass.
     ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` that records
-    each phase's time and Newton trips (of the default program)."""
+    each phase's time, Newton trips and host reads (of the default
+    program), the host rescue's passes as phases inside "host_rescue"."""
     program = _device_program(settings, phase_iters, warm, rescue_width,
                               program, "hpf_sweep_device", log)
     kw = {} if I_bg is None else dict(I_bg=I_bg)
     out = program(net, devices, scenarios=scenarios, **kw)
-    if rescue and not bool(out.converged.all()):
+    if rescue and not _read(log, bool, out.converged.all()):
         with _phase(log, "host_rescue", net.device):
             out = _host_rescue(net, devices, settings, scenarios, out,
                                I_bg=I_bg, log=log)
@@ -359,7 +367,7 @@ def hpf_sweep_stream(net: Network, devices, settings: Settings,
     depth = max(1, int(depth))
 
     def finish(sc, out):
-        if rescue and not bool(out.converged.all()):
+        if rescue and not _read(None, bool, out.converged.all()):
             out = _host_rescue(net, devices, settings, sc, out)
         _sync(net.device)
         return out
@@ -373,6 +381,7 @@ def hpf_sweep_stream(net: Network, devices, settings: Settings,
         yield finish(*inflight.popleft())
 
 
+@spanned("sweep")
 def hpf_sweep_adaptive(net: Network, devices, settings: Settings,
                        scenarios: Scenarios, phase_iters: int = 16,
                        phase2_settings: Optional[Settings] = None,
@@ -397,7 +406,8 @@ def hpf_sweep_adaptive(net: Network, devices, settings: Settings,
     ``I_bg``: optional (B, H, n) background injections; every phase and
     rescue pass, float64 included, takes the matching rows.  ``log``:
     optional :class:`PhaseLog` with the phases "seed", "phase1",
-    "phase2" and "host_rescue"."""
+    "phase2" and "host_rescue" (its passes "rescue_self", "rescue_cold"
+    and "rescue_float64" inside it)."""
     dv = net.device
     if V0 is None and warm == "linear":
         if I_bg is not None:
@@ -422,7 +432,7 @@ def hpf_sweep_adaptive(net: Network, devices, settings: Settings,
     hist = torch.full((B, settings.max_iter_h), float("nan"),
                       dtype=r1.err_hist.dtype, device=dv)
     hist[:, :p1] = r1.err_hist
-    idx = _bucket_pending(r1.converged, B)
+    idx = _bucket_pending(r1.converged, B, log)
     if idx is None or p1 == settings.max_iter_h:
         r1 = r1._replace(err_hist=hist)
         return rescue_(r1) if rescue and idx is not None else r1

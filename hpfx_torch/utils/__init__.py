@@ -1,12 +1,12 @@
 """Utilities of the port (``hpfx.utils`` without ``backend_guard`` and the
-compilation cache, which are workarounds for the TPU's runtime)."""
+compilation cache, which are workarounds for the TPU's runtime, and
+without ``PhaseTimer``, whose place :class:`hpfx_torch.lanes.PhaseLog`
+takes)."""
 from .precision import highest_precision
 from .profiling import debug_nans, profile_trace
-from .timing import PhaseTimer
 
 __all__ = [
     "highest_precision",
-    "PhaseTimer",
     "debug_nans",
     "profile_trace",
 ]

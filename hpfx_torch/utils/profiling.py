@@ -1,23 +1,61 @@
 """Profiling hooks (``hpfx.utils.profiling``): a ``torch.profiler`` trace
-in place of ``jax.profiler``'s, and a NaN check on every operation in
-place of ``jax_debug_nans``."""
+in place of ``jax.profiler``'s, the program's own spans in it, and a NaN
+check on every operation in place of ``jax_debug_nans``.
+
+The sweep path opens a span (:func:`span`) around each entry call
+(``hpfx.sweep``), each phase of a sweep (``hpfx.phase.<name>``, the
+names of :class:`hpfx_torch.lanes.PhaseLog`), each fundamental and
+harmonic Newton trip (``hpfx.fund_trip``, ``hpfx.trip``), each stage of
+a harmonic trip (``hpfx.trip.mismatch``, ``.blocks``, ``.block_solve``,
+``.capacitance``, ``.backsub``, ``.update``, ``.read``), each batched
+solve (``hpfx.solve``) and each collective of a mesh (``hpfx.gather``).
+A span is a ``record_function`` on the profiler's clock, the clock of
+its device records, so a trace puts every kernel and every idle gap of
+the card down to the span whose host code launched or waited for it.
+With no profiler recording, a span costs a flag read and a branch."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+#: the context a span is when no profiler records: shared, it does nothing
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span named ``hpfx.<name>`` while a
+    ``torch.profiler`` records (the flag its ``profile`` sets on entry and
+    clears on exit), else a shared context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function("hpfx." + name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function inside :func:`span` ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Trace the block with ``torch.profiler`` (CPU activities, and CUDA's
     when a card is present) and write it as a Chrome trace
-    ``<log_dir>/trace.json`` (open it in chrome://tracing or Perfetto).
-    Yields the profiler."""
+    ``<log_dir>/trace.json`` (open it in chrome://tracing or Perfetto),
+    with the program's ``hpfx.*`` spans (:func:`span`).  Yields the
+    profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

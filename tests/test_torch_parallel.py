@@ -208,6 +208,8 @@ def test_gloo_ranks_match_the_reference(world, dryruns):
     assert len(out["p"]) % world != 0       # the padding is exercised
     assert 0.0 < float(out["frac"]) < 1.0
     assert int(out["aconv"].sum()) == 2 and not out["aconv"][2:].any()
+    # the straggler masks' gather and one a leaf of the result (12)
+    assert int(out["agathers"]) == int(out["wgathers"]) == 13
     _compare(out, _jax_reference(out, world))
     if world == 3:
         np.testing.assert_array_equal(out["subV"], out["V"])
@@ -218,9 +220,11 @@ def test_gloo_ranks_match_the_reference(world, dryruns):
 def test_dryrun_multichip_two_ranks(dryruns):
     """The 2-rank dry run (the run of test_gloo_ranks_match_the_reference
     [2]) reports every check of ``__graft_entry__``'s 1-D mesh and its
-    2-D block."""
+    2-D block, and the sharded adaptive sweeps' PhaseLog and gather
+    spans."""
     out, _ = dryruns(2)
     for what in ("converged batch of 5", "device-mix", "continuation",
                  "adaptive sweep", "warm-seeded adaptive", "2-D (1, 2)",
-                 "sweep_sensitivity", "ieee519_screen"):
+                 "sweep_sensitivity", "ieee519_screen", "PhaseLog",
+                 "13 hpfx.gather spans"):
         assert what in out, out

@@ -112,7 +112,9 @@ def test_sweep_device_rescue_overflow_matches_jax(jax_overflow):
     r = _run_torch(32, "float64", log=log, phase_iters=1, rescue_width=4)
     _assert_f64_parity(jax_overflow, r)
     assert log.trips["rescue_phase2"] > 0
-    assert log.trips["host_rescue"] > 0
+    # the host rescue's trips are counted in its passes, phases inside it
+    assert "host_rescue" in log.seconds and log.trips["host_rescue"] == 0
+    assert log.trips["rescue_self"] + log.trips.get("rescue_cold", 0) > 0
     assert r.converged.all()
 
 

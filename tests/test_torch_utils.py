@@ -1,6 +1,6 @@
-"""hpfx_torch.utils and hpfx_torch.entry on the CPU: the phase timer, the
-NaN check, the precision guard, the profiler trace, ``entry()`` against
-the JAX package's (the two-rank dry run is in test_torch_parallel)."""
+"""hpfx_torch.utils and hpfx_torch.entry on the CPU: the NaN check, the
+precision guard, the profiler trace, ``entry()`` against the JAX
+package's (the two-rank dry run is in test_torch_parallel)."""
 import json
 import os
 
@@ -12,24 +12,11 @@ import torch
 import hpfx
 import hpfx_torch as ht
 from hpfx_torch.entry import entry
-from hpfx_torch.utils import (PhaseTimer, debug_nans, highest_precision,
-                              profile_trace)
+from hpfx_torch.utils import debug_nans, highest_precision, profile_trace
 from test_torch_foundations import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "hpfx", "data")
-
-
-def test_phase_timer_accumulates_phases():
-    t = PhaseTimer()
-    for _ in range(2):
-        with t.phase("a"):
-            pass
-    with t.phase("b"):
-        pass
-    rep = t.report()
-    assert set(rep) == {"a", "b", "total"}
-    assert 0.0 <= rep["a"] <= rep["total"] and rep["b"] >= 0.0
 
 
 def test_debug_nans_raises_at_the_first_nan():
