@@ -76,7 +76,10 @@ class PhaseLog:
     ``reads`` counts the sweep's device-to-host reads (:func:`_read`: the
     loops' convergence tests, the straggler counts and bucket indices), by
     the phase open at each (:data:`OUTSIDE` where none is); the phases'
-    own synchronisations are not reads."""
+    own synchronisations are not reads.  ``stragglers`` sums, over the
+    calls, the gathered lanes of :func:`hpf_sweep_adaptive_lanes` still
+    unconverged after phase 1 (those a rank holds, under a mesh): the
+    calls where it grows are those whose rescue passes ran."""
 
     def __init__(self):
         self.seconds = {}
@@ -84,6 +87,7 @@ class PhaseLog:
         self.reads = {}
         self.harmonic_trips = {}
         self.harmonic_trip_seconds = {}
+        self.stragglers = 0
         self._current = None
 
     @contextlib.contextmanager
@@ -919,12 +923,19 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
          fundamental row replaced by the sweep's own fundamental) or
          (``warm="linear"``, Norton devices) the exact-linear seed;
       2. phase 2: the ``rescue_width`` worst lanes (default
-         ``max(128, B // 16)``) are gathered into a narrow batch and
-         continue warm from their own phase-1 state with the remaining
-         budget (converged gather-padding lanes keep a lifted threshold);
-      3. cold restart: lanes still unconverged restart from the flat
-         start with a fresh full budget;
+         ``max(128, B // 16)``) are gathered into a narrow batch; those
+         still unconverged continue warm from their own phase-1 state
+         with the remaining budget;
+      3. cold restart: gathered lanes still unconverged restart from the
+         flat start with a fresh full budget;
       4. scatter back, splicing full-width ``err_hist``.
+
+    Both passes keep only the results of the lanes they were given
+    unconverged, so the converged gathered lanes (the gather's padding,
+    and what phase 2 converged) take an infinite threshold there: they are
+    inactive from the pass's first read, and its loop ends when the kept
+    lanes are done.  Where phase 1 left no gathered lane unconverged (one
+    host read), neither pass runs; their phases still open, empty.
 
     Stragglers beyond the width keep their phase-1 state and are reported
     unconverged.  A tuple ``rescue_width`` gives bucketed widths: the
@@ -988,6 +999,13 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     bad = torch.argsort(conv_g.to(rd), stable=True)[:K]
     bad = _read(log, torch.masked_select, bad, (bad >= lo) & (bad < hi)) - lo
     was_bad = ~conv[bad]
+    # under a mesh each scenario rank counts the lanes it holds, as its
+    # trip loops read theirs; the ranks of one harmonic group hold the
+    # same lanes, so they run or skip the passes, and the gathers inside
+    # them, alike
+    n_strag = _read(log, int, was_bad.sum())
+    if log is not None:
+        log.stragglers += n_strag
     g = lambda x: x.index_select(-1, bad)
     gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
     S_k = gcx(su.S)
@@ -1001,10 +1019,8 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
 
     def rescue_pass(s_pass, Vm0, Va0, state):
         Vmk, Vak, errk, nitk, convk = state
-        # converged gather-padding stays inactive: its threshold is lifted
-        # to its achieved error
-        thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
-                               thresh_k)
+        # a converged lane's result is dropped below: it takes no trip
+        thresh_r = thresh_k.masked_fill(convk, float("inf"))
         Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
             su.Y, su.lineY, S_k, dev_k, inj_k, Vm0, Va0, s_pass,
             su.consts, thresh_r, ibg=ibg_k, log=log, mesh=mesh)
@@ -1021,35 +1037,40 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
         # phase 2: continue warm from the cleaned phase-1 state (cold where
         # it went non-finite — a NaN state no-ops the trip at iteration 0)
         with _phase(log, "rescue_phase2", dv):
-            Vmk, Vak = state[0], state[1]
-            finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
-                      & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
-            use_self = (finite | state[4])[None, None, :]
-            Vmc, Vac = cleanup_voltages(Vmk, Vak)
-            s2 = settings.with_(max_iter_h=settings.max_iter_h - p1)
-            state, redo, hist2 = rescue_pass(
-                s2, torch.where(use_self, Vmc, coldVm_k),
-                torch.where(use_self, Vac, coldVa_k), state)
-            hist[p1:, bad] = torch.where(redo[None, :], hist2,
-                                         hist[p1:, bad])
+            if n_strag:
+                Vmk, Vak = state[0], state[1]
+                finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
+                          & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
+                use_self = (finite | state[4])[None, None, :]
+                Vmc, Vac = cleanup_voltages(Vmk, Vak)
+                s2 = settings.with_(max_iter_h=settings.max_iter_h - p1)
+                state, redo, hist2 = rescue_pass(
+                    s2, torch.where(use_self, Vmc, coldVm_k),
+                    torch.where(use_self, Vac, coldVa_k), state)
+                hist[p1:, bad] = torch.where(redo[None, :], hist2,
+                                             hist[p1:, bad])
 
     # cold restart with a fresh full budget for anything STILL stuck; its
     # history replaces the whole row (a restart, not a resume)
     with _phase(log, "cold_restart", dv):
-        state, redo, hist3 = rescue_pass(settings, coldVm_k, coldVa_k, state)
-        hist[:, bad] = torch.where(redo[None, :], hist3, hist[:, bad])
-    Vmk, Vak, errk, nitk, convk = state
+        if n_strag:
+            state, redo, hist3 = rescue_pass(settings, coldVm_k, coldVa_k,
+                                             state)
+            hist[:, bad] = torch.where(redo[None, :], hist3, hist[:, bad])
 
-    def sc(full, kk, mask):
-        out = full.clone()
-        out[..., bad] = torch.where(mask, kk, g(full))
-        return out
+    if n_strag:
+        Vmk, Vak, errk, nitk, convk = state
 
-    V_m = sc(V_m, Vmk, was_bad[None, None, :])
-    V_a = sc(V_a, Vak, was_bad[None, None, :])
-    err = sc(err, errk, was_bad)
-    n_iter = sc(n_iter, nitk, was_bad)
-    conv = sc(conv, convk, was_bad)
+        def sc(full, kk, mask):
+            out = full.clone()
+            out[..., bad] = torch.where(mask, kk, g(full))
+            return out
+
+        V_m = sc(V_m, Vmk, was_bad[None, None, :])
+        V_a = sc(V_a, Vak, was_bad[None, None, :])
+        err = sc(err, errk, was_bad)
+        n_iter = sc(n_iter, nitk, was_bad)
+        conv = sc(conv, convk, was_bad)
 
     V_m, V_a = cleanup_voltages(V_m, V_a)
     res = _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
