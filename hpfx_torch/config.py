@@ -1,10 +1,10 @@
 """Solver configuration: the PyTorch counterpart of :mod:`hpfx.config`.
 
-``Settings`` has the same fields and defaults as ``hpfx.config.Settings``,
-so one is built from the other with ``Settings(**dataclasses.asdict(s))``.
-Only the dtype rule differs: ``dtype`` is a string and ``None`` means
-float32 (the card's working type), where the JAX package follows its
-global x64 switch.
+``Settings`` has the fields and defaults of ``hpfx.config.Settings``, so
+one is built from the other with ``Settings(**dataclasses.asdict(s))``,
+and one field more, ``step_stop``.  The dtype rule differs: ``dtype`` is
+a string and ``None`` means float32 (the card's working type), where the
+JAX package follows its global x64 switch.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ def default_harmonics(h_max: int) -> Tuple[int, ...]:
 @dataclasses.dataclass(frozen=True)
 class Settings:
     """Frozen solver configuration; see ``hpfx.config.Settings`` for the
-    meaning of every field."""
+    meaning of every field but ``step_stop``."""
 
     harmonics: Tuple[int, ...] = default_harmonics(51)
     coupled: bool = False
@@ -49,6 +49,13 @@ class Settings:
     big_solve: str = "panel"
     big_solve_warmup: int = 12
     floor_kappa: float = 4.0
+    # the largest phasor step (pu) of the Newton trip after which a
+    # scenario whose threshold the floor lifted above thresh_h may stop
+    # (hpfx_torch.harmonic.long_step_err): Newton's quadratic convergence
+    # leaves it ~C·step² from the root, C under 10 on the IEEE 33-bus
+    # feeder's float32 trips, and no net1 or net2 trip that met its
+    # threshold stepped past 4e-3
+    step_stop: float = 1e-2
 
     # ---- derived quantities -------------------------------------------------
     @property

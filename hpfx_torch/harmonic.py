@@ -315,6 +315,28 @@ def mismatch_floor(V_m, Y: Cx, devices, m: int, settings: Settings,
     return eps * scale
 
 
+def lifted_threshold(thresh, settings: Settings):
+    """Where the floor lifted a finite threshold above ``thresh_h``.
+    There the mismatch alone does not tell the trip before Newton's
+    float32 plateau from the plateau, whose mismatch can read as high,
+    and the stop also tests the trip's phasor step
+    (:func:`long_step_err`)."""
+    return (thresh > settings.thresh_h) & torch.isfinite(thresh)
+
+
+def long_step_err(err, thresh, lifted, V_m, V_a, Vm_new, Va_new, dims,
+                  step_stop: float):
+    """``err`` of a trip's new state, raised past ``thresh`` where the
+    threshold is ``lifted``, the mismatch meets it and the trip moved a
+    phasor by more than ``step_stop`` (pu, ``Settings.step_stop``): to
+    ``thresh`` times the step over ``step_stop``, so that the lane takes
+    another trip.  ``dims``: the harmonic and bus axes of the voltages."""
+    step = (cx.polar(Vm_new, Va_new) - cx.polar(V_m, V_a)).abs().amax(
+        dim=dims)
+    long = lifted & (err <= thresh) & (step > step_stop)
+    return torch.where(long, thresh * (step / step_stop), err)
+
+
 def init_harmonic_voltages(fund: FundResult, net: Network,
                            settings: Settings):
     """Flat-start harmonic voltages with the fundamental solution in row 0,
@@ -345,14 +367,17 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
 
     ``V0``: optional (V_m, V_a) start in place of the flat start; the
     floor-aware threshold, max(thresh_h, floor_kappa·mismatch_floor), is
-    taken at the cold flat start either way.  ``record_trajectory`` keeps
-    the raw (V_m, V_a) of every iteration.  ``devices``: a Norton
-    DeviceSet or an AnalyticDeviceSet; anything else raises
-    ``TypeError``.  ``I_bg``: optional constant (..., H, n) background
-    injections (``hpfx_torch.background``; fundamental row zero): they
-    enter the mismatch and the floor, not the Jacobian.  ``settings.solver`` picks the
-    Newton step: "dense" solves the dense Jacobian (:func:`nr_solve`),
-    "arrow" its block and Woodbury structure (``hpfx_torch.arrow``).
+    taken at the cold flat start either way; where the floor lifts it
+    above ``thresh_h``, a scenario stops only after a trip that moved no
+    phasor by more than ``settings.step_stop`` (:func:`long_step_err`).
+    ``record_trajectory`` keeps the raw (V_m, V_a) of every iteration.
+    ``devices``: a Norton DeviceSet or an AnalyticDeviceSet; anything
+    else raises ``TypeError``.  ``I_bg``: optional constant (..., H, n)
+    background injections (``hpfx_torch.background``; fundamental row
+    zero): they enter the mismatch and the floor, not the Jacobian.
+    ``settings.solver`` picks the Newton step: "dense" solves the dense
+    Jacobian (:func:`nr_solve`), "arrow" its block and Woodbury structure
+    (``hpfx_torch.arrow``).
 
     Leading scenario axes (of ``fund``, the network's loads and the scaled
     device set) are solved as one batch, as the JAX package's ``vmap``
@@ -405,12 +430,17 @@ def solve_harmonic(Y: Cx, fund: FundResult, net: Network,
 
     it = torch.zeros(batch, dtype=torch.int32, device=dv)
     t = 0
-    act = (err > thresh) & (it < settings.max_iter_h)
+    # a lifted lane stops only after a short trip, so it takes one from
+    # wherever it starts
+    lifted = lifted_threshold(thresh, settings)
+    act = ((err > thresh) | lifted) & (it < settings.max_iter_h)
     while bool(act.any()):
         x_new = x - newton_step(V_m, V_a, f)
         Vm_new, Va_new = update_harmonic_voltages(V_m, V_a, x_new, H, n, c)
         f_new, err_new = harmonic_mismatch(Vm_new, Va_new, Y, S, devices,
                                            m, n, c, lineY, I_bg=I_bg)
+        err_new = long_step_err(err_new, thresh, lifted, V_m, V_a, Vm_new,
+                                Va_new, (-2, -1), settings.step_stop)
         a1, a2 = act[..., None], act[..., None, None]
         V_m = torch.where(a2, Vm_new, V_m)
         V_a = torch.where(a2, Va_new, V_a)

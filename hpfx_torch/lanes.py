@@ -32,7 +32,8 @@ from .config import Settings
 from .cx import Cx
 from .devices import AnalyticDeviceSet, DeviceLibrary, DeviceSet
 from .fundamental import FundResult
-from .harmonic import HPFResult, cleanup_voltages
+from .harmonic import (HPFResult, cleanup_voltages, lifted_threshold,
+                       long_step_err)
 from .network import Network
 from .ops.batched_solve import batched_solve_lanes
 from .parallel.mesh import ALONE
@@ -394,6 +395,21 @@ def _coupling_lanes(V_m, V_a, dev, inj_db, m: int):
     return K_V * s, K_A * s
 
 
+def solve_arrow_blocks_lanes(D, rhs):
+    """The arrow step's block solves: (k, k, b) blocks, each harmonic's
+    block of every lane, and their (k, R, b) right-hand sides -> (k, R,
+    b).  Its own function, called through the module, so that a trace can
+    tell it from :func:`solve_capacitance_lanes`."""
+    return batched_solve_lanes(D, rhs)
+
+
+def solve_capacitance_lanes(S_w, rhs, big_solve: str = "auto"):
+    """The arrow step's capacitance solve: (r, r, b) systems and (r, b)
+    right-hand sides -> (r, b), past the direct kernels by ``big_solve``
+    (:func:`batched_solve_lanes`'s ``impl``)."""
+    return batched_solve_lanes(S_w, rhs[:, None, :], impl=big_solve)[:, 0]
+
+
 def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
                      consts: _ArrowConsts, big_solve: str = "auto",
                      mesh=ALONE):
@@ -493,7 +509,7 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
         if Hl > 0:
             D_flat = D_all.permute(1, 2, 0, 3).reshape(k2, k2, Hl * B)
             rhs_flat = rhs_all.permute(1, 2, 0, 3).reshape(k2, R, Hl * B)
-            sol = batched_solve_lanes(D_flat, rhs_flat)
+            sol = solve_arrow_blocks_lanes(D_flat, rhs_flat)
             # (Hl, 2n, R, B)
             sol_all = sol.reshape(k2, R, Hl, B).permute(2, 0, 1, 3)
 
@@ -539,8 +555,7 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
         rhs_w = torch.einsum("rub,ub->rb", C, Vz[:, lanes])
         y = rhs_w
         if l1 > l0:
-            y = batched_solve_lanes(S_w, rhs_w[:, None, :],
-                                    impl=big_solve)[:, 0]
+            y = solve_capacitance_lanes(S_w, rhs_w, big_solve)
         y = mesh.hgather(y, B, -1)
 
     with _span("trip.backsub"):
@@ -669,8 +684,11 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
     injections.  ``mesh``: a mesh whose harmonic group splits each trip
     (:func:`mismatch_lanes`, :func:`arrow_step_lanes`); every rank of the
     group holds the same state, so each takes the same loop decisions.
-    Returns raw (V_m, V_a, err, n_iter, err_hist); callers apply
-    ``cleanup_voltages``."""
+    A lane stops where ``err`` meets ``thresh_eff``; where the floor lifted
+    that above ``thresh_h``, ``err`` reads past it after a trip longer
+    than ``settings.step_stop``
+    (:func:`hpfx_torch.harmonic.long_step_err`).  Returns raw (V_m, V_a,
+    err, n_iter, err_hist); callers apply ``cleanup_voltages``."""
     idx = consts.idx
     H, n, m, c = idx.H, idx.n, idx.m, idx.c
     B = V_m.shape[-1]
@@ -687,7 +705,10 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
 
     it = torch.zeros((B,), dtype=torch.int32, device=dv)
     t = 0
-    act = (err > thresh_eff) & (it < settings.max_iter_h)
+    # a lifted lane stops only after a short trip, so it takes one from
+    # wherever it starts (:func:`hpfx_torch.harmonic.lifted_threshold`)
+    lifted = lifted_threshold(thresh_eff, settings)
+    act = ((err > thresh_eff) | lifted) & (it < settings.max_iter_h)
     go = _read(log, bool, act.any())
     t_read = _clock(log)
     while go:
@@ -709,6 +730,9 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
                 f_new, err_new = mismatch_lanes(Vm_new, Va_new, Y, S, dev,
                                                 inj_db, m, n, c, lineY,
                                                 ibg=ibg, mesh=mesh)
+                err_new = long_step_err(err_new, thresh_eff, lifted, V_m,
+                                        V_a, Vm_new, Va_new, (0, 1),
+                                        settings.step_stop)
             with _span("trip.update"):
                 V_m = torch.where(act, Vm_new, V_m)
                 V_a = torch.where(act, Va_new, V_a)
