@@ -20,7 +20,8 @@ kernels, and checks them:
      gj_kernel_unrolled against the plain twin at a small batch, with and
      without the equilibration inside; holds each kernel against its plain
      PyTorch version at its paths' shapes (max |x_kernel - x_plain| <=
-     1e-4 * max |x_plain|; the direct kernels also with the equilibration
+     1e-4 * max |x_plain|, and the direct kernels' x within as much of
+     float64 LU's; the direct kernels also with the equilibration
      inside, as batched_solve_lanes runs them, on systems whose rows are
      scaled over 1e-3..1e3, against equilibrated_lanes around the twin,
      timed beside equilibrated_lanes around the kernel; the panel
@@ -368,12 +369,15 @@ KERNELS = {
                    (26, 1, 128), (26, 1, B // 8)]),
     # the net2 seed; the synthetic 64-bus blocks (13 x 256, and a phase-2
     # bucket) and its fundamental Jacobian; the seed of phase 17's studies
-    # (the assessment's batch, the time series' steps)
+    # (the assessment's batch, the time series' steps); the IEEE 33-bus
+    # feeder's arrow blocks (13 x 512, and phase 2's 128 lanes, four
+    # threads a row) and its fundamental Jacobian
     "gj_kernel_carried": ("hpfx/ops/batched_solve.py:139",
                           "hpfx_torch/ops/csrc/gj_solve.cu",
                           [(96, 1, B), (128, 15, 13 * 256), (126, 1, 256),
                            (128, 15, 416), (126, 1, 32), (96, 1, 4096),
-                           (96, 1, 1008)]),
+                           (96, 1, 1008), (130, 65, 13 * 512),
+                           (130, 65, 13 * 128), (128, 1, 512)]),
     # the net2 seed, the synthetic 64-bus blocks, the net1 capacitance
     # system when solved directly
     "gj_kernel_unrolled": ("hpfx/ops/batched_solve.py:103",
@@ -618,22 +622,36 @@ def ptxas_report(build_log):
 
 #: the shapes at which phase 1 prints blocks per SM of the direct kernels
 OCCUPANCY_SHAPES = [(6, 1), (22, 1), (26, 1), (38, 1), (40, 15), (96, 1),
-                    (102, 1), (126, 1), (128, 15), (182, 1)]
+                    (102, 1), (126, 1), (128, 15), (130, 65), (182, 1)]
 
 
 def instances(report):
-    """{(kernel, rows, slots, b in shared memory): (registers, spill
-    stores, spill loads)} of gj_kernel's, gj_kernel_carried's and
-    gj_kernel_unrolled's instantiations in a ptxas report (their mangled
-    template names)."""
+    """{(kernel, rows, slots, layout): (registers, spill stores, spill
+    loads)} of gj_kernel's, gj_kernel_carried's and gj_kernel_unrolled's
+    instantiations in a ptxas report (their mangled template names); the
+    layout is gj_kernel's "b in shared memory" (a bool) and the others'
+    (threads a row, rows a thread) (b always in the slots)."""
     out = {}
     for sym, v in report.items():
-        m = re.search(r"\d+(gj_kernel(?:_carried|_unrolled)?)ILi(\d+)ELi(\d+)"
-                      r"ELb([01])E", sym)
+        m = re.search(r"\d+(gj_kernel)ILi(\d+)ELi(\d+)ELb([01])E", sym)
         if m:
             out[(m.group(1), int(m.group(2)), int(m.group(3)),
                  m.group(4) == "1")] = tuple(v)
+        m = re.search(r"\d+(gj_kernel_(?:carried|unrolled))ILi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELi(\d+)E", sym)
+        if m:
+            out[(m.group(1), int(m.group(2)), int(m.group(3)),
+                 (int(m.group(4)), int(m.group(5))))] = tuple(v)
     return out
+
+
+def instance_key(kernel, plan):
+    """The key of a launch plan's instantiation of ``kernel`` in
+    :func:`instances`."""
+    if kernel == "gj_kernel":
+        return (kernel, plan.rows, plan.slots, plan.b_in_smem)
+    return (kernel, plan.rows, plan.slots,
+            bs.K2_LAYOUT.get((plan.rows, plan.slots), (1, 1)))
 
 
 def templated(report, kernel):
@@ -701,17 +719,19 @@ def phase1():
     want = {("gj_kernel", r, w, m) for m, table in
             ((False, bs.K1_INSTANCES), (True, bs.K1_SMEM_INSTANCES))
             for r, w in table}
-    want |= {(k, r, w, m) for m, table in
-             ((False, bs.K2_INSTANCES), (True, bs.K2_SMEM_INSTANCES))
-             for r, w in table
+    want |= {(k, r, w, bs.K2_LAYOUT.get((r, w), (1, 1)))
+             for r, w in bs.K2_INSTANCES
              for k in ("gj_kernel_carried", "gj_kernel_unrolled")}
     got = instances(report)
     check(set(got) == want, f"ptxas reports {sorted(got)}, the launch plan's "
           f"tables {sorted(want)}")
-    for (name, rows, slots, smem), (regs, st, ld) in sorted(got.items()):
-        log(f"[1] {name}<{rows}, {slots}, {'b in smem' if smem else 'b in slots'}"
-            f">: {regs} registers, spill stores {st} B, spill loads {ld} B")
-        check(st == 0 and ld == 0, f"{name}<{rows}, {slots}, {smem}> spills")
+    for (name, rows, slots, lay), (regs, st, ld) in sorted(got.items()):
+        where = (("b in smem" if lay else "b in slots")
+                 if name == "gj_kernel" else
+                 f"{lay[0]} threads a row, {lay[1]} rows a thread")
+        log(f"[1] {name}<{rows}, {slots}, {where}>: {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B")
+        check(st == 0 and ld == 0, f"{name}<{rows}, {slots}, {lay}> spills")
     rect = {sym: v for sym, v in report.items() if "rectifier_kernel" in sym}
     check(len(rect) == 1, f"ptxas reports rectifier_kernel as {sorted(rect)}")
     for sym, (regs, st, ld) in rect.items():
@@ -722,7 +742,7 @@ def phase1():
         p = bs.launch_plan(n, R)
         for k in (p.kernel,) + (("gj_kernel_unrolled",)
                                 if p.kernel == "gj_kernel_carried" else ()):
-            regs = got[(k, p.rows, p.slots, p.b_in_smem)][0]
+            regs = got[instance_key(k, p)][0]
             log(f"[1] {n}x{R}: {k}<{p.rows}, {p.slots}, {int(p.b_in_smem)}>"
                 f", {p.threads} threads and {p.systems} systems a block, "
                 f"{p.smem} B dynamic shared memory, {regs} registers, "
@@ -787,8 +807,9 @@ def check_equilibrated(n, R, Bt, gen):
 
 def instance_cases():
     """One (n, R) per instantiation of gj_kernel and gj_kernel_carried that
-    launch_plan picks it for: n + R fills the slots, or overflows the
-    widest instantiation of its rows where b lies in shared memory."""
+    launch_plan picks it for: n + R fills the slots, or, for gj_kernel,
+    overflows the widest instantiation of its rows where b lies in shared
+    memory."""
     cases = []
     for rows, w in bs.K1_INSTANCES:
         n = 17 if rows == 1 else 33
@@ -796,8 +817,6 @@ def instance_cases():
     cases += [(20, 100), (40, 30)]
     for rows, w in bs.K2_INSTANCES:
         cases.append((rows, w - rows))
-    for rows, _ in bs.K2_SMEM_INSTANCES:
-        cases.append((rows, 40) if rows < bs.MAX_KERNEL_DIM else (182, 1))
     return cases
 
 
@@ -813,7 +832,7 @@ def check_instances(gen):
             bs.GJ_UNROLLED = unrolled
             try:
                 kernel = bs.kernel_for(n)
-                seen.add((kernel, p.rows, p.slots, p.b_in_smem))
+                seen.add(instance_key(kernel, p))
                 A, b = systems(n, R, 512, gen, pivot_case=True)
                 x = ht.gauss_solve_lanes(A, b)
                 x_ref = ht.gj_solve_lanes_ref(A, b)
@@ -831,14 +850,15 @@ def check_instances(gen):
                   and np.isfinite(err_e) and err_e <= KERNEL_TOL,
                   f"{kernel} instantiation {p} disagrees with the twin")
     n_inst = sum(len(t) for t in (bs.K1_INSTANCES, bs.K1_SMEM_INSTANCES)) \
-        + 2 * sum(len(t) for t in (bs.K2_INSTANCES, bs.K2_SMEM_INSTANCES))
+        + 2 * len(bs.K2_INSTANCES)
     check(len(seen) == n_inst, f"{len(seen)} of {n_inst} instantiations run")
 
 
 def solve_case(name, n, R, Bt, gen, tag="2"):
     """gj_kernel / gj_kernel_carried / gj_kernel_unrolled at one (n, R, Bt)
     against the plain twin (the unrolled kernel with GJ_UNROLLED set,
-    beside gj_kernel_carried at the same shape), also with the
+    beside gj_kernel_carried at the same shape) and against float64 LU,
+    both within KERNEL_TOL of the twin's scale, also with the
     equilibration inside against equilibrated_lanes around the twin; the
     kernel, the twin and torch.linalg.solve timed beside the bound.
     Returns (max error, the shape's dict)."""
@@ -860,11 +880,18 @@ def solve_case(name, n, R, Bt, gen, tag="2"):
     check(np.isfinite(err) and err <= KERNEL_TOL * scale,
           f"{name} at {(n, R, Bt)}: max err {err} > "
           f"{KERNEL_TOL} * {scale}")
+    x64 = torch.linalg.solve(A.double().permute(2, 0, 1),
+                             b.double().permute(2, 0, 1)).permute(1, 2, 0)
+    err64 = (x - x64).abs().max().item()
+    check(np.isfinite(err64) and err64 <= KERNEL_TOL * scale,
+          f"{name} at {(n, R, Bt)}: {err64} from float64 LU > "
+          f"{KERNEL_TOL} * {scale}")
+    del x64
     p_ms = time_ms(lambda: ht.gj_solve_lanes_ref(A, b),
                    3 if n > 32 else 10)
     msg = (f"[{tag}] {name} n={n} R={R} B={Bt}: max|dx| {err:.3e} (scale "
-           f"{scale:.3e}; pivot system {pv:.3e}) kernel {k_ms:.4f} ms, "
-           f"plain {p_ms:.4f} ms")
+           f"{scale:.3e}; pivot system {pv:.3e}; from float64 LU "
+           f"{err64:.3e}) kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     if unrolled:
         c_ms = time_ms(lambda: ht.gauss_solve_lanes(A, b), 20)
         msg += f", gj_kernel_carried at this shape {c_ms:.4f} ms"
@@ -898,7 +925,7 @@ def solve_case(name, n, R, Bt, gen, tag="2"):
         f"equilibrated_lanes around the twin")
     return err, dict(shape=[n, R, Bt], ms=k_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     max_abs_err=err)
+                     max_abs_err=err, lu64_err=err64)
 
 
 def check_solve_kernel(name, gen):

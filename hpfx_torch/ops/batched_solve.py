@@ -33,7 +33,8 @@ the RHS.
 
 :func:`schur_solve_lanes` is the panel-Schur block recursion of the same
 file, whose leaves are the direct kernels with many right-hand sides
-(:func:`chunked_plan` splits those past one block's shared memory).
+(:func:`chunked_plan` splits those past one block's shared memory or
+register slots).
 
 :func:`batched_solve_lanes` routes each solve as the JAX dispatcher does
 (``hpfx/ops/batched_solve.py:748-790``).
@@ -87,15 +88,19 @@ _SMEM_PER_BLOCK = 232448
 #: the slots, and with them in shared memory (the slots then hold A only)
 K1_INSTANCES = ((1, 32), (1, 96), (2, 40), (2, 56), (2, 64))
 K1_SMEM_INSTANCES = ((1, 32), (2, 64))
-#: ``gj_kernel_carried``'s (``k2_instance``): (padded rows, slots a row)
-K2_INSTANCES = ((64, 80), (96, 112), (128, 144), (160, 176))
-K2_SMEM_INSTANCES = ((64, 64), (96, 96), (128, 128), (160, 160),
-                     (192, 192))
-#: ``gj_kernel_carried``: threads a row by (padded rows, slots), one where
-#: not listed: a wider row is split over two threads so that its slots fit
-#: the registers without spilling
-K2_THREADS_PER_ROW = {(128, 128): 2, (160, 176): 2, (160, 160): 2,
-                      (192, 192): 2}
+#: ``gj_kernel_carried``'s (``k2_instance``): (padded rows, slots a row),
+#: the right-hand sides always in the slots.  Each row count has a narrow
+#: instantiation and a wide one; right-hand sides past the wide one are
+#: split into chunks of columns (:func:`chunked_plan`)
+K2_INSTANCES = ((64, 80), (64, 192), (96, 112), (96, 224), (128, 144),
+                (128, 256), (160, 176), (160, 208), (192, 208))
+#: ``gj_kernel_carried``: (threads a row, rows a thread) by (padded rows,
+#: slots), (1, 1) where not listed.  A wide row is split over two or four
+#: threads so that its slots fit the registers without spilling, and a
+#: thread of the wide ones up to 160 rows keeps two rows, so that one read
+#: of the staged pivot row feeds two rows' multiply-adds
+K2_LAYOUT = {(64, 192): (4, 2), (96, 224): (4, 2), (128, 256): (4, 2),
+             (160, 176): (2, 1), (160, 208): (4, 2), (192, 208): (2, 1)}
 #: ``gj_kernel``: systems (warps) a block when a lane keeps one row; half
 #: as many with two (``kMaxSystemsK1``)
 _K1_SYSTEMS = 8
@@ -182,45 +187,44 @@ def launch_plan(n: int, R: int) -> LaunchPlan:
     * ``gj_kernel`` (n < 64): one warp per system, a lane keeping one row
       (n <= 32) or two; 8 or 4 consecutive systems a block;
     * ``gj_kernel_carried`` (64 <= n <= 192): one system a block, a
-      thread per row (two for the widest, :data:`K2_THREADS_PER_ROW`), n
-      padded to whole warps; ``gj_kernel_unrolled`` (:data:`GJ_UNROLLED`)
-      takes the same plan;
+      thread per row (for the wide rows two or four threads a row, a
+      thread keeping one or two rows: :data:`K2_LAYOUT`), n padded to
+      whole warps; ``gj_kernel_unrolled`` (:data:`GJ_UNROLLED`) takes the
+      same plan;
 
     each with [A | b]'s row in the narrowest instantiation's slots that
-    holds it, or with A in the slots and b in shared memory where none
-    does.  Raises ``ValueError``, naming the limit, for a shape no
-    instantiation takes."""
+    holds it; ``gj_kernel`` alone keeps A in the slots and b in shared
+    memory where none does.  Raises ``ValueError``, naming the limit, for
+    a shape no instantiation takes (:func:`chunked_plan` then splits R)."""
     if n < 1 or R < 1:
         raise ValueError(f"no solve of dim {n} with {R} right-hand sides")
     if n > MAX_KERNEL_DIM:
         raise ValueError(f"system dim {n} exceeds the direct kernels' "
                          f"{MAX_KERNEL_DIM}")
-    if n < KERNEL_SWITCH_DIM:
-        kernel, rows = "gj_kernel", (1 if n <= 32 else 2)
-        table, smem_table = K1_INSTANCES, K1_SMEM_INSTANCES
-        systems, threads = _K1_SYSTEMS // rows, 32 * (_K1_SYSTEMS // rows)
-    else:
-        kernel, rows = "gj_kernel_carried", -(-n // 32) * 32
-        table, smem_table = K2_INSTANCES, K2_SMEM_INSTANCES
-        systems, threads = 1, rows
-    fits = [w for r, w in table if r == rows and w >= n + R]
+    if n >= KERNEL_SWITCH_DIM:
+        rows = -(-n // 32) * 32
+        fits = [w for r, w in K2_INSTANCES if r == rows and w >= n + R]
+        if not fits:
+            raise ValueError(
+                f"dim {n} with {R} right-hand sides passes the register "
+                f"slots of gj_kernel_carried's widest instantiation at "
+                f"{rows} rows")
+        slots = fits[0]
+        per_row, per_thread = K2_LAYOUT.get((rows, slots), (1, 1))
+        threads = rows * per_row // per_thread
+        return LaunchPlan("gj_kernel_carried", rows, slots, False, threads,
+                          1, 0)
+    kernel, rows = "gj_kernel", (1 if n <= 32 else 2)
+    systems, threads = _K1_SYSTEMS // rows, 32 * (_K1_SYSTEMS // rows)
+    fits = [w for r, w in K1_INSTANCES if r == rows and w >= n + R]
     b_in_smem = not fits
     if b_in_smem:
-        fits = [w for r, w in smem_table if r == rows and w >= n]
+        fits = [w for r, w in K1_SMEM_INSTANCES if r == rows and w >= n]
     slots = fits[0]
-    if kernel == "gj_kernel_carried":
-        threads = rows * K2_THREADS_PER_ROW.get((rows, slots), 1)
-    ldb, nw = R | 1, threads // 32
-    if kernel == "gj_kernel":
-        # per warp: its b rows and its staged pivot b; statically the
-        # stages and column scales of the warps
-        smem = systems * (32 * rows * ldb + 2 * R) * 4 if b_in_smem else 0
-        static = 4 * systems * (2 * slots + 32 * rows)
-    else:
-        # the b rows and each warp's staged b; statically the warps'
-        # stages, keys, indices and reciprocals, and the column scales
-        smem = (rows * ldb + 2 * nw * R) * 4 if b_in_smem else 0
-        static = 4 * (2 * nw * slots + 6 * nw + rows)
+    # per warp: its b rows and its staged pivot b; statically the stages
+    # and column scales of the warps
+    smem = systems * (32 * rows * (R | 1) + 2 * R) * 4 if b_in_smem else 0
+    static = 4 * systems * (2 * slots + 32 * rows)
     if smem + static > _SMEM_PER_BLOCK:
         raise ValueError(f"dim {n} with {R} right-hand sides needs "
                          f"{smem + static} bytes of shared memory per block "

@@ -9,7 +9,9 @@
 //   gj_kernel_carried  <- _gj_kernel_carried  (dims 64..192: the net2
 //                                              exact-linear seed, dim 96; the
 //                                              64-bus feeder's blocks, dim 128
-//                                              with 15 right-hand sides)
+//                                              with 15 right-hand sides; the
+//                                              IEEE 33-bus feeder's, dim 130
+//                                              with 65)
 //   gj_kernel_unrolled <- _gj_kernel_unrolled (the same dims, chosen with
 //                                              HPFX_GJ_UNROLLED=1)
 // Per system they compute what the TPU kernels compute:
@@ -57,34 +59,54 @@
 // template constant).  The step loop runs at run time, so the slots rotate:
 // at step k slot j holds column k + j, the update writes each result one slot
 // down, and the working column is always slot 0; no index depends on k.  The
-// live slots are those below W - k (W = n + R, or n with b in shared memory),
-// and the update skips each group of four dead slots with a branch that the
-// whole block takes alike.  The pivot is a warp-wide max over order-
-// preserving keys and a ballot for the lowest row; the row that wins stages
-// its live slots as float4 stores in a double-buffered stage, and every row
-// reads it as float4 broadcasts, so a step needs one barrier.  The update
+// live slots are those below W - k (W = n + R, or n where gj_kernel keeps b
+// in shared memory), and where a thread holds whole rows the update skips
+// each group of four dead slots with a branch that the whole block takes
+// alike.  The pivot is a warp-wide max over order-preserving keys and a
+// ballot for the lowest row; the row that wins stages its live slots as
+// float4 stores in a double-buffered stage, and every row reads it as float4
+// broadcasts, so a step needs one barrier.  The update
 // does the group holding the next working column first and then starts the
 // next step's max and ballot, whose latency the other groups' multiply-adds
 // cover.  After n steps slots 0..R-1 hold the row's b, which goes to x at the
-// step the row was pivot.  Where n + R exceeds the widest instantiation, the
-// slots hold A and b lies in dynamic shared memory at an odd leading
-// dimension.
+// step the row was pivot.  Where n + R exceeds gj_kernel's widest
+// instantiation, its slots hold A and b lies in dynamic shared memory at an
+// odd leading dimension; gj_kernel_carried always keeps b in the slots.
 //   gj_kernel (n < 64): one warp per system, a lane keeping rows lane and
 //     lane + 32 (ROWS = 2 for n > 32); 8 / ROWS consecutive systems a block,
 //     so a block's loads use 32 or 16 bytes of each sector.  The column
 //     max-abs is one warp-wide max per column; a step needs only __syncwarp,
 //     and every lane takes the pivot by a shuffle while the pivot lane stages
 //     its row.
-//   gj_kernel_carried (64 <= n <= 192): one block per system, a thread per
-//     row (n padded to warps), or two for the widest rows (T = 2: lanes i and
-//     i + 16 hold the two halves, and a shuffle carries the column that
-//     crosses between them), so that no instantiation spills.  The warps'
-//     column maxima meet in shared memory.  Each warp's best row also writes
-//     its key, index and 1/pivot, so after the one barrier a thread finds the
-//     pivot with a few shared loads and compares.  Several systems a block,
-//     loaded through a shared tile so that a warp's loads cover whole
-//     sectors, was slower at every path shape: one barrier a step then holds
-//     all of the block's systems, and no other block hides it.
+//   gj_kernel_carried (64 <= n <= 192): one block per system, n padded to
+//     whole warps.  Each padded row count NP has a narrow instantiation, a
+//     thread a row (two at NP = 160) and n + R up to NP + 16 slots, and a
+//     wide one of 192-256 slots, whose row is split over T = 4 threads (2
+//     at NP = 192) so that no instantiation spills: lanes i, i + 32/T, ...
+//     hold its parts of WP/T slots, and a shuffle carries the columns that
+//     cross from one part to the one before.  A thread of the wide ones up
+//     to NP = 160 keeps RT = 2 consecutive rows, so that each float4 read of
+//     the staged pivot row feeds eight multiply-adds.  Right-hand sides past
+//     the wide instantiation are split into chunks.  So wide right-hand
+//     sides are updated in registers by every thread of the block: the 33-bus
+//     feeder's 65 at dim 130 (195 slots) in <160, 208, 4, 2>, 320 threads
+//     of 104 slots, 168 registers, one block a SM: 8.8 ms at (130, 65,
+//     6656) on the H100.  Their former shared-memory form, where one
+//     thread a row ran b's R multiply-adds each step while the block waited
+//     at the next barrier, took 25.1 ms there (1.45% of its bound), also one
+//     block a SM.  Other layouts at that shape: four threads a row of one
+//     row each (640 threads) 11.6 ms, eight threads a row of four or two
+//     rows each 9.1 ms (spilling) and 10.4 ms.  The step is bound
+//     by latency (the barrier, the warps' argmax, the update's shared
+//     loads); with a row split, the update skips no dead group (a warp
+//     holds every part of its rows), so the compiler issues the groups'
+//     shared loads ahead of their multiply-adds (11.4 ms with the skip).  The
+//     warps' column maxima meet in shared memory.  Each warp's best row also
+//     writes its key, index and 1/pivot, so after the one barrier a thread
+//     finds the pivot with a few shared loads and compares.  Several systems
+//     a block, loaded through a shared tile so that a warp's loads cover
+//     whole sectors, was slower at every path shape: one barrier a step then
+//     holds all of the block's systems, and no other block hides it.
 //   gj_kernel_unrolled: gj_kernel_carried with its step loop unrolled
 //     kUnrollGroup steps at a time, what the TPU kernel's trace-time unroll
 //     becomes here (unrolling all n steps, NP^2 straight-line multiply-adds,
@@ -97,10 +119,11 @@
 // The launch plan of each (instantiation, threads, systems a block, dynamic
 // shared memory) is computed by the caller (launch_plan in
 // hpfx_torch/ops/batched_solve.py) and checked here.
-// Right-hand sides past one block's shared memory (the panel-Schur solve's
-// leaves carry up to ~3,150 at dim 32: 400 KB of b a system) are split into
-// chunks of columns, one chunk a block along the grid's y (chunked_plan in
-// the same file), each repeating the elimination of A for its own columns.
+// Right-hand sides past one block's shared memory or slots (the
+// panel-Schur solve's leaves carry up to ~3,150 at dim 32: 400 KB of b a
+// system) are split into chunks of columns, one chunk a block along the
+// grid's y (chunked_plan in the same file), each repeating the elimination
+// of A for its own columns.
 
 #include "gj_common.cuh"
 
@@ -354,16 +377,17 @@ __global__ void __launch_bounds__(32 * kMaxSystemsK1 / ROWS)
   }
 }
 
-// the largest of v over the lanes of this thread's half of the warp (all 32
-// lanes when a row has one thread): a row split over two threads keeps its
-// halves in lanes i and i + 16, so the halves hold different columns
+// the largest of v over the lanes of this thread's warp that hold the same
+// part of their rows (all 32 lanes when a row has one thread): a row split
+// over T threads keeps its parts in lanes i, i + RW, i + 2 RW, ... (RW =
+// 32 / T), so the parts hold different columns
 template <int T>
-__device__ __forceinline__ unsigned half_warp_max(unsigned v) {
+__device__ __forceinline__ unsigned part_max(unsigned v) {
   if constexpr (T == 1) {
     return __reduce_max_sync(kFullMask, v);
   } else {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
+    for (int off = 16 / T; off > 0; off >>= 1) {
       const unsigned o = __shfl_xor_sync(kFullMask, v, off);
       if (o > v) v = o;
     }
@@ -371,28 +395,33 @@ __device__ __forceinline__ unsigned half_warp_max(unsigned v) {
   }
 }
 
-// one step's in-place update of the live slots C0..C1-1 (float4 groups) of a
-// row against the staged pivot row: s[c] -= w prow[c]
-template <int WP, int C0, int C1>
-__device__ __forceinline__ void update_in_place(float (&s)[WP], float w,
+// one step's in-place update of the live slots C0..C1-1 (float4 groups) of
+// ROWS rows against the staged pivot row: s[c] -= w prow[c]
+template <int ROWS, int WP, int C0, int C1>
+__device__ __forceinline__ void update_in_place(float (&s)[ROWS][WP],
+                                                const float (&w)[ROWS],
                                                 const float* prow, int live) {
   const float4* p4 = reinterpret_cast<const float4*>(prow);
 #pragma unroll
   for (int c = C0; c < C1; c += 4) {
     if (c < live) {
       const float4 q = p4[c / 4];
-      s[c] -= w * q.x;
-      s[c + 1] -= w * q.y;
-      s[c + 2] -= w * q.z;
-      s[c + 3] -= w * q.w;
+#pragma unroll
+      for (int t = 0; t < ROWS; ++t) {
+        s[t][c] -= w[t] * q.x;
+        s[t][c + 1] -= w[t] * q.y;
+        s[t][c + 2] -= w[t] * q.z;
+        s[t][c + 3] -= w[t] * q.w;
+      }
     }
   }
 }
 
 // the same, each result written G slots down: s[c - G] = s[c] - w prow[c]
 // for the slots C0..C1-1 (C0 >= G)
-template <int WP, int G, int C0, int C1>
-__device__ __forceinline__ void update_shifted(float (&s)[WP], float w,
+template <int ROWS, int WP, int G, int C0, int C1>
+__device__ __forceinline__ void update_shifted(float (&s)[ROWS][WP],
+                                               const float (&w)[ROWS],
                                                const float* prow, int live) {
   static_assert(C0 >= G && G % 4 == 0, "whole float4 groups, shifted down");
   const float4* p4 = reinterpret_cast<const float4*>(prow);
@@ -400,12 +429,34 @@ __device__ __forceinline__ void update_shifted(float (&s)[WP], float w,
   for (int c = C0; c < C1; c += 4) {
     if (c < live) {
       const float4 q = p4[c / 4];
-      s[c - G] = s[c] - w * q.x;
-      s[c + 1 - G] = s[c + 1] - w * q.y;
-      s[c + 2 - G] = s[c + 2] - w * q.z;
-      s[c + 3 - G] = s[c + 3] - w * q.w;
+#pragma unroll
+      for (int t = 0; t < ROWS; ++t) {
+        s[t][c - G] = s[t][c] - w[t] * q.x;
+        s[t][c + 1 - G] = s[t][c + 1] - w[t] * q.y;
+        s[t][c + 2 - G] = s[t][c + 2] - w[t] * q.z;
+        s[t][c + 3 - G] = s[t][c + 3] - w[t] * q.w;
+      }
     }
   }
+}
+
+// the pivot key of this thread's best row (slot C of each of its RT rows;
+// the lowest row on ties), and in `t_best` which of its rows that is
+template <int C, int RT, int H>
+__device__ __forceinline__ unsigned rows_key(const float (&s)[RT][H],
+                                             const bool (&used)[RT],
+                                             int& t_best) {
+  unsigned key = pivot_key(s[0][C], used[0]);
+  t_best = 0;
+#pragma unroll
+  for (int t = 1; t < RT; ++t) {
+    const unsigned kt = pivot_key(s[t][C], used[t]);
+    if (kt > key) {
+      key = kt;
+      t_best = t;
+    }
+  }
+  return key;
 }
 
 // the index I as a type, so that a generic lambda can take it as a constant
@@ -430,20 +481,26 @@ __device__ __forceinline__ void unroll_steps(F& f) {
 // each result G slots down, so the next group starts at slot 0 again.  The
 // live slots, those below W - k0, stay the same through a group.  A last
 // group of fewer than G steps shifts nothing: b's columns then start at slot
-// n mod G
-template <int NP, int WP, bool BSMEM, int T, int G>
+// n mod G.  A thread keeps RT consecutive rows (RT = 1 or 2), each split
+// over T threads (T = 1, 2 or 4): part j of a row holds its global slots
+// j H .. j H + H - 1 (H = WP / T), and the slots that leave part j + 1 at
+// the bottom enter part j at the top, by a shuffle.  One float4 read of the
+// staged pivot row feeds the thread's RT rows
+template <int NP, int WP, int T, int RT, int G>
 __device__ __forceinline__ void carried_body(const float* __restrict__ A,
                                              const float* __restrict__ b,
                                              float* __restrict__ x, int n,
                                              int R, int rc, int equil,
                                              Strides sa, Strides sb,
                                              Strides sx) {
-  static_assert(NP % 32 == 0 && WP >= NP && (T == 1 || T == 2) &&
+  constexpr int NT = NP * T / RT;   // threads
+  constexpr int NW = NT / 32;       // warps
+  constexpr int RW = 32 / T;        // groups of RT rows a warp
+  constexpr int H = WP / T;         // slots a row a thread
+  static_assert(NT % 32 == 0 && NP % (RW * RT) == 0 && WP >= NP &&
+                    (T == 1 || T == 2 || T == 4) && (RT == 1 || RT == 2) &&
                     WP % (4 * T) == 0,
                 "whole warps; a row's slots split into float4 groups");
-  constexpr int NW = NP * T / 32;   // warps
-  constexpr int RW = 32 / T;        // rows a warp
-  constexpr int H = WP / T;         // slots a thread
   static_assert(G == 1 || (G % 4 == 0 && G <= H),
                 "a group shifts whole float4 groups within a thread's slots");
   // this block's chunk of the right-hand sides, as in gj_kernel
@@ -456,39 +513,38 @@ __device__ __forceinline__ void carried_body(const float* __restrict__ A,
   __shared__ int warp_p[2][NW];                      // its index
   __shared__ float warp_i[2][NW];                    // 1 / its pivot
   __shared__ float cscale[NP];                       // the column scales
-  // BSMEM: the b rows at an odd leading dimension, then each warp's best
-  // row's b, two buffers of NW x R
-  extern __shared__ float dyn[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long sys = blockIdx.x;
-  const int i = lane % RW;          // the row within the warp
-  const int r = warp * RW + i;      // the row this thread holds (a half of)
-  const int g0 = (lane / RW) * H;   // the column of its slot 0
-  const bool own = r < n;
-  const int W = BSMEM ? n : n + R;  // the slots in use
-  const int ldb = R | 1;
-  float* Sb = dyn + r * ldb;        // this row's b
-  float* pbs = dyn + NP * ldb;
+  const int i = lane % RW;                // the row group within the warp
+  const int r0 = (warp * RW + i) * RT;    // the first row it holds (a part of)
+  const int g0 = (lane / RW) * H;         // the column of its slot 0
+  const int W = n + R;                    // the slots in use
+  // the next part's lane (for the last part, a lane whose value is unused)
+  const int below = (lane + RW) & 31;
 
-  float s[1][H];
-  const float* br = b + sys * sb.s + r * sb.r;
-  load_row<H, BSMEM>(s[0], A + sys * sa.s + r * sa.r, br, n, R, own, g0,
-                     sa.c, sb.c);
-  if (BSMEM && g0 == 0)
-    for (int q = 0; q < R; ++q) Sb[q] = own ? br[q * sb.c] : 0.0f;
-  bool used = !own;   // pad rows are never pivots
-  int step = 0;       // the step at which this row was pivot
+  float s[RT][H];
+  bool used[RT];   // pad rows are never pivots
+  int step[RT];    // the step at which the row was pivot
+#pragma unroll
+  for (int t = 0; t < RT; ++t) {
+    const int r = r0 + t;
+    load_row<H, false>(s[t], A + sys * sa.s + r * sa.r,
+                       b + sys * sb.s + r * sb.r, n, R, r < n, g0, sa.c, sb.c);
+    used[t] = r >= n;
+    step[t] = 0;
+  }
 
   if (equil) {
-    unsigned m = row_max_bits(s[0], n - g0);
-    if (T == 2) {
-      const unsigned o = __shfl_xor_sync(kFullMask, m, RW);   // other half
-      if (o > m) m = o;
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      unsigned m = row_max_bits(s[t], n - g0);
+#pragma unroll
+      for (int off = RW; off < 32; off <<= 1) {   // the row's other parts
+        const unsigned o = __shfl_xor_sync(kFullMask, m, off);
+        if (o > m) m = o;
+      }
+      scale_slots(s[t], W - g0, inv_scale(m));
     }
-    const float rs = inv_scale(m);
-    scale_slots(s[0], W - g0, rs);
-    if (BSMEM && g0 == 0)
-      for (int q = 0; q < R; ++q) Sb[q] *= rs;
     // the column scales: a max over the warp's rows per column, one word
     // per warp and column (in the stage, not in use yet), then a max over
     // the warps
@@ -496,29 +552,42 @@ __device__ __forceinline__ void carried_body(const float* __restrict__ A,
 #pragma unroll
     for (int c = 0; c < H; ++c) {
       const int g = g0 + c;
-      const unsigned v = half_warp_max<T>(g < n ? abs_bits(s[0][c]) : 0u);
+      unsigned v = 0u;
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const unsigned a = abs_bits(s[t][c]);
+        if (g < n && a > v) v = a;
+      }
+      v = part_max<T>(v);
       if (g < n && i == c % RW) cmax[warp * WP + g] = v;
     }
     __syncthreads();
-    if ((int)threadIdx.x < n) {
+    for (int c = threadIdx.x; c < n; c += NT) {
       unsigned mc = 0u;
 #pragma unroll
       for (int j = 0; j < NW; ++j) {
-        const unsigned v = cmax[j * WP + threadIdx.x];
+        const unsigned v = cmax[j * WP + c];
         if (v > mc) mc = v;
       }
-      cscale[threadIdx.x] = inv_scale(mc);
+      cscale[c] = inv_scale(mc);
     }
     __syncthreads();   // scales written; the words read before step 0
 #pragma unroll
     for (int c = 0; c < H; ++c)
-      if (g0 + c < n) s[0][c] *= cscale[g0 + c];
+      if (g0 + c < n) {
+        const float cs = cscale[g0 + c];
+#pragma unroll
+        for (int t = 0; t < RT; ++t) s[t][c] *= cs;
+      }
   }
 
   int live = W;   // W - k0 at a group's first step k0
   unsigned best;
-  // step 0's best row of this warp (keys from the first half of each row)
-  int lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
+  // step 0's best row of this warp (keys from the first part of each row):
+  // the lane lb, and which of its rows
+  int tsel;
+  unsigned key = rows_key<0>(s, used, tsel);
+  int lb = warp_best(g0 == 0 ? key : 0u, best);
 #pragma unroll 1
   for (int k0 = 0; k0 < n; k0 += G, live -= G) {
     // step g of the group; false past the last step (a last group of fewer
@@ -528,17 +597,19 @@ __device__ __forceinline__ void carried_body(const float* __restrict__ A,
       const int k = k0 + g;
       if (k >= n) return false;
       const int buf = k & 1;
+      const int tb = RT > 1 ? __shfl_sync(kFullMask, tsel, lb) : 0;
       if (i == lb) {
-        // this warp's best row (the lowest lane wins a tie), both halves
-        stage_row(stage[buf][warp] + g0, s[0], live - g0);
-        if (g0 == 0) {
-          if (BSMEM)
-            for (int q = 0; q < R; ++q)
-              pbs[(buf * NW + warp) * R + q] = Sb[q];
-          warp_k[buf][warp] = best;
-          warp_p[buf][warp] = r;
-          warp_i[buf][warp] = __frcp_rn(s[0][g]);   // rounded as 1.0f / piv
-        }
+        // this warp's best row (the lowest wins a tie), every part
+#pragma unroll
+        for (int t = 0; t < RT; ++t)
+          if (t == tb) {
+            stage_row(stage[buf][warp] + g0, s[t], live - g0);
+            if (g0 == 0) {
+              warp_k[buf][warp] = best;
+              warp_p[buf][warp] = r0 + t;
+              warp_i[buf][warp] = __frcp_rn(s[t][g]);   // as 1.0f / piv
+            }
+          }
       }
       __syncthreads();   // warp words written; step k-1's reads of them done
       // the lowest of the warps with the largest key holds the pivot
@@ -555,76 +626,95 @@ __device__ __forceinline__ void carried_body(const float* __restrict__ A,
       const int p = warp_p[buf][wb];
       const float inv_piv = warp_i[buf][wb];
       const float* prow = stage[buf][wb] + g0;   // row p, in slot order
-      // the row's working column (slot g of its first half)
-      const float col = T == 2 ? __shfl_sync(kFullMask, s[0][g], i) : s[0][g];
-      float w[1];
-      w[0] = r == p ? 1.0f - inv_piv : col * inv_piv;
-      if (r == p) step = k;
-      used = used || r == p;
+      float w[RT];
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        // the row's working column (slot g of its first part)
+        const float col =
+            T > 1 ? __shfl_sync(kFullMask, s[t][g], i) : s[t][g];
+        w[t] = r0 + t == p ? 1.0f - inv_piv : col * inv_piv;
+        if (r0 + t == p) step[t] = k;
+        used[t] = used[t] || r0 + t == p;
+      }
+      // the slots to update: the live ones where a warp's lanes hold the
+      // same columns.  With a row split over T > 1 threads a warp holds
+      // every part, and a group skipped in one part is waited for in
+      // another, so every slot is updated, with no branch between the
+      // groups' shared loads (the dead slots take values never read)
+      const int upd = T > 1 ? H : live - g0;
       // the next working column first, then the next step's warp argmax in
       // flight while the other groups are updated
       if constexpr (G == 1) {
-        // the column after this thread's last slot (the other half's slot
+        // the column after this thread's last slot (the next part's slot
         // 0), before the update moves it
-        const float next =
-            T == 2 ? __shfl_sync(kFullMask, s[0][0], i + RW) : 0.0f;
-        update_rows<1, H, 0, 4>(s, w, prow, live - g0);
-        lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
-        update_rows<1, H, 4, H>(s, w, prow, live - g0);
-        if (T == 2 && g0 == 0 && H < live)
-          s[0][H - 1] = next - w[0] * stage[buf][wb][H];
+        float next[RT];
+#pragma unroll
+        for (int t = 0; t < RT; ++t)
+          next[t] = T > 1 ? __shfl_sync(kFullMask, s[t][0], below) : 0.0f;
+        update_rows<RT, H, 0, 4>(s, w, prow, upd);
+        key = rows_key<0>(s, used, tsel);
+        lb = warp_best(g0 == 0 ? key : 0u, best);
+        update_rows<RT, H, 4, H>(s, w, prow, upd);
+        if (T > 1 && g0 + H < WP && g0 + H < live)
+#pragma unroll
+          for (int t = 0; t < RT; ++t)
+            s[t][H - 1] = next[t] - w[t] * prow[H];
       } else if constexpr (g < G - 1) {
         constexpr int C = (g + 1) / 4 * 4;   // the group of slot g + 1
-        update_in_place<H, C, C + 4>(s[0], w[0], prow, live - g0);
-        lb = warp_best(g0 == 0 ? pivot_key(s[0][g + 1], used) : 0u, best);
-        update_in_place<H, 0, C>(s[0], w[0], prow, live - g0);
-        update_in_place<H, C + 4, H>(s[0], w[0], prow, live - g0);
+        update_in_place<RT, H, C, C + 4>(s, w, prow, upd);
+        key = rows_key<g + 1>(s, used, tsel);
+        lb = warp_best(g0 == 0 ? key : 0u, best);
+        update_in_place<RT, H, 0, C>(s, w, prow, upd);
+        update_in_place<RT, H, C + 4, H>(s, w, prow, upd);
       } else {
-        // the other half's first G slots, which move to this half's last
-        float next[T == 2 ? G : 1];
-        if (T == 2)
+        // the next part's first G slots, which move to this part's last
+        float next[RT][T > 1 ? G : 1];
+        if (T > 1)
+#pragma unroll
+          for (int t = 0; t < RT; ++t)
+#pragma unroll
+            for (int j = 0; j < G; ++j)
+              next[t][j] = __shfl_sync(kFullMask, s[t][j], below);
+        update_shifted<RT, H, G, G, G + 4>(s, w, prow, upd);
+        key = rows_key<0>(s, used, tsel);
+        lb = warp_best(g0 == 0 ? key : 0u, best);
+        update_shifted<RT, H, G, G + 4, H>(s, w, prow, upd);
+        if (T > 1 && g0 + H < WP)
 #pragma unroll
           for (int j = 0; j < G; ++j)
-            next[j] = __shfl_sync(kFullMask, s[0][j], i + RW);
-        update_shifted<H, G, G, G + 4>(s[0], w[0], prow, live - g0);
-        lb = warp_best(g0 == 0 ? pivot_key(s[0][0], used) : 0u, best);
-        update_shifted<H, G, G + 4, H>(s[0], w[0], prow, live - g0);
-        if (T == 2 && g0 == 0)
+            if (g0 + H + j < live)
 #pragma unroll
-          for (int j = 0; j < G; ++j)
-            if (H + j < live)
-              s[0][H - G + j] = next[j] - w[0] * stage[buf][wb][H + j];
-      }
-      if (BSMEM && g0 == 0) {
-        const float* pb = pbs + (buf * NW + wb) * R;
-        for (int q = 0; q < R; ++q) Sb[q] -= w[0] * pb[q];
+              for (int t = 0; t < RT; ++t)
+                s[t][H - G + j] = next[t][j] - w[t] * prow[H + j];
       }
       return true;
     };
     unroll_steps<0, G>(one_step);
   }
-  if (own)
-    store_row<H, BSMEM>(x, s[0], Sb, R, g0, n % G, step, equil,
-                        equil ? cscale[step] : 1.0f, sx, sys);
+#pragma unroll
+  for (int t = 0; t < RT; ++t)
+    if (r0 + t < n)
+      store_row<H, false>(x, s[t], nullptr, R, g0, n % G, step[t], equil,
+                          equil ? cscale[step[t]] : 1.0f, sx, sys);
 }
 
-template <int NP, int WP, bool BSMEM, int T>
-__global__ void __launch_bounds__(NP * T)
+template <int NP, int WP, int T, int RT>
+__global__ void __launch_bounds__(NP * T / RT)
     gj_kernel_carried(const float* __restrict__ A,
                       const float* __restrict__ b, float* __restrict__ x,
                       int n, int R, int rc, int equil, Strides sa,
                       Strides sb, Strides sx) {
-  carried_body<NP, WP, BSMEM, T, 1>(A, b, x, n, R, rc, equil, sa, sb, sx);
+  carried_body<NP, WP, T, RT, 1>(A, b, x, n, R, rc, equil, sa, sb, sx);
 }
 
-template <int NP, int WP, bool BSMEM, int T>
-__global__ void __launch_bounds__(NP * T)
+template <int NP, int WP, int T, int RT>
+__global__ void __launch_bounds__(NP * T / RT)
     gj_kernel_unrolled(const float* __restrict__ A,
                        const float* __restrict__ b, float* __restrict__ x,
                        int n, int R, int rc, int equil, Strides sa,
                        Strides sb, Strides sx) {
-  carried_body<NP, WP, BSMEM, T, kUnrollGroup>(A, b, x, n, R, rc, equil, sa,
-                                               sb, sx);
+  carried_body<NP, WP, T, RT, kUnrollGroup>(A, b, x, n, R, rc, equil, sa, sb,
+                                            sx);
 }
 
 using K1Fn = void (*)(const float*, const float*, float*, int, int, int,
@@ -649,21 +739,23 @@ K1Fn k1_instance(int rows, int slots, int b_smem) {
 }
 
 // gj_kernel_carried's and gj_kernel_unrolled's instantiations: (padded rows,
-// slots a row, b in shared memory, threads a row)
+// slots a row, threads a row, rows a thread); the right-hand sides always
+// lie in the slots
 K2Fn k2_instance(int np, int slots, int b_smem, int threads, bool unrolled) {
-#define HPFX_K2(NP, WP, BS, T)                                       \
-  if (np == NP && slots == WP && b_smem == BS && threads == NP * T) \
-    return unrolled ? gj_kernel_unrolled<NP, WP, (BS) != 0, T>     \
-                    : gj_kernel_carried<NP, WP, (BS) != 0, T>;
-  HPFX_K2(64, 80, 0, 1)
-  HPFX_K2(64, 64, 1, 1)
-  HPFX_K2(96, 112, 0, 1)
-  HPFX_K2(96, 96, 1, 1)
-  HPFX_K2(128, 144, 0, 1)
-  HPFX_K2(128, 128, 1, 2)
-  HPFX_K2(160, 176, 0, 2)
-  HPFX_K2(160, 160, 1, 2)
-  HPFX_K2(192, 192, 1, 2)
+  if (b_smem) return nullptr;
+#define HPFX_K2(NP, WP, T, RT)                                  \
+  if (np == NP && slots == WP && threads == NP * T / RT)        \
+    return unrolled ? gj_kernel_unrolled<NP, WP, T, RT>         \
+                    : gj_kernel_carried<NP, WP, T, RT>;
+  HPFX_K2(64, 80, 1, 1)
+  HPFX_K2(64, 192, 4, 2)
+  HPFX_K2(96, 112, 1, 1)
+  HPFX_K2(96, 224, 4, 2)
+  HPFX_K2(128, 144, 1, 1)
+  HPFX_K2(128, 256, 4, 2)
+  HPFX_K2(160, 176, 2, 1)
+  HPFX_K2(160, 208, 4, 2)
+  HPFX_K2(192, 208, 2, 1)
 #undef HPFX_K2
   return nullptr;
 }
@@ -692,11 +784,6 @@ int k1_smem(int rows, int R, int b_smem, int systems) {
                 : 0;
 }
 
-int k2_smem(int np, int R, int b_smem, int threads) {
-  return b_smem ? (np * (R | 1) + 2 * (threads / 32) * R) * (int)sizeof(float)
-                : 0;
-}
-
 // gj_kernel_carried or gj_kernel_unrolled with the caller's launch plan,
 // checked against the kernel's need
 int launch_k2(bool unrolled, const float* A, const float* b, float* x, int n,
@@ -705,13 +792,11 @@ int launch_k2(bool unrolled, const float* A, const float* b, float* x, int n,
               int equil, int smem, int rc, cudaStream_t stream) {
   const K2Fn fn = k2_instance(rows, slots, b_smem, threads, unrolled);
   const int chunks = column_chunks(R, rc);
+  // no dynamic shared memory: b lies in the slots
   if (fn == nullptr || n < 1 || n > rows || chunks == 0 || B < 1 ||
-      B > INT_MAX || systems != 1 || (b_smem ? n > slots : n + rc > slots) ||
-      smem < k2_smem(rows, rc, b_smem, threads))
+      B > INT_MAX || systems != 1 || n + rc > slots || smem != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = set_dynamic_smem(fn, smem);
-  if (e != cudaSuccess) return (int)e;
-  fn<<<dim3((unsigned)B, (unsigned)chunks), threads, smem, stream>>>(
+  fn<<<dim3((unsigned)B, (unsigned)chunks), threads, 0, stream>>>(
       A, b, x, n, R, rc, equil, sa, sb, sx);
   return (int)cudaGetLastError();
 }

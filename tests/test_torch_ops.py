@@ -5,6 +5,7 @@ CPU) and its unrolled-XLA elimination, the blocked panel solve,
 equilibration, and the dispatch rules.  The CUDA kernels themselves are
 checked on the card by chip_smoke.py."""
 import importlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,9 +154,9 @@ def test_unrolled_flag_routes_large_dims(monkeypatch, unrolled):
 def _plan_ok(n, R):
     """launch_plan(n, R) checked against the instantiation tables: the
     kernel kernel_for names without GJ_UNROLLED, the narrowest
-    instantiation whose slots hold [A | b] (or A, with b in shared memory
-    where none does), the threads and systems a block and the dynamic
-    shared memory of csrc/gj_solve.cu's layout."""
+    instantiation whose slots hold [A | b] (for gj_kernel, A with b in
+    shared memory where none does), the threads and systems a block and
+    the dynamic shared memory of csrc/gj_solve.cu's layout."""
     p = tbs.launch_plan(n, R)
     if n < tbs.KERNEL_SWITCH_DIM:
         assert p.kernel == "gj_kernel"
@@ -166,21 +167,23 @@ def _plan_ok(n, R):
         assert p.kernel == "gj_kernel_carried"
         assert p.rows == -(-n // 32) * 32
         assert p.systems == 1
-        assert p.threads == p.rows * tbs.K2_THREADS_PER_ROW.get(
-            (p.rows, p.slots), 1)
-        reg, smem = tbs.K2_INSTANCES, tbs.K2_SMEM_INSTANCES
+        per_row, per_thread = tbs.K2_LAYOUT.get((p.rows, p.slots), (1, 1))
+        assert p.threads == p.rows * per_row // per_thread
+        reg, smem = tbs.K2_INSTANCES, ()
     fits = sorted(w for r, w in reg if r == p.rows and w >= n + R)
     if fits:
         assert not p.b_in_smem and p.slots == fits[0] and p.smem == 0
     else:
         fits = sorted(w for r, w in smem if r == p.rows and w >= n)
         assert p.b_in_smem and p.slots == fits[0]
-        rows = 32 * p.rows if p.kernel == "gj_kernel" else p.rows
-        per = rows * (R | 1) + 2 * R * (p.threads // 32 if p.kernel ==
-                                        "gj_kernel_carried" else 1)
-        assert p.smem == 4 * per * (p.systems if p.kernel == "gj_kernel"
-                                    else 1)
+        per = 32 * p.rows * (R | 1) + 2 * R
+        assert p.smem == 4 * per * p.systems
     return p
+
+
+#: what launch_plan's ValueError names past one block: gj_kernel's shared
+#: memory, gj_kernel_carried's register slots
+PAST_ONE_BLOCK = "bytes of shared memory|register slots"
 
 
 @pytest.mark.parametrize("lo,hi", [(17, 63), (64, 192)],
@@ -189,18 +192,19 @@ def test_launch_plan_takes_every_dispatched_shape(lo, hi):
     """Every (n, R) the dispatcher can send to a direct kernel, 17 <= n <=
     192 and 1 <= R <= 63 (the arrow blocks send R = 1 + 2·n_nl), has an
     instantiation on the card, or raises ValueError naming the limit; the
-    net2 and net1 path shapes keep [A | b] in registers."""
+    net2 and net1 path shapes keep [A | b] in registers, and so does every
+    shape of gj_kernel_carried (it has no shared-memory form)."""
     planned = set()
     for n in range(lo, hi + 1):
         for R in range(1, 64):
             try:
                 p = _plan_ok(n, R)
             except ValueError as e:
-                assert "bytes of shared memory" in str(e)
+                assert re.search(PAST_ONE_BLOCK, str(e))
                 continue
             planned.add((p.rows, p.slots, p.b_in_smem))
     tables = ((tbs.K1_INSTANCES, tbs.K1_SMEM_INSTANCES) if lo < 64 else
-              (tbs.K2_INSTANCES, tbs.K2_SMEM_INSTANCES))
+              (tbs.K2_INSTANCES, ()))
     every = {(r, w, m) for m, t in zip((False, True), tables) for r, w in t}
     # a lane's single row holds up to 95 columns in slots, so the smem
     # form of one row a lane takes only R > 63
@@ -210,8 +214,61 @@ def test_launch_plan_takes_every_dispatched_shape(lo, hi):
         assert not tbs.launch_plan(n, R).b_in_smem
     with pytest.raises(ValueError, match="exceeds"):
         tbs.launch_plan(193, 1)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
+    with pytest.raises(ValueError, match=PAST_ONE_BLOCK):
         tbs.launch_plan(hi, 4096)
+
+
+#: the launch plans of the path shapes that do not take the wide rows, as
+#: the shared-memory form's last commit planned them
+NARROW_PLANS = {
+    (26, 1): tbs.LaunchPlan("gj_kernel", 1, 32, False, 256, 8, 0),
+    (38, 1): tbs.LaunchPlan("gj_kernel", 2, 40, False, 128, 4, 0),
+    (40, 15): tbs.LaunchPlan("gj_kernel", 2, 56, False, 128, 4, 0),
+    (96, 1): tbs.LaunchPlan("gj_kernel_carried", 96, 112, False, 96, 1, 0),
+    (126, 1): tbs.LaunchPlan("gj_kernel_carried", 128, 144, False, 128, 1,
+                             0),
+    (128, 15): tbs.LaunchPlan("gj_kernel_carried", 128, 144, False, 128, 1,
+                              0),
+}
+
+
+@pytest.mark.parametrize("n,R", sorted(NARROW_PLANS))
+def test_narrow_path_shapes_keep_their_plan(n, R):
+    """net2's, net1's and the 64-bus feeder's shapes keep the plan they
+    had before the wide rows moved into registers, whole (as
+    chunked_plan gives it too: one chunk)."""
+    assert tbs.launch_plan(n, R) == NARROW_PLANS[(n, R)]
+    assert tbs.chunked_plan(n, R) == (NARROW_PLANS[(n, R)], R)
+
+
+@pytest.mark.parametrize("n,R", [(130, 65), (130, 78), (161, 47), (182, 1),
+                                 (192, 16), (102, 48)])
+def test_wide_rows_plan_into_registers(n, R):
+    """The IEEE 33-bus feeder's arrow blocks (130, 65) and the other shapes
+    whose [A | b] passes the narrow instantiations plan into registers,
+    split over two or four threads a row, directly and through
+    chunked_plan (one chunk)."""
+    p = _plan_ok(n, R)
+    assert not p.b_in_smem and p.smem == 0 and n + R <= p.slots
+    assert tbs.K2_LAYOUT[(p.rows, p.slots)][0] > 1
+    assert tbs.chunked_plan(n, R) == (p, R)
+    if (n, R) == (130, 65):
+        assert p == tbs.LaunchPlan("gj_kernel_carried", 160, 208, False,
+                                   320, 1, 0)
+
+
+@pytest.mark.parametrize("n", [64, 96, 130, 160, 192])
+def test_wide_right_hand_sides_split_into_register_chunks(n):
+    """Past the widest instantiation of its rows, chunked_plan splits R
+    into near-equal chunks that each fit the register slots; the chunk
+    fills the widest slots no more than one block's worth."""
+    widest = tbs._widest_chunk(n)
+    rows = -(-n // 32) * 32
+    assert widest == max(w for r, w in tbs.K2_INSTANCES if r == rows) - n
+    for R in (widest + 1, 2 * widest, 3 * widest + 1, 3200):
+        p, chunk = tbs.chunked_plan(n, R)
+        assert p == _plan_ok(n, chunk) and not p.b_in_smem
+        assert -(-R // chunk) == -(-R // widest)
 
 
 @pytest.mark.parametrize("n,R", [(26, 1), (40, 15), (96, 1)])

@@ -32,7 +32,7 @@ from hpfx_torch.ops import batched_solve as tbs
 
 from test_torch_foundations import (  # noqa: F401
     dev_leaves, net_leaves, one_torch_thread)
-from test_torch_ops import F32_TOL, _plan_ok
+from test_torch_ops import F32_TOL, PAST_ONE_BLOCK, _plan_ok
 
 # the module (hpfx.ops re-exports a function of the same name)
 jbs = importlib.import_module("hpfx.ops.batched_solve")
@@ -202,10 +202,11 @@ def test_dispatch_routes_as_jax(monkeypatch, impl, n, mode):
 def test_chunked_plan_covers_every_width(n):
     """Every R from 1 to 3200 (the leaves of a dim-3184 Schur solve carry
     up to ~3150) has one launch: chunks of ``chunk`` columns that cover R
-    exactly, as few as fit, each within one block's shared memory; up to
-    the widest chunk it is launch_plan(n, R) itself, one chunk."""
+    exactly, as few as fit, each within one block's shared memory (at dim
+    64, gj_kernel_carried's register slots); up to the widest chunk it is
+    launch_plan(n, R) itself, one chunk."""
     widest = tbs._widest_chunk(n)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
+    with pytest.raises(ValueError, match=PAST_ONE_BLOCK):
         tbs.launch_plan(n, widest + 1)
     for R in range(1, 3201):
         p, chunk = tbs.chunked_plan(n, R)
