@@ -37,8 +37,9 @@ from .fundamental import FundResult, pf, solve_fundamental  # noqa: E402
 from .generators import synthetic_feeder  # noqa: E402
 from .harmonic import (HPFResult, cleanup_voltages, hpf,  # noqa: E402
                        solve_harmonic)
-from .lanes import (PhaseLog, hpf_sweep_adaptive_lanes,  # noqa: E402
+from .lanes import (hpf_sweep_adaptive_lanes,  # noqa: E402
                     hpf_sweep_continuation_lanes)
+from .utils.profiling import PhaseLog  # noqa: E402
 from .network import (Network, load_network, network_from_arrays,  # noqa: E402
                       validate_network)
 from .ops.batched_solve import (LAUNCHES, LAUNCHES_BY_SHAPE,  # noqa: E402

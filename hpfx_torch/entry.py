@@ -22,6 +22,7 @@ import torch
 import hpfx_torch as ht
 from hpfx_torch import parallel as par
 from hpfx_torch._device import resolve_device
+from hpfx_torch.utils.profiling import OUTSIDE
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _DATA = os.path.join(_REPO, "hpfx", "data")
@@ -253,7 +254,7 @@ def _rank_main(rank: int, world: int, store: str, out=None) -> None:
         mesh2 = par.hpf_mesh(world // 2, 2, devices="cpu")
         log2 = ht.PhaseLog()
         r2 = par.hpf_sweep_sharded2d(net, dev, sa, scen2, mesh2, log=log2)
-        _check(log2.reads[ht.lanes.OUTSIDE] >= 2,
+        _check(log2.reads[OUTSIDE] >= 2,
                f"2-D sharded sweep: reads {log2.reads}")
         dv2 = held("2", "2-D sharded sweep", r2,
                    lambda: ht.hpf_sweep(net, dev, sa, scen2), batch=B2)

@@ -20,14 +20,12 @@ synchronisation per Newton trip.
 """
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import cx
-from .arrow import _ArrowConsts, _make_arrow_consts
+from .arrow import _ArrowConsts, _consts
 from .config import Settings
 from .cx import Cx
 from .devices import AnalyticDeviceSet, DeviceLibrary, DeviceSet
@@ -37,6 +35,8 @@ from .harmonic import (HPFResult, cleanup_voltages, lifted_threshold,
 from .network import Network
 from .ops.batched_solve import batched_solve_lanes
 from .parallel.mesh import ALONE
+from .utils.profiling import (PhaseLog, _clock, _harmonic_trip, _phase,
+                              _read, _trip)
 from .utils.profiling import span as _span
 from .warmstart import _floor_seed_mag
 from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
@@ -46,118 +46,6 @@ from .ybus import LineYbus, _polar_diff, incidence, resolve_ybus
 SEED_CHUNK_BYTES = 1 << 31
 
 _all = slice(None)
-
-
-# ---------------------------------------------------------------------------
-# measurement: wall time, Newton trips and host reads per phase
-# ---------------------------------------------------------------------------
-
-#: the key of :attr:`PhaseLog.reads` for reads made while no phase is open
-OUTSIDE = "outside"
-
-
-class PhaseLog:
-    """Wall time, Newton trips and host reads of each phase of a sweep.
-
-    Pass one as ``log=`` to :func:`hpf_sweep_adaptive_lanes`,
-    ``hpfx_torch.solve.hpf_sweep_device``, ``hpfx_torch.solve.
-    hpf_sweep_adaptive`` or the sharded entries of
-    ``hpfx_torch.parallel``.  A phase synchronises the device at its start
-    and end, so its time includes all the work it queued; that is one
-    synchronisation per phase boundary, on top of the one per trip the
-    loops already make.  A phase opened inside another (the host rescue's
-    passes) counts its own time and the enclosing one's as well; the
-    counts below go to the innermost phase alone.
-
-    ``trips`` counts Newton loop trips (fundamental and harmonic) run
-    inside the phase; ``harmonic_trips`` the harmonic ones, and
-    ``harmonic_trip_seconds`` their host-clock time, each from the return
-    of the previous convergence read to the return of its own: the read
-    waits for the trip's device work, so this adds no synchronisation.
-    ``reads`` counts the sweep's device-to-host reads (:func:`_read`: the
-    loops' convergence tests, the straggler counts and bucket indices), by
-    the phase open at each (:data:`OUTSIDE` where none is); the phases'
-    own synchronisations are not reads.  ``stragglers`` sums, over the
-    calls, the gathered lanes of :func:`hpf_sweep_adaptive_lanes` still
-    unconverged after phase 1 (those a rank holds, under a mesh): the
-    calls where it grows are those whose rescue passes ran."""
-
-    def __init__(self):
-        self.seconds = {}
-        self.trips = {}
-        self.reads = {}
-        self.harmonic_trips = {}
-        self.harmonic_trip_seconds = {}
-        self.stragglers = 0
-        self._current = None
-
-    @contextlib.contextmanager
-    def phase(self, name: str, device):
-        _sync(device)
-        t0 = time.perf_counter()
-        prev, self._current = self._current, name
-        for counts in (self.trips, self.reads, self.harmonic_trips):
-            counts.setdefault(name, 0)
-        self.harmonic_trip_seconds.setdefault(name, 0.0)
-        try:
-            with _span("phase." + name):
-                yield
-        finally:
-            _sync(device)
-            self.seconds[name] = (self.seconds.get(name, 0.0)
-                                  + time.perf_counter() - t0)
-            self._current = prev
-
-    def trip(self):
-        if self._current is not None:
-            self.trips[self._current] += 1
-
-    def read(self):
-        key = OUTSIDE if self._current is None else self._current
-        self.reads[key] = self.reads.get(key, 0) + 1
-
-    def harmonic_trip(self, t_prev: float) -> float:
-        now = time.perf_counter()
-        if self._current is not None:
-            self.harmonic_trips[self._current] += 1
-            self.harmonic_trip_seconds[self._current] += now - t_prev
-        return now
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _phase(log: Optional[PhaseLog], name: str, device):
-    """Phase ``name`` of ``log``, or without one the phase's span alone."""
-    if log is not None:
-        return log.phase(name, device)
-    return _span("phase." + name)
-
-
-def _trip(log: Optional[PhaseLog]):
-    if log is not None:
-        log.trip()
-
-
-def _read(log: Optional[PhaseLog], fn, *args):
-    """``fn(*args)``, a call that brings a value from the device to the
-    host (``bool(t.any())``, ``torch.nonzero``), counted in ``log``."""
-    if log is not None:
-        log.read()
-    return fn(*args)
-
-
-def _clock(log: Optional[PhaseLog]):
-    """The host clock where ``log`` times trips."""
-    return None if log is None else time.perf_counter()
-
-
-def _harmonic_trip(log: Optional[PhaseLog], t_prev):
-    """Count a harmonic trip whose convergence read has just returned;
-    returns the clock for the next."""
-    return None if log is None else log.harmonic_trip(t_prev)
 
 
 class LaneDevices(NamedTuple):
@@ -750,7 +638,8 @@ def nr_trip_lanes(Y: Cx, lineY, S: Cx, dev, inj_db, V_m, V_a,
 
 
 class _SweepSetup(NamedTuple):
-    """Shared pre-trip state of the lane-major sweep entry points."""
+    """Shared pre-trip state of the lane-major sweep entry points, or of
+    the lanes a rescue gathered (``fund`` then None)."""
     Y: Cx
     lineY: object
     S: Cx
@@ -764,21 +653,13 @@ class _SweepSetup(NamedTuple):
     ibg: Optional[Cx] = None     # (H, n, B) background injections
 
 
-def _sweep_setup(net: Network, devices, settings: Settings, scenarios,
-                 Y=None, I_bg=None, log: Optional[PhaseLog] = None
-                 ) -> _SweepSetup:
-    """Admittances (``Y``: None, a dense Cx or a (Y, lineY, lineY_f)
-    triple, :func:`hpfx_torch.ybus.resolve_ybus`), scenario-scaled powers
-    and injections, the lane devices (a DeviceLibrary blended by
-    ``scenarios.device_mix``), the batched fundamental solve, the cold
-    start, the background injections ``I_bg`` (batch-major (B, H, n),
-    carried (H, n, B)) and the floor-aware threshold (evaluated at the
-    cold state even for warm starts)."""
-    H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
+def _scenario_lanes(net: Network, devices, settings: Settings, scenarios):
+    """The scenarios' scaled loads ``S`` (n, B), device-major injection
+    scales ``inj_db`` (n_nl, B) and lane devices (a DeviceLibrary blended
+    by ``scenarios.device_mix``)."""
+    n, m = net.n, net.m
     rd, dv = settings.real_dtype, net.device
     B = scenarios.p_scale.shape[0]
-    Y, lineY, lineY_f = resolve_ybus(net, settings, Y)
-
     q_scale = scenarios.q_scale if scenarios.q_scale is not None \
         else scenarios.p_scale
     inj = scenarios.injection_scale if scenarios.injection_scale is not None \
@@ -795,21 +676,86 @@ def _sweep_setup(net: Network, devices, settings: Settings, scenarios,
            else _as_lane_devices(devices))
     S = Cx(_scale_cols(net.bus_P, scenarios.p_scale),
            _scale_cols(net.bus_Q, q_scale))
+    return S, inj_db, dev
 
+
+def _cold_start(Y: Cx, lineY_f, S: Cx, net: Network, settings: Settings,
+                log: Optional[PhaseLog] = None):
+    """The batched fundamental solve of the loads ``S`` and the flat
+    harmonic start on it: (fund, V_m, V_a), the voltages (H, n, B)."""
+    H, n, B = settings.n_harmonics, net.n, S.re.shape[-1]
+    rd, dv = settings.real_dtype, net.device
     fund = solve_fundamental_lanes(Y[0], S, net, settings, B, lineY_f,
                                    log=log)
-    cold_V_m = torch.full((H, n, B), settings.v_init_h, dtype=rd, device=dv)
-    cold_V_m[0] = fund.V_m
-    cold_V_a = torch.full((H, n, B), settings.a_init_h, dtype=rd, device=dv)
-    cold_V_a[0] = fund.V_a
+    V_m = torch.full((H, n, B), settings.v_init_h, dtype=rd, device=dv)
+    V_a = torch.full((H, n, B), settings.a_init_h, dtype=rd, device=dv)
+    V_m[0], V_a[0] = fund.V_m, fund.V_a
+    return fund, V_m, V_a
+
+
+def _gather_lanes(sel, S: Cx, inj_db, dev):
+    """The lanes ``sel`` of the loads, the injection scales and the lane
+    devices (a device mix's own arrays)."""
+    g = lambda x: x.index_select(-1, sel)
+    gcx = lambda z: Cx(g(z.re), g(z.im))
+    if isinstance(dev, LaneDevices) and dev.batched:
+        dev = dev._replace(I_N=gcx(dev.I_N), Y_N=gcx(dev.Y_N))
+    return gcx(S), g(inj_db), dev
+
+
+def _scatter_lanes(full, kk, sel, mask):
+    """``full`` with its lanes ``sel`` (last axis) replaced by ``kk`` where
+    ``mask`` (one flag a lane of ``sel``)."""
+    out = full.clone()
+    out[..., sel] = torch.where(mask, kk, full.index_select(-1, sel))
+    return out
+
+
+def _sweep_setup(net: Network, devices, settings: Settings, scenarios,
+                 Y=None, I_bg=None, log: Optional[PhaseLog] = None
+                 ) -> _SweepSetup:
+    """Admittances (``Y``: None, a dense Cx or a (Y, lineY, lineY_f)
+    triple, :func:`hpfx_torch.ybus.resolve_ybus`), the scenario inputs
+    (:func:`_scenario_lanes`), the cold start (:func:`_cold_start`), the
+    background injections ``I_bg`` (batch-major (B, H, n), carried (H, n,
+    B)), the cached arrow constants and the floor-aware threshold
+    (evaluated at the cold state even for warm starts)."""
+    H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
+    rd, dv = settings.real_dtype, net.device
+    Y, lineY, lineY_f = resolve_ybus(net, settings, Y)
+    S, inj_db, dev = _scenario_lanes(net, devices, settings, scenarios)
+    fund, cold_V_m, cold_V_a = _cold_start(Y, lineY_f, S, net, settings, log)
     ibg = None
     if I_bg is not None:
         ibg = Cx(torch.movedim(I_bg.re.to(rd), 0, -1),
                  torch.movedim(I_bg.im.to(rd), 0, -1))
-    consts = _make_arrow_consts(H, n, m, c, rd, dv)
+    consts = _consts(H, n, m, c, rd, dv)
     thresh = _thresh_lanes(cold_V_m, Y, dev, inj_db, m, settings, ibg=ibg)
     return _SweepSetup(Y, lineY, S, dev, inj_db, fund, cold_V_m,
                        cold_V_a, consts, thresh, ibg)
+
+
+def _rescue_pass(su: _SweepSetup, settings: Settings, Vm0, Va0, state,
+                 log: Optional[PhaseLog] = None, mesh=ALONE):
+    """One Newton pass of the gathered lanes ``su`` from (Vm0, Va0).
+    ``state``: their (V_m, V_a, err, n_iter, converged).  Only the results
+    of the lanes given unconverged are kept, so the converged ones take an
+    infinite threshold: no trip from the first read (the threshold is not
+    lifted, :func:`hpfx_torch.harmonic.lifted_threshold`), and the loop
+    ends when the kept lanes are done.  Returns the new state, the kept
+    lanes ``redo`` and the pass's (max_iter_h, K) history."""
+    Vmk, Vak, errk, nitk, convk = state
+    thresh_r = su.thresh.masked_fill(convk, float("inf"))
+    Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
+        su.Y, su.lineY, su.S, su.dev, su.inj_db, Vm0, Va0, settings,
+        su.consts, thresh_r, ibg=su.ibg, log=log, mesh=mesh)
+    redo = ~convk
+    Vmk = torch.where(redo, Vm2, Vmk)
+    Vak = torch.where(redo, Va2, Vak)
+    errk = torch.where(redo, err2, errk)
+    nitk = nitk + torch.where(redo, nit2, 0)
+    convk = convk | (redo & (err2 <= thresh_r))
+    return (Vmk, Vak, errk, nitk, convk), redo, hist2
 
 
 def _mesh_piece(mesh, scenarios, V0=None, I_bg=None):
@@ -954,12 +900,9 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
          flat start with a fresh full budget;
       4. scatter back, splicing full-width ``err_hist``.
 
-    Both passes keep only the results of the lanes they were given
-    unconverged, so the converged gathered lanes (the gather's padding,
-    and what phase 2 converged) take an infinite threshold there: they are
-    inactive from the pass's first read, and its loop ends when the kept
-    lanes are done.  Where phase 1 left no gathered lane unconverged (one
-    host read), neither pass runs; their phases still open, empty.
+    Both passes (:func:`_rescue_pass`) run only the lanes they were given
+    unconverged.  Where phase 1 left no gathered lane unconverged (one
+    host read), neither runs; their phases still open, empty.
 
     Stragglers beyond the width keep their phase-1 state and are reported
     unconverged.  A tuple ``rescue_width`` gives bucketed widths: the
@@ -1031,30 +974,12 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     if log is not None:
         log.stragglers += n_strag
     g = lambda x: x.index_select(-1, bad)
-    gcx = lambda z: None if z is None else Cx(g(z.re), g(z.im))
-    S_k = gcx(su.S)
-    inj_k = g(su.inj_db)
-    dev_k = su.dev
-    if isinstance(dev_k, LaneDevices) and dev_k.batched:
-        dev_k = dev_k._replace(I_N=gcx(dev_k.I_N), Y_N=gcx(dev_k.Y_N))
-    ibg_k = gcx(su.ibg)
-    thresh_k = g(su.thresh)
-    coldVm_k, coldVa_k = g(su.cold_V_m), g(su.cold_V_a)
-
-    def rescue_pass(s_pass, Vm0, Va0, state):
-        Vmk, Vak, errk, nitk, convk = state
-        # a converged lane's result is dropped below: it takes no trip
-        thresh_r = thresh_k.masked_fill(convk, float("inf"))
-        Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
-            su.Y, su.lineY, S_k, dev_k, inj_k, Vm0, Va0, s_pass,
-            su.consts, thresh_r, ibg=ibg_k, log=log, mesh=mesh)
-        redo = ~convk
-        Vmk = torch.where(redo[None, None, :], Vm2, Vmk)
-        Vak = torch.where(redo[None, None, :], Va2, Vak)
-        errk = torch.where(redo, err2, errk)
-        nitk = nitk + torch.where(redo, nit2, 0)
-        convk = convk | (redo & (err2 <= thresh_r))
-        return (Vmk, Vak, errk, nitk, convk), redo, hist2
+    S_k, inj_k, dev_k = _gather_lanes(bad, su.S, su.inj_db, su.dev)
+    su_k = su._replace(
+        S=S_k, inj_db=inj_k, dev=dev_k, fund=None,
+        cold_V_m=g(su.cold_V_m), cold_V_a=g(su.cold_V_a),
+        thresh=g(su.thresh),
+        ibg=None if su.ibg is None else Cx(g(su.ibg.re), g(su.ibg.im)))
 
     state = (g(V_m), g(V_a), g(err), g(n_iter), conv[bad])
     if p1 < settings.max_iter_h:
@@ -1068,9 +993,10 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
                 use_self = (finite | state[4])[None, None, :]
                 Vmc, Vac = cleanup_voltages(Vmk, Vak)
                 s2 = settings.with_(max_iter_h=settings.max_iter_h - p1)
-                state, redo, hist2 = rescue_pass(
-                    s2, torch.where(use_self, Vmc, coldVm_k),
-                    torch.where(use_self, Vac, coldVa_k), state)
+                state, redo, hist2 = _rescue_pass(
+                    su_k, s2, torch.where(use_self, Vmc, su_k.cold_V_m),
+                    torch.where(use_self, Vac, su_k.cold_V_a), state,
+                    log=log, mesh=mesh)
                 hist[p1:, bad] = torch.where(redo[None, :], hist2,
                                              hist[p1:, bad])
 
@@ -1078,23 +1004,15 @@ def hpf_sweep_adaptive_lanes(net: Network, devices, settings: Settings,
     # history replaces the whole row (a restart, not a resume)
     with _phase(log, "cold_restart", dv):
         if n_strag:
-            state, redo, hist3 = rescue_pass(settings, coldVm_k, coldVa_k,
-                                             state)
+            state, redo, hist3 = _rescue_pass(
+                su_k, settings, su_k.cold_V_m, su_k.cold_V_a, state,
+                log=log, mesh=mesh)
             hist[:, bad] = torch.where(redo[None, :], hist3, hist[:, bad])
 
     if n_strag:
-        Vmk, Vak, errk, nitk, convk = state
-
-        def sc(full, kk, mask):
-            out = full.clone()
-            out[..., bad] = torch.where(mask, kk, g(full))
-            return out
-
-        V_m = sc(V_m, Vmk, was_bad[None, None, :])
-        V_a = sc(V_a, Vak, was_bad[None, None, :])
-        err = sc(err, errk, was_bad)
-        n_iter = sc(n_iter, nitk, was_bad)
-        conv = sc(conv, convk, was_bad)
+        V_m, V_a, err, n_iter, conv = (
+            _scatter_lanes(x, k, bad, was_bad)
+            for x, k in zip((V_m, V_a, err, n_iter, conv), state))
 
     V_m, V_a = cleanup_voltages(V_m, V_a)
     res = _lanes_result(V_m, V_a, err, n_iter, hist, su.thresh, su.fund)
@@ -1112,55 +1030,30 @@ def _lanes_result(V_m, V_a, err, n_iter, hist, thresh_eff,
                      fund=fund_bm)
 
 
-def _continuation_rescue(V_m, V_a, err, n_iter, hist, conv, bad, gather,
-                         cold_state, Y, lineY, m: int, settings: Settings,
-                         consts, log, mesh=ALONE):
-    """The device continuation's rescue of the lanes ``bad``: two passes,
-    warm from their own final state (cold where it is not finite), which
-    breaks floor-hover stalls, and cold, for what a bad continuation seed
-    stalled; scattered back."""
-    K = bad.shape[0]
+def _continuation_rescue(su: _SweepSetup, V_m, V_a, err, n_iter, hist,
+                         conv, bad, settings: Settings, log, mesh=ALONE):
+    """The device continuation's rescue of the lanes ``bad`` (``su``: their
+    set-up): two passes (:func:`_rescue_pass`), warm from their own final
+    state (cold where it is not finite), which breaks floor-hover stalls,
+    and cold, for what a bad continuation seed stalled; each pass's
+    history replaces the rescued lanes' whole rows; scattered back."""
     was_bad = ~conv[bad]
     g = lambda x: x.index_select(-1, bad)
-    S_k, inj_k, dev_k = gather(bad)
-    coldVm, coldVa = cold_state(S_k, K)
-    thresh_k = _thresh_lanes(coldVm, Y, dev_k, inj_k, m, settings)
-
-    def rescue_pass(Vmk, Vak, errk, nitk, histk, convk, Vm0, Va0):
-        # converged lanes stay inactive: their threshold is lifted to
-        # their achieved error
-        thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
-                               thresh_k)
-        Vm2, Va2, err2, nit2, hist2 = nr_trip_lanes(
-            Y, lineY, S_k, dev_k, inj_k, Vm0, Va0, settings, consts,
-            thresh_r, log=log, mesh=mesh)
-        redo = ~convk
-        return (torch.where(redo[None, None, :], Vm2, Vmk),
-                torch.where(redo[None, None, :], Va2, Vak),
-                torch.where(redo, err2, errk),
-                nitk + torch.where(redo, nit2, 0),
-                torch.where(redo[None, :], hist2, histk),
-                convk | (redo & (err2 <= thresh_r)))
-
-    Vmk, Vak = g(V_m), g(V_a)
+    Vmk, Vak, histk = g(V_m), g(V_a), g(hist)
     finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
               & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
-    use_self = (finite | conv[bad])[None, None, :]
-    state = (Vmk, Vak, err[bad], n_iter[bad], g(hist), conv[bad])
-    state = rescue_pass(*state, torch.where(use_self, Vmk, coldVm),
-                        torch.where(use_self, Vak, coldVa))
-    state = rescue_pass(*state, coldVm, coldVa)
-
-    def sc(full, kk, mask):
-        out = full.clone()
-        out[..., bad] = torch.where(mask, kk, g(full))
-        return out
-
-    lane = was_bad[None, None, :]
-    return (sc(V_m, state[0], lane), sc(V_a, state[1], lane),
-            sc(err, state[2], was_bad), sc(n_iter, state[3], was_bad),
-            sc(hist, state[4], was_bad[None, :]),
-            sc(conv, state[5], was_bad))
+    use_self = finite | conv[bad]
+    state = (Vmk, Vak, g(err), g(n_iter), conv[bad])
+    for Vm0, Va0 in ((torch.where(use_self, Vmk, su.cold_V_m),
+                      torch.where(use_self, Vak, su.cold_V_a)),
+                     (su.cold_V_m, su.cold_V_a)):
+        state, redo, hist_p = _rescue_pass(su, settings, Vm0, Va0, state,
+                                           log=log, mesh=mesh)
+        histk = torch.where(redo, hist_p, histk)
+    Vmk, Vak, errk, nitk, convk = state
+    return tuple(_scatter_lanes(x, k, bad, was_bad) for x, k in zip(
+        (V_m, V_a, err, n_iter, hist, conv),
+        (Vmk, Vak, errk, nitk, histk, convk)))
 
 
 def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
@@ -1180,11 +1073,10 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     summed device mix, else ``p_scale``; sorted stably, split into
     ``n_stages`` chunks, the last padded with repeats of the last sorted
     index.  Every stage's floor-aware threshold is taken at its cold
-    state, as the plain sweep's.  With ``rescue``, the up to one chunk
-    width of unconverged scenarios are gathered (stably) and re-solved,
-    first warm from their own final state (cold where it is not finite),
-    then cold.  ``log``: optional :class:`PhaseLog` with the phases
-    "stages" and "rescue".
+    state, as the plain sweep's.  With ``rescue``, up to one chunk width
+    of unconverged scenarios are gathered (stably) and re-solved
+    (:func:`_continuation_rescue`).  ``log``: optional :class:`PhaseLog`
+    with the phases "stages" and "rescue".
 
     ``mesh``: a scenario, harmonic or 2-D mesh (:func:`hpfx_torch.
     parallel.hpf_sweep_continuation_sharded`; JAX's ``vsharding=
@@ -1201,28 +1093,15 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     B = scenarios.p_scale.shape[0]
     n_stages = max(1, min(n_stages, B))
     Y, lineY, lineY_f = resolve_ybus(net, settings)
-
-    q_scale = scenarios.q_scale if scenarios.q_scale is not None \
-        else scenarios.p_scale
-    inj = scenarios.injection_scale if scenarios.injection_scale is not None \
-        else torch.ones((B,), dtype=rd, device=dv)
-    inj = inj.to(rd)
-    inj_db = _as_inj_db(inj.T if inj.ndim == 2 else inj, n - m, B)
-    mix = getattr(scenarios, "device_mix", None)
-    if (mix is not None) != isinstance(devices, DeviceLibrary):
-        raise ValueError(
-            "Scenarios.device_mix requires passing a DeviceLibrary as "
-            "devices (and vice versa)")
-    dev = (_mix_lane_devices(devices, mix, rd) if mix is not None
-           else _as_lane_devices(devices))
-    S = Cx(_scale_cols(net.bus_P, scenarios.p_scale),
-           _scale_cols(net.bus_Q, q_scale))
+    S, inj_db, dev = _scenario_lanes(net, devices, settings, scenarios)
+    consts = _consts(H, n, m, c, rd, dv)
 
     # the continuation key (the device-side twin of the host version's)
     if scenarios.injection_scale is not None:
+        inj = scenarios.injection_scale.to(rd)
         key = inj if inj.ndim == 1 else inj.mean(dim=1)
-    elif mix is not None:
-        key = mix.to(rd).sum(dim=(1, 2))
+    elif getattr(scenarios, "device_mix", None) is not None:
+        key = scenarios.device_mix.to(rd).sum(dim=(1, 2))
     else:
         p = scenarios.p_scale.to(rd)
         key = p if p.ndim == 1 else p.mean(dim=1)
@@ -1230,25 +1109,18 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     Bc = -(-B // n_stages)
     Bp = n_stages * Bc
     order_p = torch.cat([order, order[-1:].expand(Bp - B)])
-    batched = isinstance(dev, LaneDevices) and dev.batched
 
-    def gather(sel):
-        """The lanes ``sel`` of the loads, scales and batched devices."""
-        g = lambda x: x.index_select(-1, sel)
-        gcx = lambda z: Cx(g(z.re), g(z.im))
-        dev_s = (dev._replace(I_N=gcx(dev.I_N), Y_N=gcx(dev.Y_N))
-                 if batched else dev)
-        return gcx(S), g(inj_db), dev_s
+    def setup_of(sel) -> _SweepSetup:
+        """The lanes ``sel``: inputs, cold start and the floor-aware
+        threshold at it, the plain sweep's bar (at a warm seed the
+        harmonic |V|, and the floor with it, is ~10x smaller: knife-edge
+        scenarios would meet a stricter test than on the other paths)."""
+        S_k, inj_k, dev_k = _gather_lanes(sel, S, inj_db, dev)
+        fund, Vm, Va = _cold_start(Y, lineY_f, S_k, net, settings, log)
+        return _SweepSetup(Y, lineY, S_k, dev_k, inj_k, fund, Vm, Va,
+                           consts, _thresh_lanes(Vm, Y, dev_k, inj_k, m,
+                                                 settings))
 
-    def cold_state(S_k, Bk):
-        fund = solve_fundamental_lanes(Y[0], S_k, net, settings, Bk,
-                                       lineY_f, log=log)
-        Vm = torch.full((H, n, Bk), settings.v_init_h, dtype=rd, device=dv)
-        Va = torch.full((H, n, Bk), settings.a_init_h, dtype=rd, device=dv)
-        Vm[0], Va[0] = fund.V_m, fund.V_a
-        return Vm, Va
-
-    consts = _make_arrow_consts(H, n, m, c, rd, dv)
     pVm = torch.zeros((H, n, Bc), dtype=rd, device=dv)
     pVa = torch.zeros_like(pVm)
     pK = torch.zeros((Bc,), dtype=rd, device=dv)
@@ -1258,26 +1130,19 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
     with _phase(log, "stages", dv):
         for st in range(n_stages):
             sel = order_p[st * Bc:(st + 1) * Bc]
-            S_c, inj_c, dev_c = gather(sel[lo:hi])
+            su = setup_of(sel[lo:hi])
             kc = key.index_select(0, sel)
-            coldVm, coldVa = cold_state(S_c, hi - lo)
             # the nearest CONVERGED scenario of the previous chunk
             dist = (kc[lo:hi, None] - pK[None, :]).abs() \
                 + 1e30 * (1.0 - pConv)[None, :]
             j = torch.argmin(dist, dim=1)
             haveprev = (pConv > 0).any()
-            Vm0 = torch.where(haveprev, pVm[:, :, j], coldVm)
-            Va0 = torch.where(haveprev, pVa[:, :, j], coldVa)
-            # the floor-aware threshold at the COLD state, the plain
-            # sweep's bar: a warm seed sits where the harmonic |V|, and
-            # with it the floor, is ~10x smaller, which would hold
-            # knife-edge scenarios to a stricter test than the plain and
-            # adaptive paths
-            thresh = _thresh_lanes(coldVm, Y, dev_c, inj_c, m, settings)
+            Vm0 = torch.where(haveprev, pVm[:, :, j], su.cold_V_m)
+            Va0 = torch.where(haveprev, pVa[:, :, j], su.cold_V_a)
             Vm, Va, err, n_it, hist = nr_trip_lanes(
-                Y, lineY, S_c, dev_c, inj_c, Vm0, Va0, settings, consts,
-                thresh, log=log, mesh=mesh)
-            conv = err <= thresh
+                Y, lineY, su.S, su.dev, su.inj_db, Vm0, Va0, settings,
+                consts, su.thresh, log=log, mesh=mesh)
+            conv = err <= su.thresh
             Vm, Va, err, n_it, hist, conv = (
                 mesh.all_gather(x, Bc, dim=-1)
                 for x in (Vm, Va, err, n_it, hist, conv))
@@ -1301,9 +1166,9 @@ def hpf_sweep_continuation_lanes(net: Network, devices, settings: Settings,
             lo, hi = mesh.bounds(B)
             bad = _read(log, torch.masked_select, bad,
                         (bad >= lo) & (bad < hi))
-            out = _continuation_rescue(V_m, V_a, err, n_iter, hist, conv,
-                                       bad, gather, cold_state, Y, lineY, m,
-                                       settings, consts, log, mesh=mesh)
+            out = _continuation_rescue(setup_of(bad), V_m, V_a, err,
+                                       n_iter, hist, conv, bad, settings,
+                                       log, mesh=mesh)
             out = tuple(mesh.all_gather(x[..., lo:hi], B, dim=-1)
                         for x in out)
             V_m, V_a, err, n_iter, hist, conv = out

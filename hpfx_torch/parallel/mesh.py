@@ -48,12 +48,11 @@ from typing import TYPE_CHECKING, Optional
 import torch
 import torch.distributed as dist
 
-from ..utils.profiling import spanned
+from ..utils.profiling import PhaseLog, spanned
 
 if TYPE_CHECKING:       # the solvers import this module: no cycle at run time
     from ..config import Settings
     from ..harmonic import HPFResult
-    from ..lanes import PhaseLog
     from ..network import Network
     from ..solve import Scenarios, SweepSummary
 
@@ -395,7 +394,7 @@ def hpf_sweep_sharded2d(net: Network, devices, settings: Settings,
     Build ``mesh`` with :func:`hpf_mesh`.  Requires the lanes-supported
     configuration (``Settings.solver="arrow"``); the batch is padded to
     the scenario axis, and every rank gets the whole batch-major
-    result.  ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` of this
+    result.  ``log``: optional :class:`hpfx_torch.utils.profiling.PhaseLog` of this
     rank's trips and reads."""
     from ..lanes import hpf_sweep_lanes, supports_lanes
 
@@ -456,7 +455,7 @@ def hpf_sweep_adaptive_sharded(net: Network, devices,
     convergence masks of the whole padded batch, gathered from every
     rank (and a tuple ``rescue_width``'s bucket from their global count),
     as the JAX program's ``argsort`` over the sharded batch chooses
-    them.  ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` of this
+    them.  ``log``: optional :class:`hpfx_torch.utils.profiling.PhaseLog` of this
     rank's phases."""
     from ..lanes import hpf_sweep_adaptive_lanes, supports_lanes
 

@@ -39,12 +39,11 @@ from .cx import Cx
 from .devices import DeviceLibrary, check_devices
 from .fundamental import FundResult, solve_fundamental
 from .harmonic import HPFResult, solve_harmonic
-from .lanes import (PhaseLog, _phase, _read, _sync, _trip,
-                    hpf_sweep_adaptive_lanes, hpf_sweep_lanes,
+from .lanes import (hpf_sweep_adaptive_lanes, hpf_sweep_lanes,
                     supports_lanes)
 from .network import Network
 from .results import get_thd
-from .utils.profiling import spanned
+from .utils.profiling import PhaseLog, _phase, _read, _sync, _trip, spanned
 from .ybus import build_ybus, line_ybus_pair, resolve_ybus
 
 
@@ -331,7 +330,7 @@ def hpf_sweep_device(net: Network, devices, settings: Settings,
     place of the adaptive sweep (the JAX package's ``jitted``); it also
     gets ``I_bg=`` when one is given.  ``I_bg``: optional (B, H, n)
     background injections, threaded through every rescue pass.
-    ``log``: optional :class:`hpfx_torch.lanes.PhaseLog` that records
+    ``log``: optional :class:`hpfx_torch.utils.profiling.PhaseLog` that records
     each phase's time, Newton trips and host reads (of the default
     program), the host rescue's passes as phases inside "host_rescue"."""
     program = _device_program(settings, phase_iters, warm, rescue_width,

@@ -4,7 +4,7 @@ check on every operation in place of ``jax_debug_nans``.
 
 The sweep path opens a span (:func:`span`) around each entry call
 (``hpfx.sweep``), each phase of a sweep (``hpfx.phase.<name>``, the
-names of :class:`hpfx_torch.lanes.PhaseLog`), each fundamental and
+names of :class:`PhaseLog`), each fundamental and
 harmonic Newton trip (``hpfx.fund_trip``, ``hpfx.trip``), each stage of
 a harmonic trip (``hpfx.trip.mismatch``, ``.blocks``, ``.block_solve``,
 ``.capacitance``, ``.backsub``, ``.update``, ``.read``), each batched
@@ -12,13 +12,21 @@ solve (``hpfx.solve``) and each collective of a mesh (``hpfx.gather``).
 A span is a ``record_function`` on the profiler's clock, the clock of
 its device records, so a trace puts every kernel and every idle gap of
 the card down to the span whose host code launched or waited for it.
-With no profiler recording, a span costs a flag read and a branch."""
+With no profiler recording, a span costs a flag read and a branch.
+
+:class:`PhaseLog` (``log=`` on the sweep entries) counts, beside the
+spans, each phase's host-clock seconds, Newton trips and host reads; the
+sweeps reach it through :func:`_phase`, :func:`_trip`, :func:`_read`,
+:func:`_clock` and :func:`_harmonic_trip`, which do nothing but the
+span without a log."""
 from __future__ import annotations
 
 import contextlib
 import functools
 import math
 import os
+import time
+from typing import Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -47,6 +55,118 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return call
     return wrap
+
+
+# ---------------------------------------------------------------------------
+# the phase log: wall time, Newton trips and host reads per phase
+# ---------------------------------------------------------------------------
+
+#: the key of :attr:`PhaseLog.reads` for reads made while no phase is open
+OUTSIDE = "outside"
+
+
+class PhaseLog:
+    """Wall time, Newton trips and host reads of each phase of a sweep.
+
+    Pass one as ``log=`` to ``hpfx_torch.lanes.hpf_sweep_adaptive_lanes``,
+    ``hpfx_torch.solve.hpf_sweep_device``, ``hpfx_torch.solve.
+    hpf_sweep_adaptive`` or the sharded entries of
+    ``hpfx_torch.parallel``.  A phase synchronises the device at its start
+    and end, so its time includes all the work it queued; that is one
+    synchronisation per phase boundary, on top of the one per trip the
+    loops already make.  A phase opened inside another (the host rescue's
+    passes) counts its own time and the enclosing one's as well; the
+    counts below go to the innermost phase alone.
+
+    ``trips`` counts Newton loop trips (fundamental and harmonic) run
+    inside the phase; ``harmonic_trips`` the harmonic ones, and
+    ``harmonic_trip_seconds`` their host-clock time, each from the return
+    of the previous convergence read to the return of its own: the read
+    waits for the trip's device work, so this adds no synchronisation.
+    ``reads`` counts the sweep's device-to-host reads (:func:`_read`: the
+    loops' convergence tests, the straggler counts and bucket indices), by
+    the phase open at each (:data:`OUTSIDE` where none is); the phases'
+    own synchronisations are not reads.  ``stragglers`` sums, over the
+    calls, the gathered lanes of ``hpf_sweep_adaptive_lanes`` still
+    unconverged after phase 1 (those a rank holds, under a mesh): the
+    calls where it grows are those whose rescue passes ran."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.trips = {}
+        self.reads = {}
+        self.harmonic_trips = {}
+        self.harmonic_trip_seconds = {}
+        self.stragglers = 0
+        self._current = None
+
+    @contextlib.contextmanager
+    def phase(self, name: str, device):
+        _sync(device)
+        t0 = time.perf_counter()
+        prev, self._current = self._current, name
+        for counts in (self.trips, self.reads, self.harmonic_trips):
+            counts.setdefault(name, 0)
+        self.harmonic_trip_seconds.setdefault(name, 0.0)
+        try:
+            with span("phase." + name):
+                yield
+        finally:
+            _sync(device)
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            self._current = prev
+
+    def trip(self):
+        if self._current is not None:
+            self.trips[self._current] += 1
+
+    def read(self):
+        key = OUTSIDE if self._current is None else self._current
+        self.reads[key] = self.reads.get(key, 0) + 1
+
+    def harmonic_trip(self, t_prev: float) -> float:
+        now = time.perf_counter()
+        if self._current is not None:
+            self.harmonic_trips[self._current] += 1
+            self.harmonic_trip_seconds[self._current] += now - t_prev
+        return now
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _phase(log: Optional[PhaseLog], name: str, device):
+    """Phase ``name`` of ``log``, or without one the phase's span alone."""
+    if log is not None:
+        return log.phase(name, device)
+    return span("phase." + name)
+
+
+def _trip(log: Optional[PhaseLog]):
+    if log is not None:
+        log.trip()
+
+
+def _read(log: Optional[PhaseLog], fn, *args):
+    """``fn(*args)``, a call that brings a value from the device to the
+    host (``bool(t.any())``, ``torch.nonzero``), counted in ``log``."""
+    if log is not None:
+        log.read()
+    return fn(*args)
+
+
+def _clock(log: Optional[PhaseLog]):
+    """The host clock where ``log`` times trips."""
+    return None if log is None else time.perf_counter()
+
+
+def _harmonic_trip(log: Optional[PhaseLog], t_prev):
+    """Count a harmonic trip whose convergence read has just returned;
+    returns the clock for the next."""
+    return None if log is None else log.harmonic_trip(t_prev)
 
 
 @contextlib.contextmanager

@@ -25,6 +25,9 @@ from hpfx import lanes as jl
 from hpfx import solve as jsolve
 from hpfx_torch import kron as tkron
 from hpfx_torch import lanes as tl
+from hpfx_torch.arrow import _make_arrow_consts
+from hpfx_torch.harmonic import cleanup_voltages, lifted_threshold
+from hpfx_torch.ybus import resolve_ybus
 
 from test_torch_foundations import (  # noqa: F401
     dev_leaves, net_leaves, one_torch_thread)
@@ -220,6 +223,164 @@ def test_device_continuation_f32():
     np.testing.assert_array_equal(to_np(rt.converged), to_np(rj.converged))
     assert to_np(rt.converged).all()
     close(phasor(rt), phasor(rj), F32_TOL)
+
+
+def _former(net, devices, settings, scenarios, n_stages):
+    """The former ``hpf_sweep_continuation_lanes`` on one device, for a
+    DeviceSet and per-scenario scales, without a log, kept as the
+    reference for its rescue: there a gathered lane already converged kept
+    a threshold lifted to its own error, so where the floor had lifted its
+    threshold it took a trip from its own state, and from the cold start
+    it ran until it met that error again, for results the pass then
+    dropped.  Returns the result, the gathered lanes converged with a
+    lifted threshold and, for each rescue pass, the trips its loop ran and
+    the most trips a lane whose result it kept took there."""
+    H, n, m, c = settings.n_harmonics, net.n, net.m, net.c
+    rd, dv = settings.real_dtype, net.device
+    B = scenarios.p_scale.shape[0]
+    Y, lineY, lineY_f = resolve_ybus(net, settings)
+    key = scenarios.injection_scale.to(rd)
+    inj_db = tl._as_inj_db(key, n - m, B)
+    dev = tl._as_lane_devices(devices)
+    S = tl.Cx(tl._scale_cols(net.bus_P, scenarios.p_scale),
+              tl._scale_cols(net.bus_Q, scenarios.q_scale))
+    order = torch.argsort(key, stable=True)
+    Bc = -(-B // n_stages)
+    order_p = torch.cat([order, order[-1:].expand(n_stages * Bc - B)])
+
+    def gather(sel):
+        g = lambda x: x.index_select(-1, sel)
+        return tl.Cx(g(S.re), g(S.im)), g(inj_db), dev
+
+    def cold_state(S_k, Bk):
+        fund = tl.solve_fundamental_lanes(Y[0], S_k, net, settings, Bk,
+                                          lineY_f)
+        Vm = torch.full((H, n, Bk), settings.v_init_h, dtype=rd, device=dv)
+        Va = torch.full((H, n, Bk), settings.a_init_h, dtype=rd, device=dv)
+        Vm[0], Va[0] = fund.V_m, fund.V_a
+        return Vm, Va
+
+    consts = _make_arrow_consts(H, n, m, c, rd, dv)
+    pVm = torch.zeros((H, n, Bc), dtype=rd, device=dv)
+    pVa = torch.zeros_like(pVm)
+    pK = torch.zeros((Bc,), dtype=rd, device=dv)
+    pConv = torch.zeros((Bc,), dtype=rd, device=dv)
+    outs = []
+    for st in range(n_stages):
+        sel = order_p[st * Bc:(st + 1) * Bc]
+        S_c, inj_c, dev_c = gather(sel)
+        kc = key.index_select(0, sel)
+        coldVm, coldVa = cold_state(S_c, Bc)
+        dist = (kc[:, None] - pK[None, :]).abs() \
+            + 1e30 * (1.0 - pConv)[None, :]
+        j = torch.argmin(dist, dim=1)
+        haveprev = (pConv > 0).any()
+        Vm0 = torch.where(haveprev, pVm[:, :, j], coldVm)
+        Va0 = torch.where(haveprev, pVa[:, :, j], coldVa)
+        thresh = tl._thresh_lanes(coldVm, Y, dev_c, inj_c, m, settings)
+        Vm, Va, err, n_it, hist = tl.nr_trip_lanes(
+            Y, lineY, S_c, dev_c, inj_c, Vm0, Va0, settings, consts, thresh)
+        conv = err <= thresh
+        pVm, pVa, pK, pConv = Vm, Va, kc, conv.to(rd)
+        outs.append((Vm, Va, err, n_it, hist, conv))
+
+    def unchunk(xs):
+        flat = torch.cat(xs, dim=-1)[..., :B]
+        out = torch.zeros_like(flat)
+        out[..., order] = flat
+        return out
+
+    V_m, V_a, err, n_iter, hist, conv = map(unchunk, zip(*outs))
+
+    # the former _continuation_rescue
+    bad = torch.argsort(conv.to(rd), stable=True)[:min(Bc, B)]
+    was_bad = ~conv[bad]
+    g = lambda x: x.index_select(-1, bad)
+    S_k, inj_k, dev_k = gather(bad)
+    coldVm, coldVa = cold_state(S_k, bad.shape[0])
+    thresh_k = tl._thresh_lanes(coldVm, Y, dev_k, inj_k, m, settings)
+    lifted = int((lifted_threshold(thresh_k, settings) & conv[bad]).sum())
+    passes = []
+
+    def rescue_pass(Vmk, Vak, errk, nitk, histk, convk, Vm0, Va0):
+        thresh_r = torch.where(convk, torch.maximum(thresh_k, errk),
+                               thresh_k)
+        Vm2, Va2, err2, nit2, hist2 = tl.nr_trip_lanes(
+            Y, lineY, S_k, dev_k, inj_k, Vm0, Va0, settings, consts,
+            thresh_r)
+        redo = ~convk
+        passes.append((int(nit2.max()), int(torch.where(redo, nit2, 0).max())))
+        return (torch.where(redo[None, None, :], Vm2, Vmk),
+                torch.where(redo[None, None, :], Va2, Vak),
+                torch.where(redo, err2, errk),
+                nitk + torch.where(redo, nit2, 0),
+                torch.where(redo[None, :], hist2, histk),
+                convk | (redo & (err2 <= thresh_r)))
+
+    Vmk, Vak = g(V_m), g(V_a)
+    finite = (torch.isfinite(Vmk).flatten(0, 1).all(dim=0)
+              & torch.isfinite(Vak).flatten(0, 1).all(dim=0))
+    use_self = (finite | conv[bad])[None, None, :]
+    state = (Vmk, Vak, err[bad], n_iter[bad], g(hist), conv[bad])
+    state = rescue_pass(*state, torch.where(use_self, Vmk, coldVm),
+                        torch.where(use_self, Vak, coldVa))
+    state = rescue_pass(*state, coldVm, coldVa)
+
+    def sc(full, kk, mask):
+        out = full.clone()
+        out[..., bad] = torch.where(mask, kk, g(full))
+        return out
+
+    lane = was_bad[None, None, :]
+    V_m, V_a = cleanup_voltages(sc(V_m, state[0], lane),
+                                sc(V_a, state[1], lane))
+    res = ht.HPFResult(V_m=torch.movedim(V_m, -1, 0),
+                       V_a=torch.movedim(V_a, -1, 0),
+                       err=sc(err, state[2], was_bad),
+                       n_iter=sc(n_iter, state[3], was_bad),
+                       err_hist=sc(hist, state[4], was_bad[None, :]).T,
+                       converged=sc(conv, state[5], was_bad), fund=None)
+    return res, lifted, passes
+
+
+@pytest.mark.parametrize("dtype,thresh_h", [("float32", 1e-6),
+                                            ("float64", 1e-14)],
+                         ids=["float32", "float64"])
+def test_device_continuation_rescue_is_the_former(dtype, thresh_h):
+    """The device continuation's rescue, the adaptive sweep's gathered pass
+    since it shares it, against its former copy: every output bit for
+    bit, and the rescue's harmonic trips those of the lanes whose results
+    it keeps.  net2 H<=25 at B=16 in 4 stages, 10 trips of budget: the
+    stages leave stragglers and the warm pass converges every one of them,
+    so the cold pass keeps nothing; ``thresh_h`` lies below the
+    floor-aware threshold of some gathered lanes that had converged."""
+    s = ht.settings_for_hmax(25, coupled=True, dtype=dtype).with_(
+        solver="arrow", stable_mismatch=True, max_iter_h=10,
+        thresh_h=thresh_h)
+    net = ht.load_network(f"{DATA}/net2_buses.csv", f"{DATA}/net2_lines.csv",
+                          s, device="cpu")
+    dev = ht.load_device_set(net, s)
+    gen = torch.Generator().manual_seed(13)
+    u = lambda lo, hi: (lo + (hi - lo) * torch.rand(16, generator=gen,
+                                                    dtype=torch.float64)
+                        ).to(s.real_dtype)
+    sc = ht.Scenarios(u(0.85, 1.15), u(0.85, 1.15), u(0.6, 1.4))
+    log = ht.PhaseLog()
+    res = tl.hpf_sweep_continuation_lanes(net, dev, s, sc, n_stages=4,
+                                          log=log)
+    ref, lifted, ((_, warm), (cold_loop, cold)) = _former(net, dev, s, sc, 4)
+    assert res.V_m.dtype == s.real_dtype
+    for k in ("V_m", "V_a", "err", "n_iter", "converged"):
+        assert torch.equal(getattr(res, k), getattr(ref, k)), k
+    h, hr = res.err_hist, ref.err_hist
+    assert torch.equal(torch.isnan(h), torch.isnan(hr))
+    assert torch.equal(torch.nan_to_num(h), torch.nan_to_num(hr))
+
+    assert bool(res.converged.all()) and lifted > 0 and warm > 0
+    # the former cold pass ran the converged lanes again and kept nothing;
+    # each pass now runs as long as the lanes it keeps
+    assert cold == 0 < cold_loop
+    assert log.harmonic_trips["rescue"] == warm + cold
 
 
 # ---------------------------------------------------------------------------

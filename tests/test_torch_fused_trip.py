@@ -23,7 +23,7 @@ from hpfx.solve import hpf_sweep as j_sweep
 from hpfx.ybus import build_ybus as j_ybus
 from hpfx.ybus import line_ybus_pair as j_line_pair
 from hpfx_torch import fused_trip as tf
-from hpfx_torch.lanes import _make_arrow_consts
+from hpfx_torch.arrow import _make_arrow_consts
 from hpfx_torch.ybus import line_ybus_pair
 
 from test_torch_foundations import (  # noqa: F401

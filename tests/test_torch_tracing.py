@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import hpfx_torch as ht
 from hpfx_torch import lanes
+from hpfx_torch.utils.profiling import OUTSIDE
 from test_torch_foundations import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
@@ -124,7 +125,7 @@ def test_reads_count_every_trip_and_the_loops_first_test(traced):
     assert sum(log.reads.values()) > sum(log.trips.values())
     if name == "net2":
         # the device schedule's straggler choice and its rescue test
-        assert log.reads[lanes.OUTSIDE] >= 2
+        assert log.reads[OUTSIDE] >= 2
 
 
 def test_harmonic_trips_are_the_loops_trips(monkeypatch):
