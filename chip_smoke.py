@@ -288,6 +288,14 @@ kernels, and checks them:
      twin, without and with the
      equilibration inside, timed beside torch.linalg.solve and the bound,
      at every shape (a, b) and (c) launched that no check covered.
+ 27. the arrow step's capacitance assembly on the first harmonic trip's
+     operands of the IEEE 33-bus feeder (portbench/configs/ieee33bw.json,
+     H<=25, r = 832, B = 512) and of net1 (H<=25, r = 182, B = 2048),
+     both from the cold start of hpf_sweep_adaptive: the former dense
+     form (dense_capacitance_system) and lanes._capacitance_system_lanes
+     in turns, each timed with CUDA events, with the bytes its operations
+     write (WrittenBytes) and its peak of allocated memory; S_w within
+     1e-6 and rhs_w within 1e-5 of their scales of each other.
 
 Phase 2 also holds gj_kernel and gj_kernel_carried as the batch-major
 dispatcher (ht.batched_solve) runs them at the dense path's shapes and
@@ -330,6 +338,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false — no result")
@@ -4356,6 +4366,136 @@ def phase26(gen, rows):
     return launches, shapes, schur_rows
 
 
+def dense_capacitance_system(K_V, K_A, Gblocks, Vz, sl):
+    """The capacitance assembly as the arrow step made it before its
+    d = d' form: the dense coupling matrix C (r, r, b) by an einsum against
+    an identity, C·G by a batched product over it, I + C·G, and C·V^T z."""
+    H, _, n_nl, _ = K_V.re.shape
+    r, r_blk, b = 2 * H * n_nl, 2 * n_nl, sl.stop - sl.start
+    rd, dv = Vz.dtype, Vz.device
+    off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
+    KV, KA = K_V[..., sl], K_A[..., sl]
+    zero = torch.zeros_like(KV.re)
+    m = lambda x: torch.where(off, x, zero)
+    Cfull = torch.stack([torch.stack([m(KA.re), m(KV.re)], dim=-1),
+                         torch.stack([m(KA.im), m(KV.im)], dim=-1)], dim=-2)
+    eye_d = torch.eye(n_nl, dtype=rd, device=dv)
+    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(r, r, b)
+    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, b),
+                      Gblocks[..., sl])
+    S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(r, r, b)
+    return S_w, torch.einsum("rub,ub->rb", C, Vz[:, sl])
+
+
+class WrittenBytes(TorchDispatchMode):
+    """Sums the bytes of every tensor an operation writes: its new
+    outputs and those it writes in place or into ``out=``, not views of
+    its inputs nor the uninitialised memory of an ``empty``."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if "empty" in func._schema.name:
+            return out
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        ins = {t.untyped_storage().data_ptr()
+               for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)}
+        for ret, t in zip(func._schema.returns, outs):
+            if not isinstance(t, torch.Tensor):
+                continue
+            alias = ret.alias_info
+            if (alias is not None and alias.is_write) or (
+                    alias is None
+                    and t.untyped_storage().data_ptr() not in ins):
+                self.bytes += t.numel() * t.element_size()
+        return out
+
+
+class _Captured(Exception):
+    pass
+
+
+def first_trip_operands(s, net, dev, Bt):
+    """The operands of the first harmonic trip's capacitance assembly of
+    hpf_sweep_adaptive from the cold start on Bt scenarios."""
+    inner = lanes._capacitance_system_lanes
+
+    def capture(*args):
+        raise _Captured(args)
+
+    lanes._capacitance_system_lanes = capture
+    try:
+        ht.hpf_sweep_adaptive(net, dev, s, scen(0, Bt), phase_iters=24,
+                              phase2_settings=s, warm="cold")
+    except _Captured as got:
+        return got.args[0]
+    finally:
+        lanes._capacitance_system_lanes = inner
+    raise RuntimeError("the sweep made no capacitance assembly")
+
+
+def assembly_case(tag, operands):
+    """The former dense assembly and the d = d' one on ``operands``, in
+    turns: ms (CUDA events), bytes written, peak allocated bytes."""
+    forms = {"dense (parent)": dense_capacitance_system,
+             "d = d' (change)": lanes._capacitance_system_lanes}
+    out = {}
+    for name, fn in forms.items():
+        with WrittenBytes() as wb:
+            S_w, rhs = fn(*operands)
+        torch.cuda.synchronize()
+        del S_w, rhs
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*operands)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[name] = {"bytes_written": wb.bytes, "peak_bytes": peak}
+    for name, fn in list(forms.items()) * 2:
+        out[name].setdefault("ms", []).append(
+            time_ms(lambda: fn(*operands), 5))
+    (S0, r0), (S1, r1) = (fn(*operands) for fn in forms.values())
+    dS = float((S1 - S0).abs().max() / S0.abs().max())
+    dr = float((r1 - r0).abs().max() / r0.abs().max())
+    r, _, b = S0.shape
+    log(f"[27] {tag} (r, B) = ({r}, {b}): S_w {r * r * b * 4} bytes; "
+        f"max |dS_w| {dS:.3e}, |drhs_w| {dr:.3e} of their scales; "
+        f"S_w bit for bit: {bool(torch.equal(S0, S1))}")
+    for name, row in out.items():
+        log(f"[27] {tag} {name}: ms {row['ms']}, bytes written "
+            f"{row['bytes_written']}, peak allocated {row['peak_bytes']}")
+    check(dS <= 1e-6 and dr <= 1e-5, f"[27] {tag}: the assemblies differ")
+    return out
+
+
+def phase27():
+    """The capacitance assembly, former and d = d', on the first trip's
+    operands of the IEEE 33-bus feeder and of net1 at H<=25."""
+    t0 = time.perf_counter()
+    with open(os.path.join(REPO, "portbench", "configs",
+                           "ieee33bw.json")) as fh:
+        cfg = json.load(fh)
+    path = lambda p: os.path.join(REPO, p)
+    s = ht.settings_for_hmax(H_MAX, **cfg["settings"])
+    net = ht.load_network(path(cfg["buses"]), path(cfg["lines"]), s,
+                          device=DEV)
+    dev = ht.load_device_set(net, s,
+                             search_dirs=(path(cfg["device_tables"]),))
+    rows = {"ieee33bw": assembly_case(
+        "ieee33bw", first_trip_operands(s, net, dev, 512))}
+    s, net, dev = fixture_net("net1", H_MAX)
+    rows["net1"] = assembly_case(
+        "net1", first_trip_operands(s, net, dev, B_NET1))
+    torch.cuda.empty_cache()
+    log(f"[27] {time.perf_counter() - t0:.1f} s: {json.dumps(rows)}")
+    return rows
+
+
 def new_shapes(before, gen, rows, phases="18-25", tag="21"):
     """Each direct kernel at the shapes ``phases`` launched, and the panel
     kernel at every shape any phase launched (the host rescues' bucket
@@ -4425,6 +4565,7 @@ def main():
             if k == name}
         check(sum(row["launches_by_shape"].values()) == row["launches"],
               f"{name}: launches by shape do not add up")
+    phase27()
     t_run = time.perf_counter() - t_start
     lo, hi = BEFORE_22_RUN_S
     log(f"[10] whole run {t_run:.1f} s; before phase 22 the runs took "

@@ -298,6 +298,43 @@ def solve_capacitance_lanes(S_w, rhs, big_solve: str = "auto"):
     return batched_solve_lanes(S_w, rhs[:, None, :], impl=big_solve)[:, 0]
 
 
+def _capacitance_system_lanes(K_V: Cx, K_A: Cx, Gblocks, Vz, lanes: slice):
+    """The Woodbury capacitance system of the lanes ``lanes``: S_w = I +
+    C·G (r, r, b) and rhs_w = C·V^T z (r, b), r = 2·H·n_nl, from K_V/K_A
+    (H, H, n_nl, B), ``Gblocks`` (H, 2n_nl, 2n_nl, B) and ``Vz`` (r, B).
+
+    C couples harmonic p into h != p at one nonlinear bus: its row (h, ρ,
+    d) (ρ: Re, Im) meets its column (p, c, e) (c: angle, magnitude) only
+    where e = d.  So (C·G)[(h, ρ, d), (p, t)] = Σ_c A[h, ρ, d, p, c]·
+    G[p, (c, d), t]: two broadcast products, the lanes innermost, write
+    S_w once, and no dense C exists.  rhs_w sums its 2H products one
+    fused multiply-add at a time, from the last (p, c) to the first: any
+    order rounds as well, and the CPU tests that follow net1's chaotic
+    Newton transient against the JAX package keep, with this one, at
+    least the margins the dense product left them."""
+    H, _, n_nl, _ = K_V.re.shape
+    r = 2 * H * n_nl
+    off = ~torch.eye(H, dtype=torch.bool, device=Vz.device)[:, :, None, None]
+    # A[h, ρ, d, p, c, b]: the h != p coupling terms
+    A = torch.stack([torch.where(off, k[..., lanes], 0.0)
+                     for k in (K_A.re, K_V.re, K_A.im, K_V.im)])
+    A = A.unflatten(0, (2, 2)).permute(2, 0, 4, 3, 1, 5)
+    b = A.shape[-1]
+    # G[c, d, p, t, b]
+    G = Gblocks[..., lanes].unflatten(1, (2, n_nl)).permute(1, 2, 0, 3, 4)
+    S_w = Vz.new_empty((H, 2, n_nl, H, 2 * n_nl, b))
+    torch.mul(A[..., 0, None, :], G[0], out=S_w)
+    S_w.addcmul_(A[..., 1, None, :], G[1])
+    S_w = S_w.view(r, r, b)
+    S_w.diagonal(0, 0, 1).add_(1.0)
+    V = Vz[:, lanes].view(H, 2, n_nl, b)
+    rhs_w = A.new_zeros((H, 2, n_nl, b))
+    for p in reversed(range(H)):
+        for c in (1, 0):
+            rhs_w.addcmul_(A[:, :, :, p, c], V[p, c])
+    return S_w, rhs_w.view(r, b)
+
+
 def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
                      consts: _ArrowConsts, big_solve: str = "auto",
                      mesh=ALONE):
@@ -417,30 +454,9 @@ def arrow_step_lanes(V_m, V_a, f, Y: Cx, devices, inj,
             Gblocks = zG[:, r_blk:].reshape(H, r_blk, r_blk, B)
         Vz = Vz.reshape(r, B)
 
-        # dense coupling matrix C (r, r, b) of this rank's lanes: h != p,
-        # d == d' entries only
-        lanes = slice(l0, l1)
-        off = ~torch.eye(H, dtype=torch.bool, device=dv)[:, :, None, None]
-        KV, KA = K_V[..., lanes], K_A[..., lanes]
-        zero = torch.zeros_like(KV.re)
-        KVr = torch.where(off, KV.re, zero)
-        KVi = torch.where(off, KV.im, zero)
-        KAr = torch.where(off, KA.re, zero)
-        KAi = torch.where(off, KA.im, zero)
-        eye_d = torch.eye(n_nl, dtype=rd, device=dv)
-        # (H, H, n_nl, b, rc, c): rows use (Re, Im), cols use (angle,
-        # magnitude)
-        Cfull = torch.stack([torch.stack([KAr, KVr], dim=-1),
-                             torch.stack([KAi, KVi], dim=-1)], dim=-2)
-        C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(
-            r, r, l1 - l0)
-
-        CG = torch.einsum("rpsb,pstb->rptb",
-                          C.reshape(r, H, r_blk, l1 - l0),
-                          Gblocks[..., lanes])
-        S_w = torch.eye(r, dtype=rd, device=dv)[:, :, None] + CG.reshape(
-            r, r, l1 - l0)
-        rhs_w = torch.einsum("rub,ub->rb", C, Vz[:, lanes])
+        with _span("trip.assemble"):
+            S_w, rhs_w = _capacitance_system_lanes(K_V, K_A, Gblocks, Vz,
+                                                   slice(l0, l1))
         y = rhs_w
         if l1 > l0:
             y = solve_capacitance_lanes(S_w, rhs_w, big_solve)

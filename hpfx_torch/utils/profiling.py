@@ -7,7 +7,8 @@ The sweep path opens a span (:func:`span`) around each entry call
 names of :class:`PhaseLog`), each fundamental and
 harmonic Newton trip (``hpfx.fund_trip``, ``hpfx.trip``), each stage of
 a harmonic trip (``hpfx.trip.mismatch``, ``.blocks``, ``.block_solve``,
-``.capacitance``, ``.backsub``, ``.update``, ``.read``), each batched
+``.capacitance`` and inside it the system's assembly ``.assemble``,
+``.backsub``, ``.update``, ``.read``), each batched
 solve (``hpfx.solve``) and each collective of a mesh (``hpfx.gather``).
 A span is a ``record_function`` on the profiler's clock, the clock of
 its device records, so a trace puts every kernel and every idle gap of

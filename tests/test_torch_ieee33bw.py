@@ -4,7 +4,9 @@ are what ``make.py`` writes, the published feeder's power flow is the
 published one, each substation's power electronics draw their share, and
 the port's host schedule agrees with the benchmark's float64 reference
 (``portbench/reference/hpf_ref.py``) on the split feeder.  Also: the
-arrow step's two solves are the module functions that a trace wraps."""
+arrow step's two solves are the module functions that a trace wraps, and
+the arrow step and a short sweep come out of the capacitance assembly as
+they came out of the former dense one."""
 import filecmp
 import importlib.util
 import json
@@ -26,6 +28,7 @@ sys.path.insert(0, BENCH)
 
 from harness import check  # noqa: E402
 from reference import hpf_ref  # noqa: E402
+from test_torch_lanes import dense_capacitance_system  # noqa: E402
 
 
 def _json(*parts):
@@ -112,6 +115,18 @@ def _scales(B, seed=11):
     return 0.8 + 0.4 * u[0], 0.8 + 0.4 * u[1], 0.6 + 0.8 * u[2]
 
 
+def _feeder(h_max, **kw):
+    """(settings, network, devices) of the split feeder on the CPU at the
+    configuration's settings, ``kw`` over them."""
+    s = _settings(h_max, **kw)
+    path = lambda f: os.path.join(ROOT, f)
+    net = ht.load_network(path(CONFIG["buses"]), path(CONFIG["lines"]), s,
+                          device="cpu")
+    dev = ht.load_device_set(net, s,
+                             search_dirs=(path(CONFIG["device_tables"]),))
+    return s, net, dev
+
+
 @pytest.mark.parametrize("dtype,thresh_h,tol", [
     # float64 stopped far below the rounding of either: the two agree to
     # the reference's own convergence
@@ -128,12 +143,7 @@ def test_the_host_schedule_is_the_reference(dtype, thresh_h, tol):
     kw = {"dtype": dtype}
     if thresh_h is not None:
         kw["thresh_h"] = thresh_h
-    s = _settings(h_max, **kw)
-    path = lambda f: os.path.join(ROOT, f)
-    net = ht.load_network(path(CONFIG["buses"]), path(CONFIG["lines"]), s,
-                          device="cpu")
-    dev = ht.load_device_set(net, s,
-                             search_dirs=(path(CONFIG["device_tables"]),))
+    s, net, dev = _feeder(h_max, **kw)
     rd = s.real_dtype
     r = ht.hpf_sweep_adaptive(
         net, dev, s, ht.Scenarios(p.to(rd), q.to(rd), sc.to(rd)),
@@ -198,3 +208,62 @@ def test_the_trip_calls_its_two_solves_through_the_module(monkeypatch):
     for a, b in ((plain.V_m, seen.V_m), (plain.V_a, seen.V_a),
                  (plain.err, seen.err)):
         assert torch.equal(a, b)
+
+
+def _scenarios(B, s):
+    return ht.Scenarios(*(x.to(s.real_dtype) for x in _scales(B)))
+
+
+def _arrow_steps(h_max, dtype, B, monkeypatch):
+    """One arrow step of the feeder on B lanes from the exact-linear seed,
+    with the d = d' capacitance assembly and with the former dense one."""
+    s, net, dev = _feeder(h_max, dtype=dtype)
+    su = lanes._sweep_setup(net, dev, s, _scenarios(B, s))
+    V_m, V_a = lanes._linear_seed_lanes(su, net, s)
+    f, _ = lanes.mismatch_lanes(V_m, V_a, su.Y, su.S, su.dev, su.inj_db,
+                                net.m, net.n, net.c, su.lineY)
+    step = lambda: lanes.arrow_step_lanes(V_m, V_a, f, su.Y, su.dev,
+                                          su.inj_db, su.consts,
+                                          big_solve=s.big_solve)
+    dx = step()
+    with monkeypatch.context() as mp:
+        mp.setattr(lanes, "_capacitance_system_lanes",
+                   dense_capacitance_system)
+        return dx, step()
+
+
+def test_the_arrow_step_is_the_dense_assemblys(monkeypatch):
+    """One arrow step of the feeder at H<=25 (832 capacitance rows) on 3
+    lanes gives the dx of the former dense capacitance assembly: to 1e-6
+    of its scale in float64.  In float32 the solve of the 832-row system
+    magnifies the rounding of the two assemblies' sums (the d = d' one
+    adds the same terms in another order) to ~2e-6 of the scale, against
+    ~1.5e-3 between either float32 step and the float64 one: there the
+    two agree to 1e-5 of the scale and lie as far from float64 within 1%."""
+    dx, dx_ref = _arrow_steps(25, "float64", 3, monkeypatch)
+    scale = float(dx_ref.abs().max())
+    assert float((dx - dx_ref).abs().max()) <= 1e-6 * scale
+    dx32, dx32_ref = _arrow_steps(25, "float32", 3, monkeypatch)
+    assert float((dx32 - dx32_ref).abs().max()) <= 1e-5 * scale
+    err = lambda d: float((d.double() - dx).abs().max())
+    assert err(dx32) <= 1.01 * err(dx32_ref)
+
+
+def test_a_short_sweep_keeps_its_newton_trips(monkeypatch):
+    """The feeder's device sweep at H<=9 on 8 lanes from the exact-linear
+    seed, in the configuration's float32: the Newton trips and converged
+    flags of the former dense capacitance assembly, and its voltages to
+    1e-5 pu and rad.  (From the cold start the feeder's Newton transient
+    runs 15-28 trips and parts on rounding alone, float64 too.)"""
+    s, net, dev = _feeder(9, dtype="float32")
+    run = lambda: ht.hpf_sweep_device(net, dev, s, _scenarios(8, s),
+                                      phase_iters=24, warm="linear")
+    got = run()
+    monkeypatch.setattr(lanes, "_capacitance_system_lanes",
+                        dense_capacitance_system)
+    ref = run()
+    assert bool(ref.converged.all())
+    assert torch.equal(got.n_iter, ref.n_iter)
+    assert torch.equal(got.converged, ref.converged)
+    assert float((got.V_m - ref.V_m).abs().max()) <= 1e-5
+    assert float((got.V_a - ref.V_a).abs().max()) <= 1e-5

@@ -4,7 +4,8 @@ B=16 in float64 on the CPU, on net2 (coupled and uncoupled) and on net1
 the arrow Newton step, the exact-linear seed and the harmonic Newton trip.
 Both packages start from the same inputs (hpfx_torch.convert).  In
 float64 every solve is LU in both packages; the float32 panel twin is
-covered by test_torch_ops.py."""
+covered by test_torch_ops.py.  Also the arrow step's capacitance assembly
+against the former dense one, at the cells' capacitance shapes."""
 import dataclasses
 import os
 
@@ -12,12 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import hpfx
 import hpfx_torch as ht
 from hpfx import lanes as jl
 from hpfx.solve import Scenarios as JScen
-from hpfx_torch import lanes as tl
+from hpfx_torch import cx, lanes as tl
 from hpfx_torch.solve import Scenarios as TScen
 
 from test_torch_foundations import (  # noqa: F401
@@ -174,3 +177,106 @@ def test_nr_trip(case):
     _close(j[2], t[2], scale=res)                      # err
     _close(j[4], t[4], scale=res)                      # err_hist
     np.testing.assert_array_equal(np.asarray(j[3]), t[3].numpy())
+
+
+# ---------------------------------------------------------------------------
+# the capacitance assembly against the former dense one
+# ---------------------------------------------------------------------------
+
+def dense_capacitance_system(K_V, K_A, Gblocks, Vz, lanes):
+    """The capacitance assembly as the arrow step made it before its
+    d = d' form: the dense coupling matrix C (r, r, b) by an einsum against
+    an identity, C·G by a batched product over it, I + C·G, and C·V^T z."""
+    H, _, n_nl, _ = K_V.re.shape
+    r, r_blk, b = 2 * H * n_nl, 2 * n_nl, lanes.stop - lanes.start
+    rd = Vz.dtype
+    off = ~torch.eye(H, dtype=torch.bool)[:, :, None, None]
+    KV, KA = K_V[..., lanes], K_A[..., lanes]
+    zero = torch.zeros_like(KV.re)
+    m = lambda x: torch.where(off, x, zero)
+    Cfull = torch.stack([torch.stack([m(KA.re), m(KV.re)], dim=-1),
+                         torch.stack([m(KA.im), m(KV.im)], dim=-1)], dim=-2)
+    eye_d = torch.eye(n_nl, dtype=rd)
+    C = torch.einsum("hpdbrc,de->hrdpceb", Cfull, eye_d).reshape(r, r, b)
+    CG = torch.einsum("rpsb,pstb->rptb", C.reshape(r, H, r_blk, b),
+                      Gblocks[..., lanes])
+    S_w = torch.eye(r, dtype=rd)[:, :, None] + CG.reshape(r, r, b)
+    return S_w, torch.einsum("rub,ub->rb", C, Vz[:, lanes])
+
+
+def _assembly_operands(n_nl, dtype, H=13, B=5, seed=3):
+    """Random K_V, K_A (H, H, n_nl, B), G blocks (H, 2n_nl, 2n_nl, B) and
+    V^T z (r, B), the diagonal h == p terms included (the assembly drops
+    them)."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, dtype=dtype)
+    K = lambda: cx.Cx(rn(H, H, n_nl, B), rn(H, H, n_nl, B))
+    return (K(), K(), rn(H, 2 * n_nl, 2 * n_nl, B),
+            20 * rn(2 * H * n_nl, B))
+
+
+#: the capacitance shapes of the cells at H<=25 (13 harmonics): the IEEE
+#: 33-bus feeder (32 nonlinear buses), net1 (7) and net2 (1)
+N_NL = {"ieee33bw": 32, "net1": 7, "net2": 1}
+#: the whole batch and a rank's share of it under a mesh
+LANES = {"all": slice(0, 5), "share": slice(2, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("lanes", LANES.values(), ids=LANES.keys())
+@pytest.mark.parametrize("n_nl", N_NL.values(), ids=N_NL.keys())
+def test_capacitance_system_is_the_dense_one(n_nl, lanes, dtype):
+    """S_w = I + C·G and rhs_w = C·V^T z from the d = d' terms against the
+    former dense assembly.  Each entry of C·G sums two products, which the
+    dense batched product may round in another order: S_w is held to two
+    roundings of |C|·|G| + I (on the CPU it comes out bit for bit wherever
+    the dense product also summed zeros, n_nl > 1), rhs_w to the rounding
+    of its sums."""
+    K_V, K_A, G, Vz = _assembly_operands(n_nl, dtype)
+    S_w, rhs = tl._capacitance_system_lanes(K_V, K_A, G, Vz, lanes)
+    S_ref, rhs_ref = dense_capacitance_system(K_V, K_A, G, Vz, lanes)
+    assert S_w.shape == S_ref.shape and S_w.is_contiguous()
+    absK = lambda k: cx.Cx(k.re.abs(), k.im.abs())
+    S_abs, _ = dense_capacitance_system(absK(K_V), absK(K_A), G.abs(), Vz,
+                                        lanes)
+    eps = torch.finfo(dtype).eps
+    assert ((S_w - S_ref).abs() <= 2 * eps * S_abs).all()
+    if n_nl > 1:
+        assert torch.equal(S_w, S_ref)
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    scale = float(rhs_ref.abs().max())
+    torch.testing.assert_close(rhs, rhs_ref, rtol=tol, atol=tol * scale)
+
+
+class _LargeOutputs(TorchDispatchMode):
+    """Counts the operations whose output holds at least ``size``
+    elements in storage of its own (not a view of an input)."""
+
+    def __init__(self, size):
+        super().__init__()
+        self.size, self.ops = size, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = {t.untyped_storage().data_ptr()
+               for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.numel() >= self.size \
+                    and t.untyped_storage().data_ptr() not in ins:
+                self.ops.append(func._schema.name)
+        return out
+
+
+@pytest.mark.parametrize("n_nl", [N_NL["ieee33bw"], N_NL["net1"]],
+                         ids=["ieee33bw", "net1"])
+def test_capacitance_system_allocates_s_w_alone(n_nl):
+    """The assembly makes one tensor of r·r·b elements, S_w, and writes it
+    in place: no dense C, no C·G, no permuted copy of either.  (At one
+    nonlinear bus the coupling terms alone hold r·r·b.)"""
+    K_V, K_A, G, Vz = _assembly_operands(n_nl, torch.float32)
+    r, b = Vz.shape
+    with _LargeOutputs(r * r * b) as seen:
+        tl._capacitance_system_lanes(K_V, K_A, G, Vz, slice(0, b))
+    assert seen.ops == ["aten::new_empty"]

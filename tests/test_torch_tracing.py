@@ -106,6 +106,22 @@ def test_one_trip_span_per_counted_trip(traced):
     assert len(by["hpfx.solve"]) >= 2 * n_h
 
 
+def test_the_assembly_span_lies_inside_the_capacitance_span(traced):
+    """One ``hpfx.trip.assemble`` a trip, inside its trip's
+    ``hpfx.trip.capacitance`` and before the capacitance solve's
+    ``hpfx.solve`` there."""
+    _, _, log, _, spans = traced
+    by = collections.defaultdict(list)
+    for sp in spans:
+        by[sp[0]].append(sp)
+    got = by["hpfx.trip.assemble"]
+    assert len(got) == sum(log.harmonic_trips.values()) > 0
+    for sp, cap in zip(got, by["hpfx.trip.capacitance"]):
+        assert _inside(sp, cap)
+        solves = [x for x in by["hpfx.solve"] if _inside(x, cap)]
+        assert solves and all(sp[2] <= x[1] for x in solves)
+
+
 def test_tracing_changes_no_result(traced):
     """The sweep with a log under the profiler returns the plain sweep's
     result bit for bit (NaN-padded histories equal themselves)."""
